@@ -2,11 +2,11 @@
 
 The JAX package `g2vlm_tpu` stays the reference; every module here mirrors
 its counterpart's name and is held against it by the tests/test_torch_*.py
-parity tests. This package imports torch and never jax: the only thing it
-takes from `g2vlm_tpu` is the jax-free config module (and the numpy-only
-`data/images.py`). Attention runs through two hand-written CUDA kernels
-(`ops/flash_attention.py`, `csrc/attention.cu`) on CUDA tensors and through
-their plain PyTorch versions on CPU tensors.
+parity tests. This package imports torch, never jax, and nothing of
+`g2vlm_tpu`: it keeps its own copies of the config and image modules.
+Attention, forward and backward, runs through hand-written CUDA kernels
+(`ops/flash_attention.py`, `csrc/attention.cu`, `csrc/attention_bwd.cu`) on
+CUDA tensors and through their plain PyTorch versions on CPU tensors.
 """
 
 __version__ = "0.1.0"

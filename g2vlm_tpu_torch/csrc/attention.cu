@@ -1,4 +1,5 @@
 // Flash attention forward kernels for Hopper (sm_90a), bf16/fp16 in, fp32 accumulate.
+// (The backward kernels are in attention_bwd.cu.)
 //
 // K1  g2_batched_attention  replaces g2vlm_tpu/ops/flash_attention.py
 //     `_batched_flash_kernel` (via `_batched_fwd` / `flash_batched_attention`):
@@ -11,6 +12,12 @@
 //     GQA attention, q (Sq,H,D) against k,v (Skv,KVH,D), masked per token pair
 //     by int32 (doc, fn, noise, pos) metadata with the rule of
 //     g2vlm_tpu/ops/masks.py `make_segment_mask`.
+// K3, K6  the same two entry points with a non-null `lse` pointer replace
+//     `_flash_kernel_lse` and `_batched_flash_kernel_lse`: the same forward
+//     plus one fp32 store per row of lse = m + ln(l) in natural units (the
+//     kernel works in exp2 units and converts once), kLseEmpty for a row that
+//     sees no key. The training forward saves it for the backward. A template
+//     flag keeps the store out of the no-grad instantiations.
 //
 // What bounds them on the H100: at the main-path shapes both are tensor-core
 // bound. K2 at the 32-view prefill (25,088 tokens, 12 heads, D=128) is
@@ -32,98 +39,9 @@
 // that sees no key (padding, doc < 0) keeps l == 0 and is written as 0.
 // Offsets are 64-bit throughout.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
-
-constexpr int kBlockM = 64;
-constexpr int kBlockN = 64;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // bf16 elements of row padding: keeps ldmatrix conflict-free
-// per-(q tile, kv tile) visibility codes, as g2vlm_tpu's `_block_codes`
-constexpr int kSkip = 0;     // no pair visible: the tile is not loaded
-constexpr int kPartial = 1;  // evaluate the mask per element
-constexpr int kFull = 2;     // every pair visible: no mask work
-
-template <typename T>
-struct Mma;
-
-template <>
-struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float x, float y) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-template <>
-struct Mma<__half> {
-  static __device__ __forceinline__ void run(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float x, float y) {
-    __half2 v = __floats2half2_rn(x, y);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int src_bytes = pred ? 16 : 0;  // 0 -> the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// Copies `rows` valid rows (of kBlockM/kBlockN) of a D-wide tile into shared
-// memory; rows past `rows` are zero-filled so that 0-probability columns never
-// multiply garbage (0 * NaN would poison the P.V product).
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(T* smem, const T* gmem, long long row_stride, int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte chunks per row
-  constexpr int kLd = D + kPad;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const bool ok = r < rows;
-    cp_async16(smem + r * kLd + c, ok ? gmem + r * row_stride + c : gmem, ok);
-  }
-}
 
 // K1 mask: only the key bound.
 struct KeyBound {
@@ -156,23 +74,18 @@ struct SegmentRule {
     }
   }
   __device__ __forceinline__ bool visible(int row, int col_local) const {
-    const int4 q = qm[row];
-    const int4 k = s_meta[col_local];
-    const bool same_doc = (q.x == k.x) & (q.x >= 0) & (k.x >= 0);
-    const bool causal = k.w <= q.w;
-    const bool full = (q.y == k.y) & (q.y >= 0);
-    const bool hidden_noise = (k.z >= 0) & (q.z != k.z);
-    return same_doc & (causal | full) & !hidden_noise;
+    return seg_visible(qm[row], s_meta[col_local]);
   }
 };
 
 // One block computes 64 query rows of one (batch, head) against all keys.
-template <typename T, int D, typename Mask>
+// With kLse it also stores the rows' log-sum-exp at lse[0 .. n_q).
+template <typename T, int D, bool kLse, typename Mask>
 __device__ __forceinline__ void flash_block(
     const T* __restrict__ q, long long q_rs, int n_q,
     const T* __restrict__ k, long long k_rs,
     const T* __restrict__ v, long long v_rs, int n_kv,
-    T* __restrict__ o, long long o_rs, float scale_log2, Mask& mask, T* smem) {
+    T* __restrict__ o, long long o_rs, float* __restrict__ lse, float scale_log2, Mask& mask, T* smem) {
   constexpr int kLd = D + kPad;
   constexpr int kKSteps = D / 16;       // mma k-steps over the head dim
   constexpr int kDTiles = D / 8;        // n8 tiles of the output
@@ -319,6 +232,7 @@ __device__ __forceinline__ void flash_block(
     const float inv = l > 0.f ? 1.f / l : 0.f;  // empty rows are written as 0
     const int r = warp * 16 + (lane >> 2) + row * 8;
     if (r < n_q) {
+      if (kLse && tig == 0) lse[r] = l > 0.f ? m_run[row] * kLn2 + logf(l) : kLseEmpty;
       T* dst = o + r * o_rs + tig * 2;
 #pragma unroll
       for (int i = 0; i < kDTiles; ++i) {
@@ -339,9 +253,10 @@ struct BatchedArgs {
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
   float scale_log2;
+  float* lse;  // (B, H, S) or null; last, so that the other fields keep their offsets
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads) batched_kernel(BatchedArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int q0 = blockIdx.x * kBlockM;
@@ -353,8 +268,9 @@ __global__ void __launch_bounds__(kThreads) batched_kernel(BatchedArgs a) {
   const long long o_ss = static_cast<long long>(a.h) * D;
   T* o = static_cast<T*>(a.o) + (b * a.s + q0) * o_ss + h * D;
   KeyBound mask{a.m};
-  flash_block<T, D>(q, a.q_ss, min(kBlockM, a.s - q0), k, a.k_ss, v, a.v_ss, a.m, o, o_ss,
-                    a.scale_log2, mask, reinterpret_cast<T*>(smem_raw));
+  float* lse = kLse ? a.lse + (b * a.h + h) * a.s + q0 : nullptr;
+  flash_block<T, D, kLse>(q, a.q_ss, min(kBlockM, a.s - q0), k, a.k_ss, v, a.v_ss, a.m, o, o_ss,
+                          lse, a.scale_log2, mask, reinterpret_cast<T*>(smem_raw));
 }
 
 struct SegmentArgs {
@@ -370,9 +286,10 @@ struct SegmentArgs {
   long long k_ss, k_sh;
   long long v_ss, v_sh;
   float scale_log2;
+  float* lse;  // (H, Sq) or null; last, so that the other fields keep their offsets
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads) segment_kernel(SegmentArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kLd = D + kPad;
@@ -400,35 +317,46 @@ __global__ void __launch_bounds__(kThreads) segment_kernel(SegmentArgs a) {
   const T* v = static_cast<const T*>(a.v) + kv_h * a.v_sh;
   const long long o_ss = static_cast<long long>(a.h) * D;
   T* o = static_cast<T*>(a.o) + q0 * o_ss + h * D;
-  flash_block<T, D>(q, a.q_ss, min(kBlockM, a.sq - q0), k, a.k_ss, v, a.v_ss, a.skv, o, o_ss,
-                    a.scale_log2, mask, smem);
+  float* lse = kLse ? a.lse + h * a.sq + q0 : nullptr;
+  flash_block<T, D, kLse>(q, a.q_ss, min(kBlockM, a.sq - q0), k, a.k_ss, v, a.v_ss, a.skv, o, o_ss,
+                          lse, a.scale_log2, mask, smem);
 }
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 constexpr int smem_bytes(bool with_meta) {
   return (kBlockM + 2 * kBlockN) * (D + kPad) * 2 + (with_meta ? kBlockN * 16 : 0);
 }
 
-template <typename T, int D>
-cudaError_t launch_batched(const BatchedArgs& a, int b, cudaStream_t stream) {
+template <typename T, int D, bool kLse>
+cudaError_t launch_batched_as(const BatchedArgs& a, int b, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>(false);
-  cudaError_t err = cudaFuncSetAttribute(batched_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err =
+      cudaFuncSetAttribute(batched_kernel<T, D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((a.s + kBlockM - 1) / kBlockM, a.h, b);
-  batched_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);
+  batched_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_batched(const BatchedArgs& a, int b, cudaStream_t stream) {
+  return a.lse ? launch_batched_as<T, D, true>(a, b, stream) : launch_batched_as<T, D, false>(a, b, stream);
+}
+
+template <typename T, int D, bool kLse>
+cudaError_t launch_segment_as(const SegmentArgs& a, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>(true);
+  cudaError_t err =
+      cudaFuncSetAttribute(segment_kernel<T, D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.h);
+  segment_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_segment(const SegmentArgs& a, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>(true);
-  cudaError_t err = cudaFuncSetAttribute(segment_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.sq + kBlockM - 1) / kBlockM, a.h);
-  segment_kernel<T, D><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  return a.lse ? launch_segment_as<T, D, true>(a, stream) : launch_segment_as<T, D, false>(a, stream);
 }
 
 template <typename T>
@@ -454,16 +382,17 @@ cudaError_t dispatch_segment(const SegmentArgs& a, int d, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp16. Strides are in elements; the head dim is contiguous.
-// The output is a contiguous (B, S, H, D) tensor. Returns a cudaError_t.
+// The output is a contiguous (B, S, H, D) tensor; lse is a contiguous fp32
+// (B, H, S) tensor or null. Returns a cudaError_t.
 extern "C" int g2_batched_attention(
-    int dtype, const void* q, const void* k, const void* v, void* o,
+    int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
     int b, int s, int m_valid, int h, int d,
     long long q_sb, long long q_ss, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
     float scale, void* stream) {
   BatchedArgs a{q, k, v, o, s, m_valid, h, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                v_sb, v_ss, v_sh, scale * kLog2e};
+                v_sb, v_ss, v_sh, scale * kLog2e, static_cast<float*>(lse)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch_batched<__nv_bfloat16>(a, b, d, st)
                                : dispatch_batched<__half>(a, b, d, st);
@@ -472,9 +401,10 @@ extern "C" int g2_batched_attention(
 
 // q (Sq, H, D), k/v (Skv, KVH, D); q_meta (Sq, 4) and kv_meta (Skv, 4) int32
 // (doc, fn, noise, pos); codes (ceil(Sq/64), ceil(Skv/64)) int8 tile codes or
-// null. The output is a contiguous (Sq, H, D) tensor.
+// null. The output is a contiguous (Sq, H, D) tensor; lse is a contiguous
+// fp32 (H, Sq) tensor or null.
 extern "C" int g2_segment_attention(
-    int dtype, const void* q, const void* k, const void* v, void* o,
+    int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
     const void* q_meta, const void* kv_meta, const void* codes,
     int sq, int skv, int h, int kvh, int d,
     long long q_ss, long long q_sh,
@@ -482,7 +412,8 @@ extern "C" int g2_segment_attention(
     long long v_ss, long long v_sh,
     float scale, void* stream) {
   SegmentArgs a{q, k, v, o, static_cast<const int4*>(q_meta), static_cast<const int4*>(kv_meta),
-                static_cast<const int8_t*>(codes), sq, skv, h, kvh, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale * kLog2e};
+                static_cast<const int8_t*>(codes), sq, skv, h, kvh, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh, scale * kLog2e,
+                static_cast<float*>(lse)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == 0 ? dispatch_segment<__nv_bfloat16>(a, d, st)
                                : dispatch_segment<__half>(a, d, st);

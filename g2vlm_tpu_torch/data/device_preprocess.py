@@ -8,7 +8,7 @@ from typing import Tuple
 
 import torch
 
-from g2vlm_tpu.data.images import RESNET_MEAN, RESNET_STD
+from .images import RESNET_MEAN, RESNET_STD
 
 from ..utils.image import resize_hw
 

@@ -11,8 +11,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from g2vlm_tpu.config import G2VLMConfig
-from g2vlm_tpu.data.images import resnet_normalize
+from ..config import G2VLMConfig
+from ..data.images import resnet_normalize
 
 from ..data.device_preprocess import preprocess_views_device, target_hw
 from ..models.g2vlm import G2VLM, PackedPrefill, SequenceBuilder, recon_forward

@@ -8,13 +8,17 @@ attention kernel masks its own ragged tail.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from g2vlm_tpu.config import DinoConfig
+from ..config import DinoConfig
 
 from ..ops.flash_attention import flash_batched_attention
+from ..ops.linear import linear
 from ..ops.norms import layer_norm
 from ..utils.image import resize_hw
 
@@ -85,19 +89,20 @@ class Layer(nn.Module):
         self.num_heads = cfg.num_attention_heads
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, S, D) in the compute dtype; parameters are cast to it per use."""
         b, s, d = x.shape
-        nh = self.num_heads
+        nh, dt = self.num_heads, x.dtype
         eps = self.norm1.eps
         sa = self.attention.attention
         h1 = layer_norm(x, self.norm1.weight, self.norm1.bias, eps)
-        q = sa.query(h1).view(b, s, nh, d // nh)
-        k = sa.key(h1).view(b, s, nh, d // nh)
-        v = sa.value(h1).view(b, s, nh, d // nh)
+        q = linear(h1, sa.query, dt).view(b, s, nh, d // nh)
+        k = linear(h1, sa.key, dt).view(b, s, nh, d // nh)
+        v = linear(h1, sa.value, dt).view(b, s, nh, d // nh)
         attn = flash_batched_attention(q, k, v).reshape(b, s, d)
-        x = x + self.attention.output.dense(attn) * self.layer_scale1.lambda1
+        x = x + linear(attn, self.attention.output.dense, dt) * self.layer_scale1.lambda1.to(dt)
         h2 = layer_norm(x, self.norm2.weight, self.norm2.bias, eps)
-        h2 = self.mlp.fc2(F.gelu(self.mlp.fc1(h2)))
-        return x + h2 * self.layer_scale2.lambda1
+        h2 = linear(F.gelu(linear(h2, self.mlp.fc1, dt)), self.mlp.fc2, dt)
+        return x + h2 * self.layer_scale2.lambda1.to(dt)
 
 
 class Encoder(nn.Module):
@@ -147,13 +152,34 @@ def embed(model: Dinov2, images: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:, :1], regs, x[:, 1:]], dim=1)
 
 
-def encode(model: Dinov2, images: torch.Tensor) -> torch.Tensor:
+def encode(
+    model: Dinov2,
+    images: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
+    remat_group: int = 1,
+) -> torch.Tensor:
     """Full encoder; returns the patch tokens (B, hp*wp, D), CLS and
-    registers stripped. Runs in the dtype of the model's parameters."""
-    dt = model.layernorm.weight.dtype
+    registers stripped. Runs in `compute_dtype` (default: the dtype of the
+    model's parameters). With `remat` every layer is recomputed in the
+    backward; `remat_group` > 1 also checkpoints groups of that many layers,
+    so that one carry is saved per group instead of per layer."""
+    dt = compute_dtype or model.layernorm.weight.dtype
     x = embed(model, images).to(dt)
-    for layer in model.encoder.layer:
-        x = layer(x)
+    layers = model.encoder.layer
+    if remat and remat_group > 1 and len(layers) % remat_group:
+        raise ValueError(f"remat_group {remat_group} does not divide {len(layers)} layers")
+
+    def run_layers(group, x):
+        for layer in group:
+            x = checkpoint(layer, x, use_reentrant=False) if remat else layer(x)
+        return x
+
+    if remat and remat_group > 1:
+        for g0 in range(0, len(layers), remat_group):
+            x = checkpoint(run_layers, layers[g0 : g0 + remat_group], x, use_reentrant=False)
+    else:
+        x = run_layers(layers, x)
     ln = model.layernorm
     x = layer_norm(x, ln.weight, ln.bias, ln.eps)
     return x[:, 1 + model.cfg.num_register_tokens :]

@@ -1,4 +1,5 @@
-"""G2VLM reconstruction model (port of g2vlm_tpu/models/g2vlm.py, recon path).
+"""G2VLM reconstruction model (port of g2vlm_tpu/models/g2vlm.py: the recon
+path and the pieces the training step calls).
 
 `G2VLM` owns the MoT LLM, the DINOv2 encoder, the `dino2llm` projection and
 the Pi3 heads under the reference's state-dict prefixes (`language_model.`,
@@ -8,8 +9,8 @@ the Pi3 heads under the reference's state-dict prefixes (`language_model.`,
 reads. Recon is one packed prefill through the decoder in GEO_MAIN routing,
 then the heads over the hidden states at the dino-token rows.
 
-`PackedPrefill` and `SequenceBuilder` are numpy host code copied from the JAX
-module (which imports jax and so cannot be imported here); a test holds the
+`PackedPrefill` and `SequenceBuilder` are numpy host code, the port's own copy
+of the JAX module's (the port imports nothing of g2vlm_tpu); a test holds the
 copy field for field equal to the JAX builder.
 """
 
@@ -21,8 +22,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from g2vlm_tpu.config import G2VLMConfig
+from ..config import G2VLMConfig
 
+from ..ops.linear import linear
 from ..ops.masks import TokenInfo
 from ..utils.geometry import homogenize_points
 from . import dinov2, mot_decoder, pi3_heads
@@ -182,11 +184,18 @@ class G2VLM(nn.Module):
         return self.dino2llm.weight.dtype
 
 
-def encode_dino_to_llm(model: G2VLM, dino_images: torch.Tensor) -> torch.Tensor:
-    """dino_images (N, 3, H, W) RESNET-normalized -> (N*hw, D_llm)."""
-    tokens = dinov2.encode(model.dino_model, dino_images)
+def encode_dino_to_llm(
+    model: G2VLM,
+    dino_images: torch.Tensor,
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
+    remat_group: int = 1,
+) -> torch.Tensor:
+    """dino_images (N, 3, H, W) RESNET-normalized -> (N*hw, D_llm), in
+    `compute_dtype` (default: the parameters' dtype)."""
+    tokens = dinov2.encode(model.dino_model, dino_images, compute_dtype, remat=remat, remat_group=remat_group)
     n, hw, _ = tokens.shape
-    return model.dino2llm(tokens.reshape(n * hw, -1))
+    return linear(tokens.reshape(n * hw, -1), model.dino2llm, tokens.dtype)
 
 
 def _geo_dominant(cfg: G2VLMConfig, prefill: PackedPrefill) -> bool:
@@ -228,9 +237,25 @@ def pi3_predict(
     dino_hidden: torch.Tensor,  # (N, hw, D) LLM hidden states at the dino rows
     img_hw: Tuple[int, int],
     cfg: G2VLMConfig,
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
+    view_chunk: int = 0,
 ) -> Dict[str, torch.Tensor]:
-    """The 3D heads; the global decoder cross-attends to frame 0."""
-    return _pi3_predict_full(model, dino_hidden, img_hw, cfg, dino_hidden[:1])
+    """The 3D heads; the global decoder cross-attends to frame 0.
+
+    view_chunk > 0 runs the heads over chunks of that many views (a training
+    memory bound): views are independent in the heads' self attention and
+    the cross context is always frame 0, so the chunked pass is exact. A
+    view count it does not divide takes the unchunked pass."""
+    n = dino_hidden.shape[0]
+    ctx = dino_hidden[:1]
+    if view_chunk and n > view_chunk and n % view_chunk == 0:
+        outs = [
+            _pi3_predict_full(model, dino_hidden[i : i + view_chunk], img_hw, cfg, ctx, compute_dtype, remat)
+            for i in range(0, n, view_chunk)
+        ]
+        return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+    return _pi3_predict_full(model, dino_hidden, img_hw, cfg, ctx, compute_dtype, remat)
 
 
 def _pi3_predict_full(
@@ -239,6 +264,8 @@ def _pi3_predict_full(
     img_hw: Tuple[int, int],
     cfg: G2VLMConfig,
     global_ctx: torch.Tensor,  # (1, hw, D) frame-0 tokens for the cross decoder
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
 ) -> Dict[str, torch.Tensor]:
     h, w = img_hw
     p = cfg.dino_patch_size
@@ -246,8 +273,9 @@ def _pi3_predict_full(
     n = dino_hidden.shape[0]
     pos = pi3_heads.patch_positions(n, hp, wp, device=dino_hidden.device)
 
-    point_hidden = pi3_heads.decoder_forward(model.point_decoder, dino_hidden, pos)
-    camera_hidden = pi3_heads.decoder_forward(model.camera_decoder, dino_hidden, pos)
+    kw = dict(compute_dtype=compute_dtype, remat=remat)
+    point_hidden = pi3_heads.decoder_forward(model.point_decoder, dino_hidden, pos, **kw)
+    camera_hidden = pi3_heads.decoder_forward(model.camera_decoder, dino_hidden, pos, **kw)
 
     ret = pi3_heads.linear_pts3d(model.point_head, point_hidden, (h, w), p)  # (N, H, W, 3)
     xy, z = ret[..., :2], ret[..., 2:]
@@ -259,7 +287,7 @@ def _pi3_predict_full(
     if cfg.use_global_points:
         global_hidden = pi3_heads.decoder_forward(
             model.global_points_decoder, dino_hidden, pos,
-            context=global_ctx, context_positions=pos[:1],
+            context=global_ctx, context_positions=pos[:1], **kw,
         )
         out["global_points"] = pi3_heads.linear_pts3d(model.global_point_head, global_hidden, (h, w), p)
 

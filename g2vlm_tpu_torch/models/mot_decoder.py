@@ -1,28 +1,56 @@
-"""Mixture-of-Transformers Qwen2-VL decoder, GEO_MAIN prefill (port of
-g2vlm_tpu/models/mot_decoder.py).
+"""Mixture-of-Transformers Qwen2-VL decoder (port of
+g2vlm_tpu/models/mot_decoder.py): the GEO_MAIN prefill of recon and the MIXED
+and SPLIT expert modes of training.
 
 Submodule names follow the reference key space under `language_model.`
 (`model.layers.{i}.self_attn.q_proj_moe_geo`, `model.layers.{i}.ls1.gamma`,
 ...), so `state_dict()` feeds g2vlm_tpu's `mot_decoder.params_from_torch`.
 
-Only the GEO_MAIN routing of the recon prefill is ported: the geometry
-expert runs on every row, then the few "und" (text) rows are recomputed with
-the base expert and written back with `index_copy`. Matmuls run in the
-parameters' dtype; the RMS norms, the per-head qk-norm and mRoPE run in fp32.
+GEO_MAIN (`decoder_forward`): the geometry expert runs on every row, then the
+few "und" (text) rows are recomputed with the base expert and written back
+with `index_copy`; matmuls run in the parameters' dtype. Training
+(`decoder_forward_train`): MIXED computes both experts on every row and
+selects per row by `is_geo`; SPLIT takes a sorted [und | geo] layout with a
+static boundary and runs each expert on its contiguous slice. There the
+parameters may be fp32 masters: every use casts them to the compute dtype, as
+the JAX code does, and layers (or groups of layers) are recomputed in the
+backward with `torch.utils.checkpoint`. In every mode the RMS norms, the
+per-head qk-norm and mRoPE run in fp32.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from g2vlm_tpu.config import LLMConfig
+from ..config import LLMConfig
 
 from ..ops.flash_attention import flash_segment_attention
+from ..ops.linear import linear as _lin
 from ..ops.masks import TokenInfo
 from ..ops.norms import rms_norm
 from ..ops.rope import mrope_cos_sin, rotate_half
+
+
+MIXED = "mixed"  # route per token by is_geo: both experts computed, one selected
+SPLIT = "split"  # physical layout [und | geo] with a static boundary geo_start
+
+
+def _mlp(x: torch.Tensor, mlp: "Mlp", dt: torch.dtype) -> torch.Tensor:
+    return _lin(F.silu(_lin(x, mlp.gate_proj, dt)) * _lin(x, mlp.up_proj, dt), mlp.down_proj, dt)
+
+
+def _norm_rope(x, gamma, cos, sin, eps: float, dt: torch.dtype) -> torch.Tensor:
+    """Per-head fp32 RMS qk-norm (gamma (hd,), per-row (S, 1, hd), or None for
+    no norm) then mRoPE of (S, heads, hd); returns the compute dtype."""
+    xf = x.float()
+    if gamma is not None:
+        xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * gamma.float()
+    return (xf * cos[:, None, :] + rotate_half(xf) * sin[:, None, :]).to(dt)
 
 
 class RMSNorm(nn.Module):
@@ -125,6 +153,63 @@ class MoTDecoderLayer(nn.Module):
         m = m.index_copy_(0, und_idx, self.mlp(self.post_attention_layernorm(x[und_idx])))
         return x + m
 
+    def forward_train(
+        self,
+        x: torch.Tensor,  # (S, D) in the compute dtype
+        is_geo: torch.Tensor,  # (S,) bool; read in MIXED only
+        cos: torch.Tensor,  # (S, hd) fp32
+        sin: torch.Tensor,
+        info: TokenInfo,
+        geo_start: Optional[int],  # None: MIXED; else SPLIT with rows [geo_start:] on the geo expert
+    ) -> torch.Tensor:
+        cfg = self.cfg
+        nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        s, dt, eps = x.shape[0], x.dtype, cfg.rms_norm_eps
+        at = self.self_attn
+        ls1, ls2 = self.ls1.gamma.to(dt), self.ls2.gamma.to(dt)
+
+        if geo_start is None:
+            sel = is_geo[:, None]
+
+            def both(f_und, f_geo, t):  # each expert on every row, one kept per row
+                return torch.where(sel, f_geo(t), f_und(t))
+        else:
+            b = geo_start
+
+            def both(f_und, f_geo, t):  # each expert on its contiguous slice
+                return torch.cat([f_und(t[:b]), f_geo(t[b:])], dim=0)
+
+        def proj(und, geo, ln_und, ln_geo):
+            return both(lambda t: _lin(ln_und(t), und, dt), lambda t: _lin(ln_geo(t), geo, dt), x)
+
+        ln_u, ln_g = self.input_layernorm, self.input_layernorm_moe_geo
+        q = proj(at.q_proj, at.q_proj_moe_geo, ln_u, ln_g).view(s, nh, hd)
+        k = proj(at.k_proj, at.k_proj_moe_geo, ln_u, ln_g).view(s, kvh, hd)
+        v = proj(at.v_proj, at.v_proj_moe_geo, ln_u, ln_g).view(s, kvh, hd)
+        if not cfg.qk_norm:
+            q, k = _norm_rope(q, None, cos, sin, eps, dt), _norm_rope(k, None, cos, sin, eps, dt)
+        elif geo_start is None:
+            gm = is_geo[:, None, None]
+            q = _norm_rope(q, torch.where(gm, at.q_norm_moe_geo.weight, at.q_norm.weight), cos, sin, eps, dt)
+            k = _norm_rope(k, torch.where(gm, at.k_norm_moe_geo.weight, at.k_norm.weight), cos, sin, eps, dt)
+        else:
+            def nr(t, g_und, g_geo):
+                return torch.cat([
+                    _norm_rope(t[:b], g_und.weight, cos[:b], sin[:b], eps, dt),
+                    _norm_rope(t[b:], g_geo.weight, cos[b:], sin[b:], eps, dt),
+                ], dim=0)
+
+            q, k = nr(q, at.q_norm, at.q_norm_moe_geo), nr(k, at.k_norm, at.k_norm_moe_geo)
+
+        attn = flash_segment_attention(q, k, v, info, info).reshape(s, nh * hd)
+        # LayerScale on the geo expert's rows only
+        x = x + both(lambda t: _lin(t, at.o_proj, dt), lambda t: _lin(t, at.o_proj_moe_geo, dt) * ls1, attn)
+        return x + both(
+            lambda t: _mlp(self.post_attention_layernorm(t), self.mlp, dt),
+            lambda t: _mlp(self.post_attention_layernorm_moe_geo(t), self.mlp_moe_geo, dt) * ls2,
+            x,
+        )
+
 
 class MoTModel(nn.Module):
     def __init__(self, cfg: LLMConfig):
@@ -163,3 +248,59 @@ def decoder_forward(
         h = layer.forward_geo_main(h, und_idx, cos, sin, info)
     hu = model.norm(h[und_idx])
     return model.norm_moe_geo(h).index_copy_(0, und_idx, hu)
+
+
+def decoder_forward_train(
+    model: MoTModel,
+    x: torch.Tensor,  # (S, D) embedded packed sequence
+    is_geo: torch.Tensor,  # (S,) bool
+    position_ids: torch.Tensor,  # (3, S)
+    info: TokenInfo,
+    geo_start: Optional[int] = None,  # None: MIXED; an int: SPLIT at that row
+    compute_dtype: torch.dtype = torch.float32,
+    remat: bool = False,
+    remat_group: int = 1,
+    remat_inner: bool = True,
+) -> torch.Tensor:
+    """All layers in MIXED or SPLIT routing plus the final norm; returns the
+    hidden states (S, D) in the compute dtype. With `remat` every layer is
+    recomputed in the backward; `remat_group` > 1 checkpoints groups of that
+    many layers instead (one saved carry per group), with the per-layer
+    checkpoint nested inside unless `remat_inner` is off."""
+    cfg = model.cfg
+    if cfg.layer_module != "mot":
+        raise NotImplementedError(f"layer_module {cfg.layer_module!r}: only 'mot' is ported")
+    cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
+    h = x.to(compute_dtype)
+    n_layers = len(model.layers)
+    grouped = remat and remat_group > 1
+    if grouped and n_layers % remat_group:
+        raise ValueError(f"remat_group {remat_group} does not divide {n_layers} layers")
+
+    def run_layer(layer, h):
+        return layer.forward_train(h, is_geo, cos, sin, info, geo_start)
+
+    def run_layers(layers, h, per_layer_remat):
+        for layer in layers:
+            h = checkpoint(run_layer, layer, h, use_reentrant=False) if per_layer_remat else run_layer(layer, h)
+        return h
+
+    if grouped:
+        for g0 in range(0, n_layers, remat_group):
+            group = model.layers[g0 : g0 + remat_group]
+            h = checkpoint(run_layers, group, h, remat_inner, use_reentrant=False)
+    else:
+        h = run_layers(model.layers, h, remat)
+
+    if geo_start is None:
+        return torch.where(is_geo[:, None], model.norm_moe_geo(h), model.norm(h))
+    return torch.cat([model.norm(h[:geo_start]), model.norm_moe_geo(h[geo_start:])], dim=0)
+
+
+def lm_head(lm: MoTForCausalLM, hidden: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Logits at the promoted dtype of hidden and the weight (fp32 masters
+    give a true fp32 product on the few supervised rows), returned as
+    `out_dtype`."""
+    w = lm.lm_head.weight
+    ct = torch.promote_types(hidden.dtype, w.dtype)
+    return F.linear(hidden.to(ct), w.to(ct)).to(out_dtype)

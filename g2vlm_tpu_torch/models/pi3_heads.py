@@ -17,10 +17,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from g2vlm_tpu.config import Pi3HeadConfig
+from ..config import Pi3HeadConfig
 
 from ..ops.flash_attention import flash_batched_attention
+from ..ops.linear import linear
 from ..ops.norms import layer_norm
 from ..ops.rope import apply_rope2d_bshd, rope2d_cos_sin
 
@@ -48,7 +50,8 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        dt = x.dtype
+        return linear(F.gelu(linear(x, self.fc1, dt)), self.fc2, dt)
 
 
 class Block(nn.Module):
@@ -113,26 +116,27 @@ def _heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
 
 def _self_attn(x, attn: SelfAttention, cos, sin, num_heads):
     b, s, d = x.shape
-    q, k, v = attn.qkv(x).split(d, dim=-1)
+    q, k, v = linear(x, attn.qkv, x.dtype).split(d, dim=-1)
     q = apply_rope2d_bshd(_heads(q, num_heads), cos, sin)
     k = apply_rope2d_bshd(_heads(k, num_heads), cos, sin)
     v = _heads(v, num_heads)
     out = flash_batched_attention(q, k, v).reshape(b, s, d)
-    return attn.proj(out)
+    return linear(out, attn.proj, x.dtype)
 
 
 def _cross_attn(x, y, attn: CrossAttention, cos_q, sin_q, cos_k, sin_k, num_heads):
     """y may carry batch 1 against x's batch B (frame-0 context): its K/V
     projections and rope run once and are expanded with batch stride 0."""
     b, s, d = x.shape
-    q = apply_rope2d_bshd(_heads(attn.q_proj(x), num_heads), cos_q, sin_q)
-    k = apply_rope2d_bshd(_heads(attn.k_proj(y), num_heads), cos_k, sin_k)
-    v = _heads(attn.v_proj(y), num_heads)
+    dt = x.dtype
+    q = apply_rope2d_bshd(_heads(linear(x, attn.q_proj, dt), num_heads), cos_q, sin_q)
+    k = apply_rope2d_bshd(_heads(linear(y, attn.k_proj, dt), num_heads), cos_k, sin_k)
+    v = _heads(linear(y, attn.v_proj, dt), num_heads)
     if y.shape[0] == 1 and b > 1:
         k = k.expand(b, -1, -1, -1)
         v = v.expand(b, -1, -1, -1)
     out = flash_batched_attention(q, k, v).reshape(b, s, d)
-    return attn.proj(out)
+    return linear(out, attn.proj, dt)
 
 
 def _ln(x, norm: nn.LayerNorm):
@@ -145,28 +149,37 @@ def decoder_forward(
     positions: torch.Tensor,  # (N, hw, 2)
     context: Optional[torch.Tensor] = None,  # (1 or N, hw_ctx, D) for the cross decoder
     context_positions: Optional[torch.Tensor] = None,
+    compute_dtype: Optional[torch.dtype] = None,
+    remat: bool = False,
 ) -> torch.Tensor:
-    """Blocks then linear_out; runs in the dtype of the decoder's parameters."""
+    """Blocks then linear_out; runs in `compute_dtype` (default: the dtype of
+    the decoder's parameters). With `remat` every block is recomputed in the
+    backward."""
     cfg = dec.cfg
     d = hidden.shape[-1]
     hd = d // cfg.num_heads
-    dt = dec.linear_out.weight.dtype
+    dt = compute_dtype or dec.linear_out.weight.dtype
     cos, sin = rope2d_cos_sin(positions, hd, cfg.rope_freq)
+    ctx = cos_k = sin_k = None
     if context is not None:
         cos_k, sin_k = rope2d_cos_sin(context_positions, hd, cfg.rope_freq)
         ctx = context.to(dt)
-    x = hidden.to(dt)
-    for blk in dec.blocks:
+
+    def block(blk, x, ctx):
         x = x + _self_attn(_ln(x, blk.norm1), blk.attn, cos, sin, cfg.num_heads)
-        if context is not None:
+        if ctx is not None:
             y = _ln(ctx, blk.norm_y)
             h = _ln(x, blk.norm2)
             x = x + _cross_attn(h, y, blk.cross_attn, cos, sin, cos_k, sin_k, cfg.num_heads)
             h = _ln(x, blk.norm3)
         else:
             h = _ln(x, blk.norm2)
-        x = x + blk.mlp(h)
-    return dec.linear_out(x)
+        return x + blk.mlp(h)
+
+    x = hidden.to(dt)
+    for blk in dec.blocks:
+        x = checkpoint(block, blk, x, ctx, use_reentrant=False) if remat else block(blk, x, ctx)
+    return linear(x, dec.linear_out, dt)
 
 
 def _lin32(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:

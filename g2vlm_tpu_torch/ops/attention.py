@@ -55,25 +55,28 @@ def segment_attention_dense(q, k, v, q_info: TokenInfo, kv_info: TokenInfo, scal
 
 
 def segment_attention_chunked(
-    q, k, v, q_info: TokenInfo, kv_info: TokenInfo, scale=None, kv_chunk: int = 2048
+    q, k, v, q_info: TokenInfo, kv_info: TokenInfo, scale=None, kv_chunk: int = 2048,
+    return_lse: bool = False,
 ):
     """Online-softmax segment attention over KV chunks: never materializes the
     (S_q, S_kv) logits, so it serves as the plain version at the 25k-token
     prefill (a dense fp32 logit tensor there would be 30 GB). Rows with no
-    visible key are 0."""
+    visible key are 0. With return_lse also the rows' log-sum-exp (H, S_q),
+    -1e30 for a row that sees no key. Computes in fp32 (fp64 inputs in fp64)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    ct = torch.promote_types(q.dtype, torch.float32)
     s_q, h, d = q.shape
     s_kv, kvh, _ = k.shape
     g = h // kvh
     # (KVH, G*S_q, D): the G query heads of a KV head share each chunk's K/V
-    qh = q.float().reshape(s_q, kvh, g, d).permute(1, 2, 0, 3).reshape(kvh, g * s_q, d)
-    m = torch.full((kvh, g * s_q), float("-inf"), device=q.device)
-    l = torch.zeros((kvh, g * s_q), device=q.device)
-    acc = torch.zeros((kvh, g * s_q, d), device=q.device)
+    qh = q.to(ct).reshape(s_q, kvh, g, d).permute(1, 2, 0, 3).reshape(kvh, g * s_q, d)
+    m = torch.full((kvh, g * s_q), float("-inf"), device=q.device, dtype=ct)
+    l = torch.zeros((kvh, g * s_q), device=q.device, dtype=ct)
+    acc = torch.zeros((kvh, g * s_q, d), device=q.device, dtype=ct)
     for c0 in range(0, s_kv, kv_chunk):
-        kb = k[c0 : c0 + kv_chunk].float().transpose(0, 1)  # (KVH, T, D)
-        vb = v[c0 : c0 + kv_chunk].float().transpose(0, 1)
+        kb = k[c0 : c0 + kv_chunk].to(ct).transpose(0, 1)  # (KVH, T, D)
+        vb = v[c0 : c0 + kv_chunk].to(ct).transpose(0, 1)
         t = kb.shape[1]
         mask = make_segment_mask(q_info, kv_info.slice(c0, t)).repeat(g, 1)  # (G*S_q, T)
         logits = torch.matmul(qh, kb.transpose(1, 2)) * scale
@@ -87,6 +90,8 @@ def segment_attention_chunked(
         acc = acc * alpha[..., None] + torch.matmul(p, vb)
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    out = out.reshape(kvh, g, s_q, d).permute(2, 0, 1, 3).reshape(s_q, h, d)
-    return out.to(v.dtype)
-
+    out = out.reshape(kvh, g, s_q, d).permute(2, 0, 1, 3).reshape(s_q, h, d).to(v.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), torch.full_like(l, -1e30))
+    return out, lse.reshape(h, s_q)

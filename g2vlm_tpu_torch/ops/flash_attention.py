@@ -1,24 +1,37 @@
-"""The two attention kernels of the main path, their wrappers, plain versions
-and launch counters.
+"""The attention kernels of the main paths, their wrappers, plain versions,
+autograd Functions and launch counters.
 
-K1 `flash_batched_attention` replaces g2vlm_tpu/ops/flash_attention.py
-`_batched_flash_kernel` (called through `_batched_fwd`): bidirectional
-attention inside each batch element, for the DINOv2 encoder and the Pi3
-decoders. K2 `flash_segment_attention` replaces `_flash_kernel` (called
-through `_fwd_pallas`): packed segment-masked GQA attention, for the MoT
-prefill. Both are CUDA C++ for sm_90a in csrc/attention.cu, built with nvcc
-into a plain-C shared library at first use and called through ctypes.
+Forwards (csrc/attention.cu). K1 `flash_batched_attention` replaces
+g2vlm_tpu/ops/flash_attention.py `_batched_flash_kernel` (called through
+`_batched_fwd`): bidirectional attention inside each batch element, for the
+DINOv2 encoder and the Pi3 decoders. K2 `flash_segment_attention` replaces
+`_flash_kernel` (called through `_fwd_pallas`): packed segment-masked GQA
+attention, for the MoT decoder. K6 and K3 are the same kernels with a per-row
+log-sum-exp output, replacing `_batched_flash_kernel_lse` and
+`_flash_kernel_lse`: the training forwards.
+
+Backwards (csrc/attention_bwd.cu). K7 replaces `_batched_bwd_dq_kernel` and
+`_batched_bwd_dkv_kernel` (through `_batched_vjp_bwd`), K5 replaces
+`_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (through `_flash_bwd`):
+from q, k, v, dO, lse and delta = rowsum(dO * O) they recompute P per tile and
+give dQ (one kernel) and dK, dV (another, the GQA group summed inside it).
+
+All are CUDA C++ for sm_90a, built with nvcc into plain-C shared libraries at
+first use (one per source, in parallel) and called through ctypes.
 
 What bounds them on the H100: tensor-core FLOPs. K2 at the 32-view prefill
-(25,088 rows, 12 heads of 128) is 3.9 TFLOP per launch on ~0.2 GB of
-q/k/v/o; K1 at a DINOv2-L view batch (32, 782, 16, 64) is 80 GFLOP. Both
-keep the logits out of device memory (an fp32 online softmax in registers
-over 64-row K/V tiles fed to bf16 mma.sync), and K2 skips the per-element
-mask on tiles its codes prove fully visible (csrc/attention.cu's header has
-the details).
+(25,088 rows, 12 heads of 128) is 3.9 TFLOP per launch on ~0.2 GB of q/k/v/o;
+at the training pack of 12,800 rows K3 is 1.0, K5's dq kernel 1.5 and its dkv
+kernel 2.0 TFLOP; K1 at a DINOv2-L view batch (32, 782, 16, 64) is 80 GFLOP.
+All keep the logits, P and dS out of device memory (fp32 softmax statistics
+in registers over 64-row tiles fed to bf16 mma.sync), and the segment kernels
+skip the per-element mask on tiles their codes prove fully visible, and whole
+tiles the codes prove invisible (the .cu headers have the details).
 
 Dispatch: a CUDA tensor launches the kernel or the wrapper raises; a CPU
-tensor takes the plain version beside the kernel. Nothing falls back.
+tensor takes the plain version beside the kernel. Nothing falls back. An
+input that requires grad goes through the autograd Function of its form (lse
+forward, kernel backward); otherwise the plain forward runs.
 """
 
 from __future__ import annotations
@@ -35,24 +48,37 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .attention import dense_attention, segment_attention_chunked
-from .masks import TokenInfo
+from .masks import TokenInfo, make_segment_mask
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "attention.cu",)
+_CSRC = _PKG / "csrc"
+# one shared library per source, all built at once by parallel nvcc processes
+_SOURCES = (_CSRC / "attention.cu", _CSRC / "attention_bwd.cu")
+_HEADERS = (_CSRC / "attention_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HEAD_DIMS = (64, 96, 128)
-TILE = 64  # kBlockM == kBlockN in csrc/attention.cu: the tile of the codes
+TILE = 64  # kBlockM == kBlockN in csrc/attention_common.cuh: the tile of the codes
 BLOCK_SKIP, BLOCK_PARTIAL, BLOCK_FULL = 0, 1, 2
+LSE_EMPTY = -1e30  # lse of a row that sees no key (kLseEmpty; g2vlm_tpu's NEG_INF)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 # Launches of each kernel; a wrapper adds one exactly where it launches.
-launch_counts: Dict[str, int] = {"flash_batched_attention": 0, "flash_segment_attention": 0}
+launch_counts: Dict[str, int] = {
+    "flash_batched_attention": 0,  # K1
+    "flash_segment_attention": 0,  # K2
+    "flash_segment_attention_lse": 0,  # K3
+    "flash_segment_attention_bwd_dq": 0,  # K5
+    "flash_segment_attention_bwd_dkv": 0,
+    "flash_batched_attention_lse": 0,  # K6
+    "flash_batched_attention_bwd_dq": 0,  # K7
+    "flash_batched_attention_bwd_dkv": 0,
+}
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Optional[Tuple[ctypes.CDLL, ctypes.CDLL]] = None
 
 
 def reset_launch_counts() -> None:
@@ -72,40 +98,56 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH, in $CUDA_HOME/bin or /usr/local/cuda/bin")
 
 
-def build_library() -> Tuple[Path, str]:
-    """Compile csrc/*.cu into BUILD_DIR (keyed by a hash of sources and
-    flags) unless that file exists. Returns (path, compiler output)."""
+def build_library() -> Tuple[Tuple[Path, ...], str]:
+    """Compile each csrc/*.cu into its own shared library in BUILD_DIR (keyed
+    by a hash of all sources, headers and flags), the missing ones in parallel.
+    Returns (paths in _SOURCES order, compiler output)."""
     digest = hashlib.sha256()
-    for src in _SOURCES:
+    for src in _SOURCES + _HEADERS:
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"libg2vlm_attention_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
-    return out, proc.stdout + proc.stderr
+    key = digest.hexdigest()[:16]
+    outs = tuple(BUILD_DIR / f"libg2vlm_{src.stem}_{key}.so" for src in _SOURCES)
+    jobs = []
+    for src, out in zip(_SOURCES, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+        jobs.append((out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = "", ""
+    for out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed += f"nvcc failed ({proc.returncode}) for {out.name}:\n{stdout}\n{stderr}\n"
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+            log += stdout + stderr
+    if failed:
+        raise RuntimeError(failed)
+    return outs, log
 
 
-def load_library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        path, _ = build_library()
-        lib = ctypes.CDLL(str(path))
+def load_library() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
+    """(forward library, backward library), built at first use."""
+    global _libs
+    if _libs is None:
+        (fwd_path, bwd_path), _ = build_library()
+        fwd, bwd = ctypes.CDLL(str(fwd_path)), ctypes.CDLL(str(bwd_path))
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        lib.g2_batched_attention.argtypes = [i, p, p, p, p, i, i, i, i, i] + [ll] * 9 + [f, p]
-        lib.g2_batched_attention.restype = i
-        lib.g2_segment_attention.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i] + [ll] * 6 + [f, p]
-        lib.g2_segment_attention.restype = i
-        _lib = lib
-    return _lib
+        fwd.g2_batched_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 9 + [f, p]
+        fwd.g2_batched_attention.restype = i
+        fwd.g2_segment_attention.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i] + [ll] * 6 + [f, p]
+        fwd.g2_segment_attention.restype = i
+        bwd.g2_attention_bwd_dq.argtypes = [i, i] + [p] * 10 + [i] * 6 + [ll] * 9 + [f, p]
+        bwd.g2_attention_bwd_dq.restype = i
+        bwd.g2_attention_bwd_dkv.argtypes = [i, i] + [p] * 11 + [i] * 7 + [ll] * 9 + [f, p]
+        bwd.g2_attention_bwd_dkv.restype = i
+        _libs = (fwd, bwd)
+    return _libs
 
 
 def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
@@ -132,8 +174,13 @@ def _raise_on_error(name: str, err: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# K1: batched bidirectional attention
+# K1 / K6 / K7: batched bidirectional attention, its lse forward and backward
 # ---------------------------------------------------------------------------
+
+def _compute_dtype(t: torch.Tensor) -> torch.dtype:
+    """The plain versions compute in fp32, or in fp64 when given fp64."""
+    return torch.promote_types(t.dtype, torch.float32)
+
 
 def flash_batched_attention_reference(q, k, v, valid_kv: Optional[int] = None, scale=None):
     """Plain version of K1: dense attention with keys >= valid_kv masked."""
@@ -144,6 +191,149 @@ def flash_batched_attention_reference(q, k, v, valid_kv: Optional[int] = None, s
     return dense_attention(q, k, v, scale=scale)
 
 
+def _batched_probs(q, k, lse, valid_kv, scale):
+    """P = exp(scale q k^T - lse) (B, H, S, M), keys >= valid_kv zeroed."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.exp(logits - lse[..., None])
+    if valid_kv is not None and valid_kv < k.shape[1]:
+        p = p * (torch.arange(k.shape[1], device=q.device) < valid_kv)
+    return p
+
+
+def flash_batched_attention_lse_reference(q, k, v, valid_kv: Optional[int] = None, scale=None):
+    """Plain version of K6: (out (B, S, H, D), lse (B, H, S) fp32)."""
+    ct = _compute_dtype(q)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(ct), k.to(ct)) * scale
+    m = k.shape[1]
+    if valid_kv is not None and valid_kv < m:
+        logits = logits.masked_fill(torch.arange(m, device=q.device) >= valid_kv, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.exp(logits - lse[..., None]), v.to(ct))
+    return out.to(v.dtype), lse
+
+
+def flash_batched_attention_bwd_reference(q, k, v, out, lse, dout, valid_kv: Optional[int] = None, scale=None):
+    """Plain version of K7: (dq, dk, dv) by the kernel's formulas, P recomputed
+    from lse. dk and dv are dense (B, M, H, D); rows >= valid_kv are 0."""
+    ct = _compute_dtype(q)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    qf, kf, vf, of, dof = (t.to(ct) for t in (q, k, v, out, dout))
+    delta = (dof * of).sum(-1).permute(0, 2, 1)  # (B, H, S)
+    p = _batched_probs(qf, kf, lse.to(ct), valid_kv, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, vf) - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _batched_cuda_args(name, q, k, v, valid_kv, scale):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    b, s, h, d = q.shape
+    m = k.shape[1]
+    if k.shape != (b, m, h, d) or v.shape != k.shape:
+        raise ValueError(f"{name}: shapes q {q.shape} k {k.shape} v {v.shape}")
+    _check_cuda_inputs(name, q, k, v)
+    m_valid = m if valid_kv is None else int(valid_kv)
+    if not 0 < m_valid <= m:
+        raise ValueError(f"{name}: valid_kv {valid_kv} outside (0, {m}]")
+    return m_valid, float(d ** -0.5 if scale is None else scale)
+
+
+def _batched_forward_cuda(q, k, v, valid_kv, scale, with_lse: bool):
+    """Launches K1 (with_lse False) or K6; returns (out, lse or None)."""
+    name = "flash_batched_attention_lse" if with_lse else "flash_batched_attention"
+    m_valid, scale = _batched_cuda_args(name, q, k, v, valid_kv, scale)
+    b, s, h, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
+    err = load_library()[0].g2_batched_attention(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None,
+        b, s, m_valid, h, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on_error(name, err)
+    launch_counts[name] += 1
+    return out, lse
+
+
+def _row_delta(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in fp32, heads before rows: (..., S, H, D) ->
+    (..., H, S). One torch expression, as g2vlm_tpu computes it outside its
+    kernels."""
+    return (dout.float() * out.float()).sum(-1).transpose(-1, -2).contiguous()
+
+
+def _batched_backward_cuda(q, k, v, out, lse, dout, valid_kv, scale, which=("dq", "dkv")):
+    """Launches K7's dq and dkv kernels; returns (dq, dk, dv), with None for
+    a part left out of `which` (the smoke times the two kernels apart)."""
+    name = "flash_batched_attention_bwd"
+    m_valid, scale = _batched_cuda_args(name, q, k, v, valid_kv, scale)
+    b, s, h, d = q.shape
+    m = k.shape[1]
+    dout = dout.contiguous()
+    _check_cuda_inputs(name, q, dout)
+    if not out.is_contiguous() or lse.shape != (b, h, s) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{name}: out and lse must be the forward's own outputs")
+    delta = _row_delta(out, dout)
+    lib = load_library()[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (_DTYPES[q.dtype], 0, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    dq = dk = dv = None
+    if "dq" in which:
+        dq = torch.empty_like(out)
+        err = lib.g2_attention_bwd_dq(*common, dq.data_ptr(), None, None, None,
+                                      b, s, m_valid, h, h, d, *strides, scale, stream)
+        _raise_on_error(name + "_dq", err)
+        launch_counts[name + "_dq"] += 1
+    if "dkv" in which:
+        dk = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+        err = lib.g2_attention_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), None, None, None,
+                                       b, s, m_valid, m, h, h, d, *strides, scale, stream)
+        _raise_on_error(name + "_dkv", err)
+        launch_counts[name + "_dkv"] += 1
+    return dq, dk, dv
+
+
+class _BatchedAttention(torch.autograd.Function):
+    """K6 forward (saves q, k, v, out, lse) and K7 backward; on CPU tensors
+    the plain versions of both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, valid_kv, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_batched_attention_lse_reference(q, k, v, valid_kv, scale)
+        else:
+            out, lse = _batched_forward_cuda(q, k, v, valid_kv, scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.valid_kv, ctx.scale = valid_kv, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_batched_attention_bwd_reference(q, k, v, out, lse, dout, ctx.valid_kv, ctx.scale)
+        else:
+            grads = _batched_backward_cuda(q, k, v, out, lse, dout, ctx.valid_kv, ctx.scale)
+        # a K/V given as expand(B, ...) gets the dense (B, M, H, D) gradient:
+        # autograd's expand backward sums it over the batch
+        return (*grads, None, None)
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def flash_batched_attention(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, M, H, D); batch stride 0 (expand) is fine
@@ -152,35 +342,18 @@ def flash_batched_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Full bidirectional (cross-)attention within each batch element.
-    Returns a contiguous (B, S, H, D) tensor."""
+    Returns a contiguous (B, S, H, D) tensor. An input that requires grad
+    takes the lse forward (K6) and the kernel backward (K7); otherwise the
+    plain forward (K1) runs."""
+    if _needs_grad(q, k, v):
+        return _BatchedAttention.apply(q, k, v, valid_kv, scale)
     if q.device.type == "cpu":
         return flash_batched_attention_reference(q, k, v, valid_kv, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_batched_attention: unsupported device {q.device}")
-    b, s, h, d = q.shape
-    m = k.shape[1]
-    if k.shape != (b, m, h, d) or v.shape != k.shape:
-        raise ValueError(f"flash_batched_attention: shapes q {q.shape} k {k.shape} v {v.shape}")
-    _check_cuda_inputs("flash_batched_attention", q, k, v)
-    m_valid = m if valid_kv is None else int(valid_kv)
-    if not 0 < m_valid <= m:
-        raise ValueError(f"flash_batched_attention: valid_kv {valid_kv} outside (0, {m}]")
-    if scale is None:
-        scale = d ** -0.5
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    err = load_library().g2_batched_attention(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, m_valid, h, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on_error("flash_batched_attention", err)
-    launch_counts["flash_batched_attention"] += 1
-    return out
+    return _batched_forward_cuda(q, k, v, valid_kv, scale, with_lse=False)[0]
 
 
 # ---------------------------------------------------------------------------
-# K2: packed segment-masked GQA attention
+# K2 / K3 / K5: packed segment-masked GQA attention, its lse forward and backward
 # ---------------------------------------------------------------------------
 
 def block_codes(q_meta: torch.Tensor, kv_meta: torch.Tensor, tile: int = TILE) -> torch.Tensor:
@@ -219,6 +392,152 @@ def flash_segment_attention_reference(q, k, v, q_info: TokenInfo, kv_info: Token
     return segment_attention_chunked(q, k, v, q_info, kv_info, scale)
 
 
+def flash_segment_attention_lse_reference(q, k, v, q_info: TokenInfo, kv_info: TokenInfo, scale=None):
+    """Plain version of K3: (out (S_q, H, D), lse (H, S_q) fp32), lse ==
+    LSE_EMPTY for a row that sees no key."""
+    return segment_attention_chunked(q, k, v, q_info, kv_info, scale, return_lse=True)
+
+
+def flash_segment_attention_bwd_reference(
+    q, k, v, out, lse, dout, q_info: TokenInfo, kv_info: TokenInfo, scale=None, kv_chunk: int = 2048
+):
+    """Plain version of K5: (dq, dk, dv) by the kernel's formulas, P
+    recomputed from lse, chunked over keys; dk and dv are summed over the
+    GQA group."""
+    ct = _compute_dtype(q)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s_q, h, d = q.shape
+    s_kv, kvh, _ = k.shape
+    g = h // kvh
+
+    def rows(t):  # (S_q, H, ...) -> (KVH, G*S_q, ...): a KV head's G query heads stacked
+        return t.reshape(s_q, kvh, g, *t.shape[2:]).permute(1, 2, 0, *range(3, t.dim() + 1)).reshape(
+            kvh, g * s_q, *t.shape[2:])
+
+    qh, doh = rows(q.to(ct)), rows(dout.to(ct))
+    delta = rows((dout.to(ct) * out.to(ct)).sum(-1))  # (KVH, G*S_q)
+    lse_h = lse.to(ct).reshape(kvh, g * s_q)
+    # an empty row's lse is LSE_EMPTY: exp(s - lse) would overflow, the mask zeroes it first
+    lse_h = torch.where(lse_h > 0.1 * LSE_EMPTY, lse_h, torch.zeros_like(lse_h))
+    dq = torch.zeros_like(qh)
+    dk = torch.empty((kvh, s_kv, d), dtype=ct, device=q.device)
+    dv = torch.empty_like(dk)
+    for c0 in range(0, s_kv, kv_chunk):
+        kb = k[c0 : c0 + kv_chunk].to(ct).transpose(0, 1)  # (KVH, T, D)
+        vb = v[c0 : c0 + kv_chunk].to(ct).transpose(0, 1)
+        mask = make_segment_mask(q_info, kv_info.slice(c0, kb.shape[1])).repeat(g, 1)  # (G*S_q, T)
+        logits = torch.matmul(qh, kb.transpose(1, 2)) * scale
+        p = torch.exp(logits.masked_fill(~mask, float("-inf")) - lse_h[..., None])
+        dv[:, c0 : c0 + kv_chunk] = torch.matmul(p.transpose(1, 2), doh)
+        ds = p * (torch.matmul(doh, vb.transpose(1, 2)) - delta[..., None])
+        dq += torch.matmul(ds, kb) * scale
+        dk[:, c0 : c0 + kv_chunk] = torch.matmul(ds.transpose(1, 2), qh) * scale
+    dq = dq.reshape(kvh, g, s_q, d).permute(2, 0, 1, 3).reshape(s_q, h, d)
+    return dq.to(q.dtype), dk.transpose(0, 1).to(k.dtype), dv.transpose(0, 1).to(v.dtype)
+
+
+def _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    s_q, h, d = q.shape
+    s_kv, kvh, _ = k.shape
+    if k.shape != (s_kv, kvh, d) or v.shape != k.shape or h % kvh:
+        raise ValueError(f"{name}: shapes q {q.shape} k {k.shape} v {v.shape}")
+    _check_cuda_inputs(name, q, k, v)
+    if q_meta.shape != (s_q, 4) or kv_meta.shape != (s_kv, 4):
+        raise ValueError(f"{name}: metadata length differs from the sequence")
+    if q_meta.device != q.device or kv_meta.device != q.device:
+        raise ValueError(f"{name}: metadata must be on the inputs' device")
+    return float(d ** -0.5 if scale is None else scale)
+
+
+def _segment_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale, with_lse: bool):
+    """Launches K2 (with_lse False) or K3; returns (out, lse or None)."""
+    name = "flash_segment_attention_lse" if with_lse else "flash_segment_attention"
+    scale = _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale)
+    s_q, h, d = q.shape
+    s_kv, kvh, _ = k.shape
+    out = torch.empty((s_q, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((h, s_q), dtype=torch.float32, device=q.device) if with_lse else None
+    err = load_library()[0].g2_segment_attention(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None,
+        q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr(), s_q, s_kv, h, kvh, d,
+        *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
+        scale, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on_error(name, err)
+    launch_counts[name] += 1
+    return out, lse
+
+
+def _segment_backward_cuda(q, k, v, out, lse, dout, q_meta, kv_meta, codes, scale, which=("dq", "dkv")):
+    """Launches K5's dq and dkv kernels on the forward's metadata and tile
+    codes; returns (dq, dk, dv), None for a part left out of `which`."""
+    name = "flash_segment_attention_bwd"
+    scale = _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale)
+    s_q, h, d = q.shape
+    s_kv, kvh, _ = k.shape
+    dout = dout.contiguous()
+    _check_cuda_inputs(name, q, dout)
+    if not out.is_contiguous() or lse.shape != (h, s_q) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{name}: out and lse must be the forward's own outputs")
+    if codes.shape != (-(-s_q // TILE), -(-s_kv // TILE)) or codes.dtype != torch.int8 or not codes.is_contiguous():
+        raise ValueError(f"{name}: tile codes of shape {tuple(codes.shape)} do not fit the sequence")
+    delta = _row_delta(out, dout)
+    lib = load_library()[1]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    common = (_DTYPES[q.dtype], 1, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+              lse.data_ptr(), delta.data_ptr())
+    meta = (q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr())
+    strides = (0, *q.stride()[:2], 0, *k.stride()[:2], 0, *v.stride()[:2])
+    dq = dk = dv = None
+    if "dq" in which:
+        dq = torch.empty_like(out)
+        err = lib.g2_attention_bwd_dq(*common, dq.data_ptr(), *meta,
+                                      1, s_q, s_kv, h, kvh, d, *strides, scale, stream)
+        _raise_on_error(name + "_dq", err)
+        launch_counts[name + "_dq"] += 1
+    if "dkv" in which:
+        dk = torch.empty((s_kv, kvh, d), dtype=q.dtype, device=q.device)
+        dv = torch.empty_like(dk)
+        err = lib.g2_attention_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), *meta,
+                                       1, s_q, s_kv, s_kv, h, kvh, d, *strides, scale, stream)
+        _raise_on_error(name + "_dkv", err)
+        launch_counts[name + "_dkv"] += 1
+    return dq, dk, dv
+
+
+class _SegmentAttention(torch.autograd.Function):
+    """K3 forward (saves q, k, v, out, lse and, on the card, the packed
+    metadata and the tile codes, computed once) and K5 backward; on CPU
+    tensors the plain versions of both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_info, kv_info, scale):
+        if q.device.type == "cpu":
+            out, lse = flash_segment_attention_lse_reference(q, k, v, q_info, kv_info, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.infos = (q_info, kv_info)
+        else:
+            q_meta, kv_meta = q_info.packed(), kv_info.packed()
+            codes = block_codes(q_meta, kv_meta)
+            out, lse = _segment_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale, with_lse=True)
+            ctx.save_for_backward(q, k, v, out, lse, q_meta, kv_meta, codes)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, *meta = ctx.saved_tensors
+        if q.device.type == "cpu":
+            grads = flash_segment_attention_bwd_reference(q, k, v, out, lse, dout, *ctx.infos, ctx.scale)
+        else:
+            grads = _segment_backward_cuda(q, k, v, out, lse, dout, *meta, ctx.scale)
+        return (*grads, None, None, None)
+
+
 def flash_segment_attention(
     q: torch.Tensor,  # (S_q, H, D)
     k: torch.Tensor,  # (S_kv, KVH, D)
@@ -228,32 +547,12 @@ def flash_segment_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Packed segment-masked GQA attention. Returns a contiguous (S_q, H, D)
-    tensor; rows with no visible key are 0."""
+    tensor; rows with no visible key are 0. An input that requires grad takes
+    the lse forward (K3) and the kernel backward (K5); otherwise the plain
+    forward (K2) runs."""
+    if _needs_grad(q, k, v):
+        return _SegmentAttention.apply(q, k, v, q_info, kv_info, scale)
     if q.device.type == "cpu":
         return flash_segment_attention_reference(q, k, v, q_info, kv_info, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_segment_attention: unsupported device {q.device}")
-    s_q, h, d = q.shape
-    s_kv, kvh, _ = k.shape
-    if k.shape != (s_kv, kvh, d) or v.shape != k.shape or h % kvh:
-        raise ValueError(f"flash_segment_attention: shapes q {q.shape} k {k.shape} v {v.shape}")
-    _check_cuda_inputs("flash_segment_attention", q, k, v)
-    q_meta = q_info.packed()
-    kv_meta = kv_info.packed()
-    if q_meta.shape != (s_q, 4) or kv_meta.shape != (s_kv, 4):
-        raise ValueError("flash_segment_attention: metadata length differs from the sequence")
-    if q_meta.device != q.device or kv_meta.device != q.device:
-        raise ValueError("flash_segment_attention: metadata must be on the inputs' device")
-    if scale is None:
-        scale = d ** -0.5
-    codes = block_codes(q_meta, kv_meta)
-    out = torch.empty((s_q, h, d), dtype=q.dtype, device=q.device)
-    err = load_library().g2_segment_attention(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr(), s_q, s_kv, h, kvh, d,
-        *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
-        float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _raise_on_error("flash_segment_attention", err)
-    launch_counts["flash_segment_attention"] += 1
-    return out
+    q_meta, kv_meta = q_info.packed(), kv_info.packed()
+    return _segment_forward_cuda(q, k, v, q_meta, kv_meta, block_codes(q_meta, kv_meta), scale, with_lse=False)[0]

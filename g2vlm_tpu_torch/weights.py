@@ -3,7 +3,10 @@ and a seeded random init built directly on the target device.
 
 `state_dict_from_jax` is the exact inverse of g2vlm_tpu's
 `models/g2vlm.py:params_from_torch`: it unstacks the leading layer axis and
-transposes the `w` matrices back into (out, in) Linear weights.
+transposes the `w` matrices back into (out, in) Linear weights. The map is
+linear (transposes, unstacking, reshapes), so it also carries a tree of
+gradients, of optimizer moments or of an EMA from the JAX tree's layout to
+the port's parameter names; the training tests compare them that way.
 """
 
 from __future__ import annotations
@@ -14,14 +17,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from g2vlm_tpu.config import G2VLMConfig
+from .config import G2VLMConfig
 
 from .models import dinov2, mot_decoder
 from .models.g2vlm import G2VLM
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.from_numpy(np.array(a, np.float32))  # a copy: jax hands out read-only buffers
 
 
 def _layer(tree, i: int):

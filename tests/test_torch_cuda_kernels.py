@@ -1,4 +1,5 @@
-"""The two hand-written CUDA kernels (g2vlm_tpu_torch/csrc/attention.cu)
+"""The hand-written CUDA kernels (g2vlm_tpu_torch/csrc/attention.cu forwards
+K1, K2 and their lse forms K3, K6; csrc/attention_bwd.cu backwards K5, K7)
 against their plain PyTorch versions, on the card in bf16 (and fp16).
 
 Needs an NVIDIA GPU with nvcc; imports no jax. Run it on the card with
@@ -142,3 +143,119 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take(gen):
     q = _rnd(gen, 2, 16, 2, 64)
     with pytest.raises(ValueError):
         fa.flash_batched_attention(q, q.cpu(), q)
+
+
+# backward limits relative to the plain result: dS and P are rounded to bf16
+# before the second products, and the outputs once more
+BWD_MAX_REL = 2e-2
+BWD_MEAN_REL = 5e-3  # mean |err| against mean |ref|: the outputs alone carry one bf16 rounding (2^-9); seen 2.8e-3
+
+
+def _check_grad(got, want, name):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all(), name
+    err = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    assert err.max().item() <= BWD_MAX_REL * ref.max().item(), (name, err.max().item(), ref.max().item())
+    assert err.mean().item() <= BWD_MEAN_REL * ref.mean().item(), (name, err.mean().item(), ref.mean().item())
+
+
+@pytest.mark.parametrize(
+    "b,s,m,h,d,valid_kv,cross",
+    [
+        (16, 782, 782, 16, 64, None, False),  # DINOv2-L at the 16-view training batch
+        (16, 777, 777, 16, 96, None, False),  # Pi3 self attention
+        (16, 777, 777, 16, 96, None, True),  # Pi3 cross attention to frame 0 (batch stride 0)
+        (16, 777, 777, 16, 96, 700, False),
+        (3, 45, 37, 3, 96, 30, False),
+        (2, 17, 130, 2, 128, 129, False),
+        (2, 65, 63, 1, 64, None, True),
+    ],
+)
+def test_batched_lse_and_backward_kernels_match_plain(gen, b, s, m, h, d, valid_kv, cross):
+    kb = 1 if cross else b
+    q = _rnd(gen, b, s, h, d).requires_grad_(True)
+    k0 = _rnd(gen, kb, m, h, d).requires_grad_(True)
+    v0 = _rnd(gen, kb, m, h, d).requires_grad_(True)
+    dout = _rnd(gen, b, s, h, d)
+    k, v = k0.expand(b, m, h, d), v0.expand(b, m, h, d)
+    before = dict(fa.launch_counts)
+    out = fa.flash_batched_attention(q, k, v, valid_kv=valid_kv)
+    dq, dk, dv = torch.autograd.grad(out, (q, k0, v0), dout)
+    for name in ("flash_batched_attention_lse", "flash_batched_attention_bwd_dq", "flash_batched_attention_bwd_dkv"):
+        assert fa.launch_counts[name] == before[name] + 1, name
+    with torch.no_grad():
+        assert torch.equal(out, fa.flash_batched_attention(q, k, v, valid_kv=valid_kv))  # K6 out == K1 out
+        _, lse = fa._batched_forward_cuda(q, k, v, valid_kv, None, with_lse=True)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        want_out, want_lse = fa.flash_batched_attention_lse_reference(qf, kf, vf, valid_kv)
+        assert (lse - want_lse).abs().max().item() < 2e-3
+        # the plain backward takes the kernel's own out and lse, as the kernels do
+        wq, wk, wv = fa.flash_batched_attention_bwd_reference(qf, kf, vf, out.float(), lse, dout.float(), valid_kv)
+        if cross:
+            wk, wv = wk.sum(0, keepdim=True), wv.sum(0, keepdim=True)
+    _check_grad(dq, wq, "dq")
+    _check_grad(dk, wk, "dk")
+    _check_grad(dv, wv, "dv")
+    if valid_kv is not None:
+        assert (dk[:, valid_kv:] == 0).all() and (dv[:, valid_kv:] == 0).all()
+
+
+def _train_info(n_views):
+    """The sorted [und | geo] training pack: text, then the dino views."""
+    b = SequenceBuilder(11, 12)
+    b.add_text(list(range(20, 51)))
+    b.add_dino_images(n_views, 21, 37)
+    pre = b.build(pad_to=-(-b.curr // 256) * 256)
+    return pre.token_info("cuda")
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        dict(info=lambda: _train_info(16), h=12, kvh=2, d=128),  # the 16-view training pack, 12,544 rows
+        dict(info=lambda: make_token_info([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"],
+                                          pad_to=320, device="cuda"), h=12, kvh=2, d=128),
+        dict(info=lambda: make_token_info([77], [30, 47], ["full", "causal"], device="cuda"), h=6, kvh=3, d=96),
+        dict(info=lambda: make_token_info([50, 13], [50, 13], ["causal", "full"], pad_to=70, device="cuda"),
+             h=2, kvh=1, d=64),
+    ],
+)
+def test_segment_lse_and_backward_kernels_match_plain(gen, case):
+    info = case["info"]()
+    n = info.seq_len
+    q = _rnd(gen, n, case["h"], case["d"]).requires_grad_(True)
+    k = _rnd(gen, n, case["kvh"], case["d"]).requires_grad_(True)
+    v = _rnd(gen, n, case["kvh"], case["d"]).requires_grad_(True)
+    dout = _rnd(gen, n, case["h"], case["d"])
+    before = dict(fa.launch_counts)
+    out = fa.flash_segment_attention(q, k, v, info, info)
+    dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+    for name in ("flash_segment_attention_lse", "flash_segment_attention_bwd_dq", "flash_segment_attention_bwd_dkv"):
+        assert fa.launch_counts[name] == before[name] + 1, name
+    with torch.no_grad():
+        assert torch.equal(out, fa.flash_segment_attention(q, k, v, info, info))  # K3 out == K2 out
+        meta = info.packed()
+        _, lse = fa._segment_forward_cuda(q, k, v, meta, meta, fa.block_codes(meta, meta), None, with_lse=True)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        _, want_lse = fa.flash_segment_attention_lse_reference(qf, kf, vf, info, info)
+        assert (lse - want_lse).abs().max().item() < 2e-3
+        wq, wk, wv = fa.flash_segment_attention_bwd_reference(qf, kf, vf, out.float(), lse, dout.float(), info, info)
+    _check_grad(dq, wq, "dq")
+    _check_grad(dk, wk, "dk")
+    _check_grad(dv, wv, "dv")
+    pad = info.doc_id < 0
+    if pad.any():  # rows and keys that see nothing: exact zeros
+        assert (lse[:, pad] == fa.LSE_EMPTY).all()
+        assert (dq[pad] == 0).all() and (dk[pad] == 0).all() and (dv[pad] == 0).all()
+
+
+def test_fp16_backward_matches_plain(gen):
+    q = _rnd(gen, 2, 45, 3, 96, dtype=torch.float16).requires_grad_(True)
+    dout = _rnd(gen, 2, 45, 3, 96, dtype=torch.float16)
+    out = fa.flash_batched_attention(q, q, q, valid_kv=40)
+    (dq,) = torch.autograd.grad(out, q, dout)
+    qf = q.detach().float().requires_grad_(True)
+    ref = fa.flash_batched_attention_reference(qf, qf, qf, valid_kv=40)
+    (want,) = torch.autograd.grad(ref, qf, dout.float())
+    _check_grad(dq, want, "dq")

@@ -1,0 +1,74 @@
+"""The port imports nothing of JAX and nothing of the JAX package, and its
+own copy of the configs equals the JAX package's field for field."""
+
+import dataclasses
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import g2vlm_tpu.config as jcfg
+import g2vlm_tpu.data.images as jimages
+import g2vlm_tpu_torch
+import g2vlm_tpu_torch.config as tcfg
+import g2vlm_tpu_torch.data.images as timages
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(g2vlm_tpu_torch.__path__, "g2vlm_tpu_torch."))
+
+
+def test_every_port_module_and_script_imports_without_jax():
+    """In a fresh interpreter: import every module under g2vlm_tpu_torch and
+    the two root scripts (import only), then look at sys.modules."""
+    modules = _port_modules() + ["chip_smoke", "train_torch"]
+    assert "g2vlm_tpu_torch.train.trainer" in modules and "g2vlm_tpu_torch.config" in modules
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'g2vlm_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+
+
+def test_no_port_source_names_the_jax_package_in_an_import():
+    sources = list((REPO / "g2vlm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "train_torch.py"]
+    assert len(sources) > 20
+    for path in sources:
+        for line in path.read_text().splitlines():
+            words = line.strip().split()
+            if words[:1] in (["import"], ["from"]):
+                root = words[1].split(".")[0]
+                assert root not in ("jax", "jaxlib", "optax", "g2vlm_tpu"), f"{path.name}: {line.strip()}"
+
+
+@pytest.mark.parametrize(
+    "make",
+    [lambda m: m.G2VLMConfig(), lambda m: m.G2VLMConfig(visual_und=False), lambda m: m.tiny_test_config(),
+     lambda m: m.tiny_test_config(visual_und=False)],
+    ids=["default", "recon_stage", "tiny", "tiny_recon"],
+)
+def test_port_config_equals_jax_config_field_for_field(make):
+    want, got = make(jcfg), make(tcfg)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+    assert got.llm.use_moe == want.llm.use_moe
+
+
+def test_port_image_constants_equal_the_jax_package(rng):
+    import numpy as np
+
+    np.testing.assert_array_equal(timages.RESNET_MEAN, jimages.RESNET_MEAN)
+    np.testing.assert_array_equal(timages.RESNET_STD, jimages.RESNET_STD)
+    x = rng.random((2, 3, 8, 9)).astype(np.float32)
+    np.testing.assert_array_equal(timages.resnet_normalize(x), jimages.resnet_normalize(x))
+    frames = [(rng.random((20, 30, 3)) * 255).astype(np.uint8) for _ in range(2)]
+    np.testing.assert_array_equal(timages.load_views(frames, new_width=28), jimages.load_views(frames, new_width=28))

@@ -180,7 +180,8 @@ def test_cpu_wrappers_take_the_plain_path_and_count_nothing(rng):
     tfa.flash_batched_attention(q, q, q)
     info = tmasks.make_token_info([20], [20], ["causal"])
     tfa.flash_segment_attention(q[0], q[0], q[0], info, info)
-    assert tfa.launch_counts == {"flash_batched_attention": 0, "flash_segment_attention": 0}
+    assert set(tfa.launch_counts) >= {"flash_batched_attention", "flash_segment_attention"}
+    assert not any(tfa.launch_counts.values())
 
 
 @pytest.mark.parametrize(

@@ -112,7 +112,7 @@ def test_recon_forward_matches_jax(models, rng):
         got = tg.recon_forward(model, builders[1], torch.from_numpy(imgs), CFG)
     _assert_outputs_match(got, want)
     # the CPU path runs the plain versions: no kernel launched
-    assert tfa.launch_counts == {"flash_batched_attention": 0, "flash_segment_attention": 0}
+    assert not any(tfa.launch_counts.values())
 
 
 def test_recon_from_frames_matches_jax_pipeline(models, rng):
