@@ -24,7 +24,20 @@ Phases (each prints its result; any failure raises and the exit code is 1):
  10. the training slice: the recon-stage step of train_torch.py at full width
      and depth (16 views of 294x518 in a 12,800-token pack, SPLIT layout, und
      expert frozen, factored Adam with a bf16 first moment, EMA, per-layer
-     checkpointing), a few steps on one repeated batch.
+     checkpointing), a few steps on one repeated batch;
+ 11. K2 at head dim 80, K4 (the two-stage forward) and K8 (the int8-QK forward)
+     against their plain versions at the chat prefill (48,384 rows), one ViT
+     chunk (11,664 rows, 16 heads of 80), a small ragged mixed case and, for
+     K8, outlier and extreme-logit inputs; K4 is also held against K2;
+ 12. chat parity: a full-width, cut-depth model answers on the card in bf16
+     (kernels; default, pipelined and int8 attention) and on the CPU in fp32:
+     prefill hidden states and the first decode step's logits;
+ 13. the chat slice: G2VLMConfig() with random bf16 weights, 32 uint8 views of
+     294x518, chat(device_preprocess=True) for 32 new tokens: launch counts,
+     finite logits, ids in the vocabulary and repeatable, chat_continue, the
+     decode loop eager and as a CUDA graph, TTFT by stage, tokens/s, memory;
+ 14. the same call, and the 32-view recon call, with attn_impl="int8" (K8) and
+     with attn_pipe=True (K4).
 Every kernel is also timed beside the one PyTorch library call that computes
 the same function (a yardstick only; the port never calls it). The last line is
 {"ok": true, "device": {...}}; before it, the card's line and one JSON line
@@ -40,9 +53,11 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
-# the card's published peaks (H100 SXM): dense bf16 tensor-core rate and HBM3 rate
+# the card's published peaks (H100 SXM): dense bf16 and int8 tensor-core rates and HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # limits of a bf16 kernel against its plain fp32 version
 FWD_MAX_ABS, FWD_MEAN_ABS = 2e-2, 1e-3  # forwards: outputs are O(1)
@@ -141,7 +156,8 @@ def _rel_errors(got, want):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true", help="profile one recon call and one training step")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one recon call, one training step and one chat call")
     args = ap.parse_args()
 
     import torch
@@ -149,16 +165,10 @@ def main() -> None:
     # ---- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         _fail("torch.cuda.is_available() is false: this smoke needs an NVIDIA GPU")
-    import numpy as np
     import torch.nn.functional as F
 
-    import train_torch
-    from g2vlm_tpu_torch.config import G2VLMConfig
-    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
     from g2vlm_tpu_torch.ops import flash_attention as fa
-    from g2vlm_tpu_torch.ops.masks import TokenInfo, make_segment_mask, make_token_info
-    from g2vlm_tpu_torch.train import trainer
-    from g2vlm_tpu_torch.weights import build_model
+    from g2vlm_tpu_torch.ops.masks import make_segment_mask, make_token_info
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -192,9 +202,68 @@ def main() -> None:
 
     def entry_for(kname, replaces, source="g2vlm_tpu_torch/csrc/attention.cu"):
         return kernels.setdefault(kname, {
-            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": 0, "launches_recon_call": 0, "launches_train_step": 0, "max_abs_err": 0.0,
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
         })
+
+    def visible_pairs(info, q_chunk=2048):
+        """Query-key pairs the mask makes visible: what this run's data needs, and what the
+        bounds of the segment kernels count."""
+        return sum(int(make_segment_mask(info.slice(q0, q_chunk), info).sum().item())
+                   for q0 in range(0, info.seq_len, q_chunk))
+
+    def live_pairs(info):
+        """Query-key pairs in the tiles the codes do not mark SKIP: the work the tile codes make
+        the kernels do, at least `visible_pairs`."""
+        meta = info.packed()
+        return int((fa.block_codes(meta, meta) != fa.BLOCK_SKIP).sum().item()) * fa.TILE * fa.TILE
+
+    def gqa_mask_call(q, k, v, info):
+        """The library call for the segment kernels: GQA attention with the
+        boolean segment mask materialised beforehand."""
+        mask = make_segment_mask(info, info)
+        return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+
+    mixed = make_token_info([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"],
+                            pad_to=320, device=dev)
+    env = SimpleNamespace(args=args, dev=dev, card=card, gen=gen, rnd=rnd, sdpa=sdpa, kernels=kernels,
+                          entry_for=entry_for, visible_pairs=visible_pairs, live_pairs=live_pairs,
+                          gqa_mask_call=gqa_mask_call, mixed=mixed)
+
+    # launches of each main path's run: counts set to 0 just before it, read just after
+    paths_run = {}
+    paths_run["recon_call"], paths_run["train_step"], recon_ms = _recon_and_train_phases(env)
+    paths_run.update(_chat_phases(env, recon_ms))
+
+    for kname, e in kernels.items():
+        for path, counts in paths_run.items():
+            e["launches_" + path] = counts.get(kname, 0)
+        e["launches"] = sum(counts.get(kname, 0) for counts in paths_run.values())
+        if e["launches"] == 0:
+            _fail(f"kernel {kname} was launched on no main path")
+        missing = {"ms", "plain_ms", "bound_ms", "bound_by", "library_ms"} - set(e)
+        if missing:
+            _fail(f"kernel {kname} lacks {sorted(missing)} in the kernels line")
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+
+
+def _recon_and_train_phases(env):
+    """Phases 3-10. Returns (launches of the 32-view recon call, launches of
+    the last training step, ms per recon call)."""
+    import numpy as np
+    import torch
+
+    import train_torch
+    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.ops.masks import TokenInfo, make_segment_mask, make_token_info
+    from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.weights import build_model
+
+    args, dev, card, gen, rnd, sdpa = env.args, env.dev, env.card, env.gen, env.rnd, env.sdpa
+    entry_for, visible_pairs, gqa_mask_call, mixed = env.entry_for, env.visible_pairs, env.gqa_mask_call, env.mixed
 
     k1e = entry_for("flash_batched_attention", "g2vlm_tpu/ops/flash_attention.py:1058")
     k2e = entry_for("flash_segment_attention", "g2vlm_tpu/ops/flash_attention.py:168")
@@ -205,6 +274,7 @@ def main() -> None:
     k6e = entry_for("flash_batched_attention_lse", "g2vlm_tpu/ops/flash_attention.py:1127")
     k7q = entry_for("flash_batched_attention_bwd_dq", "g2vlm_tpu/ops/flash_attention.py:1164", bwd_src)
     k7kv = entry_for("flash_batched_attention_bwd_dkv", "g2vlm_tpu/ops/flash_attention.py:1195", bwd_src)
+
 
     # ---- 3. K1 -------------------------------------------------------------
     k1_cases = [
@@ -241,19 +311,6 @@ def main() -> None:
     shape_pipe = G2VLMPipeline(None, G2VLMConfig(visual_und=False))
     pre = shape_pipe.build_recon_prefill(32, 21, 37)
     recon_info = pre.token_info(dev)
-    mixed = make_token_info([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"],
-                            pad_to=320, device=dev)
-
-    def live_pairs(info):
-        """Query-key pairs in the tiles the kernels do not skip (what this run's data needs)."""
-        meta = info.packed()
-        return int((fa.block_codes(meta, meta) != fa.BLOCK_SKIP).sum().item()) * fa.TILE * fa.TILE
-
-    def gqa_mask_call(q, k, v, info):
-        """The library call for the segment kernels: GQA attention with the
-        boolean segment mask materialised beforehand."""
-        mask = make_segment_mask(info, info)
-        return lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
 
     for tag, info, h, kvh, d, iters in (
         ("recon_prefill_32_views", recon_info, 12, 2, 128, 5),
@@ -262,8 +319,9 @@ def main() -> None:
         n = info.seq_len
         q, k, v = rnd(n, h, d), rnd(n, kvh, d), rnd(n, kvh, d)
         qf, kf, vf = q.float(), k.float(), v.float()
+        plan = fa.segment_plan(info, info)  # made once per forward on the main path, so outside the kernel's time
         mx, mean, ms, plain_ms = _compare_timed(
-            lambda: fa.flash_segment_attention(q, k, v, info, info),
+            lambda: fa.flash_segment_attention(q, k, v, info, info, plan=plan),
             lambda: fa.flash_segment_attention_reference(qf, kf, vf, info, info),
             iters=iters,
         )
@@ -278,7 +336,7 @@ def main() -> None:
                 _fail("K2: padding rows that see no key are not 0")
             del out
             lib, why = _library_ms(gqa_mask_call(q, k, v, info), 3)
-            bound_ms, by = _attention_bound(live_pairs(info), h, d, 2, n, n, kvh, 2, 2)
+            bound_ms, by = _attention_bound(visible_pairs(info), h, d, 2, n, n, kvh, 2, 2)
             k2e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib,
                        shape=f"({n},{h}:{kvh},{d})")
             print(f"[K2] {tag}: bound {bound_ms:.3f} ms by {by}; library scaled_dot_product_attention "
@@ -377,7 +435,7 @@ def main() -> None:
         pipe.recon_from_frames(frames)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    ms = statistics.median(times)
+    ms = recon_ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[slice] 32 views 294x518 bf16: {ms:.1f} ms per call (median of {[round(t, 1) for t in times]}), "
           f"{32e3 / ms:.2f} frames/s, peak allocated {peak:.2f} GiB ({card})")
@@ -454,7 +512,7 @@ def main() -> None:
 
             ms_dq, plain5 = _timed_in_turns(lambda: run(("dq",)), plain_bwd, 3)
             ms_dkv = _time_ms(lambda: run(("dkv",)), iters)
-            pairs = live_pairs(info)
+            pairs = visible_pairs(info)
             b3, by3 = _attention_bound(pairs, h, d, 2, n, n, kvh, 2, 2, stat_rows=n * h)
             bq, byq = _attention_bound(pairs, h, d, 3, n, n, kvh, 3, 2, stat_rows=2 * n * h)
             bkv, bykv = _attention_bound(pairs, h, d, 4, n, n, kvh, 2, 4, stat_rows=2 * n * h)
@@ -680,15 +738,418 @@ def main() -> None:
             torch.cuda.synchronize()
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
 
-    for kname, e in kernels.items():
-        e["launches_recon_call"] = recon_launches.get(kname, 0)
-        e["launches_train_step"] = launches.get(kname, 0)  # read after the last training step
-        e["launches"] = e["launches_recon_call"] + e["launches_train_step"]
-        if e["launches"] == 0:
-            _fail(f"kernel {kname} was launched on neither main path")
-    print(json.dumps({"kernels": list(kernels.values())}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    train_launches = dict(launches)  # read after the last training step
+    del model, optimizer, state, step_fn, train_batch, named, before, moved_probe, metrics
+    torch.cuda.empty_cache()
+    return recon_launches, train_launches, recon_ms
+
+
+
+QUESTION = "The red point and the blue point mark two positions. Which one is closer to the camera?"
+FOLLOW_UP = "And which one is further to the left?"
+
+
+def _round_robin_ms(fns, iters: int):
+    """Each of `fns` (name -> callable) warm, then timed in turns, once
+    forwards and once backwards through the list; returns name -> mean ms."""
+    for fn in fns.values():
+        fn()
+    names = list(fns)
+    total = {n: 0.0 for n in names}
+    for order in (names, names[::-1]):
+        for n in order:
+            total[n] += _time_ms(fns[n], iters)
+    return {n: t / 2 for n, t in total.items()}
+
+
+def _chat_phases(env, recon_ms):
+    """Phases 11-14. Returns the kernels' launches of the three chat calls
+    (default, int8, pipelined), each read around one call."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.data.device_preprocess import vit_device_grid
+    from g2vlm_tpu_torch.inference import decoding
+    from g2vlm_tpu_torch.inference.pipeline import UPLOAD_CHUNKS, G2VLMPipeline
+    from g2vlm_tpu_torch.models.g2vlm import split_order
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.ops.masks import TokenInfo, make_token_info
+    from g2vlm_tpu_torch.weights import build_model
+
+    args, dev, card, gen, rnd = env.args, env.dev, env.card, env.gen, env.rnd
+    entry_for, gqa_mask_call = env.entry_for, env.gqa_mask_call
+    visible_pairs, live_pairs = env.visible_pairs, env.live_pairs
+    K1, K2 = "flash_batched_attention", "flash_segment_attention"
+    K4, K8 = "flash_segment_attention_pipe", "flash_segment_attention_int8"
+    k2e = entry_for(K2, "g2vlm_tpu/ops/flash_attention.py:168")
+    k4e = entry_for(K4, "g2vlm_tpu/ops/flash_attention.py:270", "g2vlm_tpu_torch/csrc/attention_pipe.cu")
+    k8e = entry_for(K8, "g2vlm_tpu/ops/flash_attention.py:494", "g2vlm_tpu_torch/csrc/attention_int8.cu")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 11. K2 at head dim 80, K4 and K8 against their plain versions ---------------
+    cfg = G2VLMConfig()
+    n_views = 32
+    grid = vit_device_grid()
+    per_image = int(np.prod(grid))
+    pre = G2VLMPipeline(None, cfg).build_chat_prefill(n_views, 21, 37, [grid] * n_views, QUESTION)
+    perm, geo_start = split_order(pre)  # the kernel sees the rows sorted [und | geo | padding]
+    perm_t = torch.as_tensor(perm, device=dev)
+    chat_info = TokenInfo(*(f[perm_t] for f in pre.token_info(dev)))
+    seg = torch.arange(4, device=dev, dtype=torch.int32).repeat_interleave(per_image)
+    vit_info = TokenInfo(seg, seg, torch.full_like(seg, -1), torch.arange(len(seg), device=dev, dtype=torch.int32))
+    ragged = make_token_info([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"],
+                             pad_to=300, device=dev)
+    print(f"[K2/K4/K8] chat prefill: {pre.seq_len} rows padded to {len(pre.doc_id)} ({len(pre.dino_indexes)} dino, "
+          f"{len(pre.vit_indexes)} ViT, {len(pre.text_indexes)} text), geo_start {geo_start}; ViT chunk "
+          f"{len(seg)} rows = 4 images of {per_image}")
+
+    def int8_bound(pairs, h, d, tensors):
+        """QK^T at the int8 tensor-core rate, P.V at the bf16 rate; every operand once."""
+        t_ops = (2.0 * pairs * d * h / PEAK_INT8_OPS + 2.0 * pairs * d * h / PEAK_BF16_FLOPS) * 1e3
+        t_bytes = sum(t.numel() * t.element_size() for t in tensors) / PEAK_BYTES_PER_S * 1e3
+        return (t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations")
+
+    def check_forward(tag, got, want, pad):
+        err = (got.float() - want.float()).abs()
+        mx, mean = err.max().item(), err.mean().item()
+        if not torch.isfinite(got).all() or mx > FWD_MAX_ABS or mean > FWD_MEAN_ABS:
+            _fail(f"{tag} disagrees with its plain version (max {mx}, mean {mean}; limits {FWD_MAX_ABS}, "
+                  f"{FWD_MEAN_ABS})")
+        if pad.any() and (got[pad] != 0).any():
+            _fail(f"{tag}: rows that see no key are not exactly 0")
+        return mx, mean
+
+    for tag, info, h, kvh, d, iters in (
+        ("chat_prefill_32_views", chat_info, 12, 2, 128, 2),
+        ("vit_chunk_4_images", vit_info, 16, 16, 80, 10),
+        ("mixed_docs_ragged", ragged, 12, 2, 128, 20),
+    ):
+        n = info.seq_len
+        pad = info.doc_id < 0
+        q, k, v = rnd(n, h, d), rnd(n, kvh, d), rnd(n, kvh, d)
+        plan = fa.segment_plan(info, info)  # made once per forward on the main path
+        meta, _, codes = plan
+        q8, qs, k8, ks = fa.quantize_qk(q, k, meta)
+
+        def plain():
+            return fa.flash_segment_attention_reference(q.float(), k.float(), v.float(), info, info)
+
+        def plain8():
+            return fa._int8_attention_plain(q8, qs, k8, ks, v.float(), info, info)
+
+        runs = {
+            "K2": lambda: fa.flash_segment_attention(q, k, v, info, info, plan=plan),
+            "K4": lambda: fa.flash_segment_attention(q, k, v, info, info, pipelined=True, plan=plan),
+            "K8": lambda: fa._int8_forward_cuda(q8, qs, k8, ks, v, *plan),
+            "K8+quantiser": lambda: fa.flash_segment_attention_int8(q, k, v, info, info, plan=plan),
+            "plan": lambda: fa.segment_plan(info, info),
+        }
+        want = plain()
+        got2, got4, got8 = runs["K2"](), runs["K4"](), runs["K8+quantiser"]()
+        torch.cuda.synchronize()
+        mx2, mean2 = check_forward(f"K2 {tag}", got2, want, pad)
+        mx4, mean4 = check_forward(f"K4 {tag}", got4, want, pad)
+        # K4 does K2's arithmetic on K2's values in K2's order; the compiler may still contract a
+        # multiply and a subtract differently in the two kernels, so equality is to rounding
+        d42 = (got4.float() - got2.float()).abs().max().item()
+        if d42 > 1e-3:
+            _fail(f"K4 {tag}: differs from K2 by {d42} (limit 1e-3)")
+        want8 = plain8()
+        mx8, mean8 = check_forward(f"K8 {tag}", got8, want8, pad)
+        if not torch.equal(got8, runs["K8"]()):
+            _fail(f"K8 {tag}: the wrapper and the kernel on the wrapper's own quantised operands differ")
+        quant_rel = ((got8.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        del want8, got2, got4, got8
+        ms = _round_robin_ms(runs, iters)
+        plain_ms = _round_robin_ms({"plain": plain, "plain8": plain8}, 1)
+        pairs, tile_pairs = visible_pairs(info), live_pairs(info)
+        bound_ms, by = _attention_bound(pairs, h, d, 2, n, n, kvh, 2, 2)
+        out = torch.empty_like(q)
+        bound8, by8 = int8_bound(pairs, h, d, (q8, k8, v, out, qs, ks, meta, meta, codes))
+        lib, why = _library_ms(gqa_mask_call(q, k, v, info), 3)
+        shape = f"({n},{h}:{kvh},{d})"
+        print(f"[K2/K4/K8] {tag} q{(n, h, d)} kv{(n, kvh, d)}, {pairs / 1e6:.1f} M visible pairs "
+              f"(the bounds count these), {tile_pairs / 1e6:.1f} M pairs in the tiles the codes do not skip ({card}):")
+        print(f"    K2 max_abs_err {mx2:.3e} mean {mean2:.3e}, {ms['K2']:.3f} ms | K4 max_abs_err {mx4:.3e} mean "
+              f"{mean4:.3e}, max|K4-K2| {d42:.3e} ({'bitwise equal' if d42 == 0 else 'to rounding'}), "
+              f"{ms['K4']:.3f} ms | bound {bound_ms:.3f} ms by {by} | plain {plain_ms['plain']:.3f} ms | library "
+              f"scaled_dot_product_attention (enable_gqa, materialised mask) {lib} ms {why or ''}")
+        print(f"    K8 against its plain version max_abs_err {mx8:.3e} mean {mean8:.3e}; against the unquantised "
+              f"plain version max|err|/max|ref| {quant_rel:.3e}; kernel {ms['K8']:.3f} ms, with the quantiser "
+              f"{ms['K8+quantiser']:.3f} ms | bound {bound8:.3f} ms by {by8} | plain {plain_ms['plain8']:.3f} ms | "
+              f"library: none")
+        print(f"    the plan (packed metadata and tile codes), made once per forward and not per launch: "
+              f"{ms['plan']:.3f} ms")
+        k2e["max_abs_err"] = max(k2e["max_abs_err"], mx2)
+        k4e["max_abs_err"] = max(k4e["max_abs_err"], mx4)
+        k8e["max_abs_err"] = max(k8e["max_abs_err"], mx8)
+        at = {"chat_prefill_32_views": "", "vit_chunk_4_images": "_vit_chunk"}.get(tag)
+        if at is not None:
+            for e, key, p_ms, b_ms, b_by, lib_ms in ((k2e, "K2", plain_ms["plain"], bound_ms, by, lib),
+                                                      (k4e, "K4", plain_ms["plain"], bound_ms, by, lib),
+                                                      (k8e, "K8", plain_ms["plain8"], bound8, by8, None)):
+                if e is k2e:  # K2's own line keeps the recon prefill of phase 4; these ride beside it
+                    at_ = at or "_chat_prefill"
+                    e.update({"ms" + at_: ms[key], "plain_ms" + at_: p_ms, "bound_ms" + at_: b_ms,
+                              "library_ms" + at_: lib_ms, "shape" + at_: shape})
+                else:
+                    e.update({"ms" + at: ms[key], "plain_ms" + at: p_ms, "bound_ms" + at: b_ms,
+                              "bound_by" + at: b_by, "library_ms" + at: lib_ms, "shape" + at: shape})
+            k8e["ms_with_quantiser" + at] = ms["K8+quantiser"]
+        del q, k, v, q8, k8, qs, ks, want, out
+        torch.cuda.empty_cache()
+
+    # K8 on an outlier channel (the Hadamard rotation spreads it), on keys with a common-mode
+    # offset (the K mean removes it) and on logits of hundreds of nats
+    info = make_token_info([256], [256], ["causal"], pad_to=300, device=dev)
+    n, h, kvh, d = 300, 4, 2, 128
+    q, k, v = rnd(n, h, d), rnd(n, kvh, d), rnd(n, kvh, d)
+    q[:, :, 5] *= 20.0
+    k = (k.float() + 8.0 * torch.randn(1, kvh, d, generator=gen, device=dev)).to(torch.bfloat16)
+    want = fa.flash_segment_attention_reference(q.float(), k.float(), v.float(), info, info)
+    rels = {}
+    for tag, kw in (("hadamard+kmean", {}), ("neither", dict(hadamard=False, kmean=False))):
+        got = fa.flash_segment_attention_int8(q, k, v, info, info, **kw)
+        q8, qs, k8, ks = fa.quantize_qk(q, k, info.packed(), **kw)
+        mx, _ = check_forward(f"K8 outliers {tag}", got, fa._int8_attention_plain(q8, qs, k8, ks, v.float(), info, info),
+                              info.doc_id < 0)
+        k8e["max_abs_err"] = max(k8e["max_abs_err"], mx)
+        rels[tag] = ((got.float() - want).abs().max() / want.abs().max()).item()
+    v0 = torch.randn(d, generator=gen, device=dev)
+    v0 /= v0.norm()
+    q2, k2 = rnd(n, h, d), rnd(n, kvh, d)
+    q2[7] = (60.0 * v0).to(torch.bfloat16)
+    k2[3] = (60.0 * v0).to(torch.bfloat16)
+    extreme = fa.flash_segment_attention_int8(q2, k2, v, info, info)
+    torch.cuda.synchronize()
+    print(f"[K8] outlier channel + common-mode keys: against the unquantised plain version max|err|/max|ref| "
+          f"{rels['hadamard+kmean']:.3e} with the Hadamard rotation and the K mean, {rels['neither']:.3e} with "
+          f"neither; extreme logits finite {bool(torch.isfinite(extreme).all())}")
+    if not rels["hadamard+kmean"] < min(rels["neither"], 5e-2) or not torch.isfinite(extreme).all():
+        _fail("K8 outlier / extreme-logit case: the rotation and the K mean must cut the error, below 5e-2")
+    del q, k, v, q2, k2, want, got, extreme
+
+    # ---- 12. chat parity at cut depth: card bf16 (kernels) vs CPU fp32 (plain) --------
+    cut = dataclasses.replace(
+        cfg,
+        llm=dataclasses.replace(cfg.llm, num_hidden_layers=2, vocab_size=5120),
+        dino=dataclasses.replace(cfg.dino, num_hidden_layers=2),
+        vit=dataclasses.replace(cfg.vit, depth=2),
+        pi3=dataclasses.replace(cfg.pi3, depth=2),
+    )
+    token_ids = dict(bos_token_id=1, eos_token_id=2, start_of_image=3, end_of_image=4)
+    frames8 = list(np.random.default_rng(1).integers(0, 256, (8, 294, 518, 3), dtype=np.uint8))
+
+    def first_step(pipe, frames, n_new=8):
+        """Prefill hidden states of the real rows, the first decode step's logits (both on the
+        CPU) and the first `n_new` greedy ids."""
+        prefill, hidden, kv, _, _ = pipe.chat_prefill(frames, QUESTION, device_preprocess=True)
+        dt, lm_ = pipe.model.dtype, pipe.model.language_model
+        cache = decoding.build_cache(kv, prefill.seq_len, cut.llm, len(prefill.doc_id) + 128, dtype=dt)
+        pos_ = int(prefill.next_rope_pos)
+        logits, _ = decoding.decode_step(lm_, cache, pipe._start_token(), pos_, cut.llm, compute_dtype=dt)
+        first = int(logits.argmax())
+        toks, _, _ = decoding.generate(lm_, cache, first, pos_ + 1, -1, cut.llm, max_new_tokens=n_new - 1,
+                                       compute_dtype=dt)
+        real = torch.as_tensor(prefill.doc_id >= 0)
+        return hidden.float().cpu()[real], logits.float().cpu(), [first] + toks.tolist()
+
+    def distances(got, want):
+        out = []
+        for a, b in zip(got[:2], want[:2]):
+            if not torch.isfinite(a).all():
+                _fail("chat parity: non-finite prefill hidden states or logits")
+            out.append(((a - b).abs().max() / b.abs().max()).item())
+        return out
+
+    cpu_model = build_model(cut, device="cpu", dtype=torch.float32, seed=0)
+    t0 = time.perf_counter()
+    cpu_pipe = G2VLMPipeline(cpu_model, cut, new_token_ids=token_ids)
+    want = first_step(cpu_pipe, frames8[:2])
+    cpu_s = time.perf_counter() - t0
+    gpu_model = build_model(cut, device=dev, dtype=torch.bfloat16, seed=None)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    del cpu_model, cpu_pipe
+    n_vit, n_llm, n_dino = cut.vit.depth, cut.llm.num_hidden_layers, cut.dino.num_hidden_layers
+    for tag, kw, want_launches in (
+        ("default", {}, {K1: n_dino, K2: n_vit + n_llm}),
+        ("attn_pipe", dict(attn_pipe=True), {K1: n_dino, K4: n_vit + n_llm}),
+        # two views: the ViT's 5,832 rows are above the int8 size rule, the prefill's ~3,100 below it
+        ("attn_impl=int8", dict(attn_impl="int8"), {K1: n_dino, K8: n_vit, K2: n_llm}),
+    ):
+        pipe = G2VLMPipeline(gpu_model, cut, new_token_ids=token_ids, **kw)
+        fa.reset_launch_counts()
+        got = first_step(pipe, frames8[:2])
+        launches = {k_: v_ for k_, v_ in fa.launch_counts.items() if v_}
+        if launches != want_launches:
+            _fail(f"chat parity {tag}: launches {launches}, expected {want_launches}")
+        rel_h, rel_l = distances(got, want)
+        same = sum(a == b for a, b in zip(got[2], want[2]))
+        print(f"[chat-parity] {tag}, 2 views, {want[0].shape[0]} real rows: prefill hidden max|gpu-cpu|/max|cpu| "
+              f"{rel_h:.3e}, first-step logits {rel_l:.3e} (budget 3e-2{', printed only' if 'int8' in tag else ''}); "
+              f"{same} of {len(want[2])} greedy ids equal; launches {launches}")
+        if "int8" not in tag and (rel_h > 3e-2 or rel_l > 3e-2):
+            _fail(f"chat parity {tag}: hidden {rel_h}, logits {rel_l} (budget 3e-2)")
+    # eight views: the prefill's ~12,200 rows are above the rule too; int8 against the default kernels
+    base = first_step(G2VLMPipeline(gpu_model, cut, new_token_ids=token_ids), frames8)
+    fa.reset_launch_counts()
+    got = first_step(G2VLMPipeline(gpu_model, cut, new_token_ids=token_ids, attn_impl="int8"), frames8)
+    launches = {k_: v_ for k_, v_ in fa.launch_counts.items() if v_}
+    if launches != {K1: 4 * n_dino, K8: 4 * n_vit + n_llm}:  # both towers once per chunk of two views
+        _fail(f"chat parity int8, 8 views: launches {launches}")
+    rel_h, rel_l = distances(got, base)
+    print(f"[chat-parity] attn_impl=int8 against the default kernels on the card, 8 views, {base[0].shape[0]} real "
+          f"rows: prefill hidden {rel_h:.3e}, first-step logits {rel_l:.3e} of max|default|; launches {launches}; "
+          f"cpu fp32 part {cpu_s:.1f} s")
+    del gpu_model, pipe, got, want, base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 13. the chat slice ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[chat] random bf16 init of {n_params / 1e9:.3f} B parameters on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    pipe = G2VLMPipeline(model, cfg)
+    lm, vocab, eos = model.language_model, cfg.llm.vocab_size, pipe.new_token_ids["eos_token_id"]
+    frames = list(np.random.default_rng(0).integers(0, 256, (n_views, 294, 518, 3), dtype=np.uint8))
+    # both towers run once per upload chunk of 8 views; a chunk's 23,328 patch rows go through the
+    # ViT in two row chunks of 11,664
+    vit_chunks = n_views * per_image // 11664
+    n_k1_chat = cfg.dino.num_hidden_layers * UPLOAD_CHUNKS
+    want_default = {K1: n_k1_chat, K2: cfg.vit.depth * vit_chunks + cfg.llm.num_hidden_layers}
+
+    # the cold call by hand: prefill, cache, one step's logits; then the decode loop eager and as a CUDA graph
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    prefill, hidden, kv, _, _ = pipe.chat_prefill(frames, QUESTION, device_preprocess=True)
+    torch.cuda.synchronize()
+    launches = {k_: v_ for k_, v_ in fa.launch_counts.items() if v_}
+    if launches != want_default or n_views * per_image % 11664:
+        _fail(f"chat slice: prefill launches {launches}, expected {want_default}")
+    real = torch.as_tensor(prefill.doc_id >= 0, device=dev)
+    if len(prefill.doc_id) != len(pre.doc_id) or not torch.isfinite(hidden[real]).all():
+        _fail(f"chat slice: prefill of {len(prefill.doc_id)} rows or non-finite hidden states")
+    cache = decoding.build_cache(kv, prefill.seq_len, cfg.llm, len(prefill.doc_id) + 512, dtype=torch.bfloat16)  # 48,896 rows
+    pos = int(prefill.next_rope_pos)
+    logits, _ = decoding.decode_step(lm, cache, pipe._start_token(), pos, cfg.llm)
+    if tuple(logits.shape) != (vocab,) or logits.dtype != torch.float32 or not torch.isfinite(logits).all():
+        _fail(f"chat slice: first-step logits of shape {tuple(logits.shape)} or non-finite")
+    tok = int(logits.argmax())
+
+    def loop_ms(n_new, graph):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decoding.generate(lm, cache, tok, pos + 1, -1, cfg.llm, max_new_tokens=n_new, cuda_graph=graph)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    loop_ms(4, False)
+    eager32, eager64 = loop_ms(32, False), loop_ms(64, False)
+    graph32, graph64 = loop_ms(32, True), loop_ms(64, True)
+    print(f"[chat] decode loop on a cache of {int(cache.length)} rows: eager {eager32:.1f} ms for 32 tokens, "
+          f"{(eager64 - eager32) / 32:.3f} ms per further token; CUDA graph (one eager step, capture, replays) "
+          f"{graph32:.1f} ms for 32 tokens, {(graph64 - graph32) / 32:.3f} ms per further token ({card})")
+    if fa.launch_counts != dict.fromkeys(fa.launch_counts, 0) | launches:
+        _fail(f"chat slice: the decode loop launched an attention kernel: {fa.launch_counts}")
+    del cache, kv, hidden, logits
+
+    def chat_call(p_, **kw):
+        fa.reset_launch_counts()
+        text, info = p_.chat(frames, QUESTION, max_new_tokens=32, device_preprocess=True, return_info=True, **kw)
+        counts = {k_: v_ for k_, v_ in fa.launch_counts.items() if v_}
+        ids = info["token_ids"]
+        if not ids or not all(0 <= t < vocab for t in ids) or not (len(ids) == 32 or ids[-1] == eos):
+            _fail(f"chat slice: token ids {ids}")
+        return info, counts
+
+    infos = []
+    for _ in range(3):
+        info, chat_launches = chat_call(pipe)
+        if chat_launches != want_default:
+            _fail(f"chat slice: launches {chat_launches}, expected {want_default}")
+        infos.append(info)
+    if any(i["token_ids"] != infos[0]["token_ids"] for i in infos):
+        _fail(f"chat slice: a second call gave other ids: {[i['token_ids'] for i in infos]}")
+
+    def med(key):
+        return statistics.median(i[key] for i in infos) * 1e3
+
+    n_tok = infos[0]["num_tokens"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chat_ms = {key: med(key) for key in ("t_prefill_s", "t_upload_s", "t_forward_s", "t_cache_s", "t_decode_s")}
+    print(f"[chat] 32 views 294x518 bf16, prefill {infos[0]['prefill_len']} rows padded to {len(prefill.doc_id)}, "
+          f"{n_tok} new tokens, medians of 3 warm calls: TTFT {chat_ms['t_prefill_s']:.1f} ms = upload + towers "
+          f"{chat_ms['t_upload_s']:.1f} + prefill forward {chat_ms['t_forward_s']:.1f} + cache build "
+          f"{chat_ms['t_cache_s']:.1f}; decode {chat_ms['t_decode_s']:.1f} ms, {chat_ms['t_decode_s'] / n_tok:.3f} "
+          f"ms per token, {n_tok / chat_ms['t_decode_s'] * 1e3:.1f} tokens/s; peak allocated {peak:.2f} GiB; "
+          f"launches per call {chat_launches}; ids {infos[0]['token_ids'][:8]}... ({card})")
+    text, session = pipe.chat(frames, QUESTION, max_new_tokens=32, device_preprocess=True, return_session=True,
+                              session_reserve=256)
+    rows = int(session.cache.length)
+    # (a session's larger cache changes the order of the attention sums: in bf16 on random weights
+    # a near-tie of two logits may fall the other way, so the answers are not held equal here;
+    # the CPU tests hold them equal in fp32)
+    ids1 = [int(t) for t in text.split()]
+    if not ids1 or not all(0 <= t < vocab for t in ids1):
+        _fail(f"chat slice: the session call gave {ids1}")
+    text2, session2 = pipe.chat_continue(session, FOLLOW_UP, max_new_tokens=8)
+    ids2 = [int(t) for t in text2.split()]
+    if not ids2 or not all(0 <= t < vocab for t in ids2) or int(session2.cache.length) <= rows:
+        _fail(f"chat slice: chat_continue gave {ids2} on a cache of {int(session2.cache.length)} rows (was {rows})")
+    print(f"[chat] chat_continue on the session: cache {rows} -> {int(session2.cache.length)} rows, ids {ids2}")
+    del session, session2
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            chat_call(pipe)
+            torch.cuda.synchronize()
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+
+    # ---- 14. the same calls in the two other attention configurations -----------------------
+    n_seg = cfg.vit.depth * vit_chunks + cfg.llm.num_hidden_layers
+    paths_run = {"chat_call": chat_launches}
+    n_k1_recon = cfg.dino.num_hidden_layers + cfg.pi3.depth * (2 + 2 * cfg.use_global_points)
+    frames_arr = np.stack(frames)
+    recon_times = {}
+    for tag, kw, kname in (("default", {}, K2), ("attn_impl=int8", dict(attn_impl="int8"), K8),
+                           ("attn_pipe", dict(attn_pipe=True), K4)):
+        other = G2VLMPipeline(model, cfg, **kw)
+        if kw:
+            chat_call(other)
+            info, counts = chat_call(other)  # the second, warm call is the one reported
+            if counts != {K1: n_k1_chat, kname: n_seg}:
+                _fail(f"chat slice {tag}: launches {counts}")
+            paths_run["chat_call_" + ("int8" if kname == K8 else "pipe")] = counts
+            print(f"[chat] {tag}, one warm call: TTFT {info['t_prefill_s'] * 1e3:.1f} ms (default "
+                  f"{chat_ms['t_prefill_s']:.1f}) = upload + towers {info['t_upload_s'] * 1e3:.1f} + prefill forward "
+                  f"{info['t_forward_s'] * 1e3:.1f} + cache build {info['t_cache_s'] * 1e3:.1f}; decode "
+                  f"{info['t_decode_s'] * 1e3:.1f} ms; launches {counts}; ids {info['token_ids'][:8]}... ({card})")
+        other.recon_from_frames(frames_arr)
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = other.recon_from_frames(frames_arr)
+        torch.cuda.synchronize()
+        recon_times[tag] = (time.perf_counter() - t0) * 1e3
+        counts = {k_: v_ for k_, v_ in fa.launch_counts.items() if v_}
+        if counts != {K1: n_k1_recon, kname: cfg.llm.num_hidden_layers} or not torch.isfinite(out["points"]).all():
+            _fail(f"recon call {tag}: launches {counts} or non-finite points")
+        del out
+    print("[recon] one warm 32-view recon call on the chat model: "
+          + ", ".join(f"{tag} {ms_:.1f} ms" for tag, ms_ in recon_times.items())
+          + (f"; phase 6 (the recon-stage model, median of 3) {recon_ms:.1f} ms" if recon_ms else "") + f" ({card})")
+    del model, pipe, other
+    torch.cuda.empty_cache()
+    return paths_run
 
 
 if __name__ == "__main__":

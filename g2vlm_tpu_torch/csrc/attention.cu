@@ -373,6 +373,9 @@ template <typename T>
 cudaError_t dispatch_segment(const SegmentArgs& a, int d, cudaStream_t stream) {
   switch (d) {
     case 64: return launch_segment<T, 64>(a, stream);
+    // the Qwen2-VL ViT's head dim: 5 k-steps of 16, 10 n-tiles of 8, rows of 160 bytes. Forward
+    // only: the lse forward at this width comes with the ViT's training branch
+    case 80: return a.lse ? cudaErrorInvalidValue : launch_segment_as<T, 80, false>(a, stream);
     case 96: return launch_segment<T, 96>(a, stream);
     case 128: return launch_segment<T, 128>(a, stream);
     default: return cudaErrorInvalidValue;

@@ -1,0 +1,370 @@
+"""Autoregressive decoding with a preallocated KV cache on the device (port of
+g2vlm_tpu/inference/decoding.py): greedy / temperature sampling, stop at eos.
+
+The cache is a fixed-capacity (L, KVH, C, HD) buffer per K and V (int8 with
+per-(position, head) fp32 scales when quantized), written IN PLACE at a
+position that is itself a tensor on the device: the step's shapes never change
+and nothing in it reads the device from the host. A step attends over the
+cached rows below `length` plus the token's own fresh K/V row as a separate
+"self" term, collects the new rows of all layers and writes them with one
+indexed store. Only the und expert runs. No hand-written kernel runs here (the
+JAX package has none on this path either): the products are plain tensor
+code.
+
+The JAX `while_loop` becomes a host loop over steps that keeps tokens,
+positions, the done flags and the counts on the device. A finished sequence
+makes its further steps no-ops (its cache length, count and tokens stay), so
+the host looks at the done flag only every few steps. On a CUDA device a
+greedy loop captures the step in a CUDA graph after one eager step and replays
+it: the eager step is ~1,200 small launches and the host cannot issue them as
+fast as the card runs them. Sampling draws from an explicit `torch.Generator`
+and runs eagerly.
+
+`generate_batched` advances B independent sequences, the batch as a written-out
+leading axis of every cache leaf.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import LLMConfig
+from ..models import mot_decoder
+from ..models.mot_decoder import LayerKV, MoTForCausalLM
+from ..ops.linear import linear
+from ..ops.norms import rms_norm
+from ..ops.rope import apply_mrope
+
+
+class KVCache(NamedTuple):
+    """Head-major cache: k, v (L, KVH, C, HD) (int8 when quantized), scales
+    (L, KVH, C) fp32 or None, length () int64: the valid prefix. The batched
+    form has a leading batch axis on every leaf. The tensors are updated in
+    place by the decode step."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    k_scale: Optional[torch.Tensor]
+    v_scale: Optional[torch.Tensor]
+    length: torch.Tensor
+
+
+def make_cache(
+    cfg: LLMConfig, capacity: int, dtype: torch.dtype = torch.bfloat16, quantized: bool = False, device="cuda"
+) -> KVCache:
+    n_layers, kvh, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    kv_dtype = torch.int8 if quantized else dtype
+
+    def scale():
+        return torch.zeros((n_layers, kvh, capacity), dtype=torch.float32, device=device) if quantized else None
+
+    return KVCache(
+        k=torch.zeros((n_layers, kvh, capacity, hd), dtype=kv_dtype, device=device),
+        v=torch.zeros((n_layers, kvh, capacity, hd), dtype=kv_dtype, device=device),
+        k_scale=scale(),
+        v_scale=scale(),
+        length=torch.zeros((), dtype=torch.int64, device=device),
+    )
+
+
+def _quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int8-quantize over the last (head_dim) axis: x (..., KVH, HD) ->
+    (int8 of the same shape, fp32 scale (..., KVH))."""
+    xf = x.float()
+    s = (xf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-10)
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s[..., 0]
+
+
+def _fill_layer(cache: KVCache, layer: int, kv: LayerKV) -> None:
+    for buf, scales, rows in ((cache.k, cache.k_scale, kv.k), (cache.v, cache.v_scale, kv.v)):
+        rows = rows.transpose(0, 1)  # (KVH, S, HD)
+        s = rows.shape[1]
+        if scales is not None:
+            rows, sc = _quant(rows)
+            scales[layer, :, :s] = sc
+        buf[layer, :, :s] = rows.to(buf.dtype)
+
+
+def fill_cache(cache: KVCache, prefill_kv: Sequence[LayerKV], valid_len, consume: bool = False) -> KVCache:
+    """Copy a prefill's per-layer K/V (S, KVH, HD) into the head of the cache,
+    in place and layer by layer (per-layer temporaries only); rows at and past
+    `valid_len` are never visible. With `consume` (a list) each layer's entry
+    is dropped as soon as it is copied. Returns the cache with its length set."""
+    for layer in range(len(prefill_kv)):
+        kv = prefill_kv[layer]
+        if consume:
+            prefill_kv[layer] = None
+        _fill_layer(cache, layer, kv)
+    cache.length.fill_(int(valid_len))
+    return cache
+
+
+def build_cache(
+    prefill_kv: List[LayerKV], valid_len, cfg: LLMConfig, capacity: int,
+    dtype: torch.dtype = torch.bfloat16, quantized: bool = False,
+) -> KVCache:
+    """`fill_cache(make_cache(...))` on the prefill's device. The prefill K/V
+    list is consumed, so the peak is one cache plus what is left of the
+    prefill K/V."""
+    cache = make_cache(cfg, capacity, dtype, quantized, device=prefill_kv[0].k.device)
+    return fill_cache(cache, prefill_kv, valid_len, consume=True)
+
+
+def _attend(q, k_all, v_all, k_scale, v_scale, visible, hd, k_self, v_self):
+    """Softmax attention of one query token per sequence over its cache plus
+    the token's own fresh K/V row, which is not in the cache yet.
+
+    q (B, KVH, G, HD) fp32; k_all / v_all (B, KVH, C, HD); scales (B, KVH, C)
+    or None; visible (B, C) bool; k_self / v_self (B, KVH, HD) fp32. The
+    dequantisation is folded after the products: the K scale multiplies the
+    logits and the V scale the probabilities, head_dim times less work than
+    scaling the cache itself. Returns (B, KVH, G, HD) fp32."""
+    logits = torch.einsum("bngd,bncd->bngc", q, k_all.float()) * (hd ** -0.5)
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, :]
+    vis = visible[:, None, None, :]
+    logits = logits.masked_fill(~vis, float("-inf"))
+    s_self = torch.einsum("bngd,bnd->bng", q, k_self) * (hd ** -0.5)
+    m = torch.maximum(logits.amax(-1), s_self)  # the self term is always visible, so m is finite
+    p = torch.exp(logits - m[..., None])
+    p_self = torch.exp(s_self - m)
+    l = p.sum(-1) + p_self
+    pv = p if v_scale is None else p * v_scale[:, :, None, :]
+    acc = _probs_times_values(pv, v_all.float()) + p_self[..., None] * v_self[:, :, None, :]
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+_PV_SPLIT = 256  # cache rows per partial product of P.V
+
+
+def _probs_times_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p (B, KVH, G, C) @ v (B, KVH, C, HD) -> (B, KVH, G, HD). A product of G
+    = 6 rows with a reduction over ~50k cache rows: as one matrix product the
+    library walks the whole reduction in one block per head (1.4 ms per layer
+    on an H100, most of a decode step), so the cache axis is cut into slices
+    of _PV_SPLIT rows (and a shorter last one), each a small product of its
+    own, and the partial results are summed."""
+    c = p.shape[-1]
+    n = c // _PV_SPLIT
+    if n < 2:
+        return torch.matmul(p, v)
+    whole = n * _PV_SPLIT
+    parts = torch.matmul(p[..., :whole].unflatten(-1, (n, _PV_SPLIT)).transpose(2, 3),
+                         v[:, :, :whole].unflatten(2, (n, _PV_SPLIT)))
+    out = parts.sum(2)
+    return out if whole == c else out + torch.matmul(p[..., whole:], v[:, :, whole:])
+
+
+def _batched(cache: KVCache) -> KVCache:
+    """The single-sequence cache as a batch of one: views, so in-place writes
+    reach the caller's tensors."""
+    return KVCache(*(None if t is None else t.unsqueeze(0) for t in cache))
+
+
+def _rope_inv_freq(cfg: LLMConfig, device) -> torch.Tensor:
+    """A text token has one rope position on all three mRoPE axes, so its
+    angle table is pos * [inv_freq, inv_freq]: (head_dim,) fp32, made once per
+    loop (an upload inside a captured step is not allowed)."""
+    half = cfg.head_dim // 2
+    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / cfg.head_dim))
+    return torch.from_numpy(np.concatenate([inv_freq, inv_freq])).to(device)
+
+
+def _decode_step(
+    lm: MoTForCausalLM, cache: KVCache, token: torch.Tensor, rope_pos: torch.Tensor, cfg: LLMConfig,
+    dt: torch.dtype, inv_freq2: torch.Tensor, active: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One step of B sequences on a batched cache: token, rope_pos (B,) int64;
+    `active` (B,) bool gates the advance of each cache's length. Writes the
+    new K/V rows of every layer at each sequence's `length` in place and
+    returns the logits (B, V) fp32."""
+    model = lm.model
+    nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    b = token.shape[0]
+    eps = cfg.rms_norm_eps
+    x = model.embed_tokens(token).to(dt)  # (B, D)
+    ang = rope_pos.float()[:, None] * inv_freq2[None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+
+    cur = cache.length  # (B,)
+    cap = cache.k.shape[3]
+    # the cache row at the current position is stale: only strictly older rows
+    # are visible, the current token's K/V enters through the self term
+    visible = torch.arange(cap, device=x.device)[None, :] < cur[:, None]
+    quantized = cache.k_scale is not None
+
+    k_rows, v_rows = [], []
+    for i, layer in enumerate(model.layers):
+        at = layer.self_attn
+        h = layer.input_layernorm(x)
+        q = linear(h, at.q_proj, dt).view(b, nh, hd)
+        k = linear(h, at.k_proj, dt).view(b, kvh, hd)
+        v = linear(h, at.v_proj, dt).view(b, kvh, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q.float(), at.q_norm.weight, eps)
+            k = rms_norm(k.float(), at.k_norm.weight, eps)
+        q, k = apply_mrope(q, k, cos, sin)
+        k_row, v_row = k.float(), v.float()
+        attn = _attend(
+            q.float().view(b, kvh, nh // kvh, hd), cache.k[:, i], cache.v[:, i],
+            cache.k_scale[:, i] if quantized else None, cache.v_scale[:, i] if quantized else None,
+            visible, hd, k_row, v_row,
+        )
+        x = x + linear(attn.reshape(b, nh * hd).to(dt), at.o_proj, dt)
+        h = layer.post_attention_layernorm(x).to(dt)
+        mlp = layer.mlp
+        x = x + linear(F.silu(linear(h, mlp.gate_proj, dt)) * linear(h, mlp.up_proj, dt), mlp.down_proj, dt)
+        k_rows.append(k_row)
+        v_rows.append(v_row)
+
+    # one indexed store of all layers' rows at each sequence's position
+    n_layers = len(model.layers)
+    pos = cur.clamp_max(cap - 1)
+    bi = torch.arange(b, device=x.device)[:, None, None]
+    li = torch.arange(n_layers, device=x.device)[None, :, None]
+    hi = torch.arange(kvh, device=x.device)[None, None, :]
+    pi = pos[:, None, None]
+    for buf, scales, rows in ((cache.k, cache.k_scale, k_rows), (cache.v, cache.v_scale, v_rows)):
+        rows = torch.stack(rows, dim=1)  # (B, L, KVH, HD) fp32
+        if quantized:
+            rows, sc = _quant(rows)
+            scales[bi, li, hi, pi] = sc
+        buf[bi, li, hi, pi] = rows.to(buf.dtype)
+    cache.length.add_(1 if active is None else active.to(cache.length.dtype))
+
+    h = model.norm(x)
+    # the product runs in the compute dtype (an fp32 copy of the 152k-row head
+    # per step would cost more than the step); the logits come back as fp32
+    return mot_decoder.lm_head(lm, h.to(dt), torch.float32)
+
+
+def _as_index(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int64, device=device).reshape(-1)
+
+
+@torch.inference_mode()
+def decode_step(
+    lm: MoTForCausalLM, cache: KVCache, token, rope_pos, cfg: LLMConfig,
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step of one sequence (und expert only): (logits (V,) fp32,
+    the cache, updated in place and one row longer)."""
+    dev = cache.k.device
+    logits = _decode_step(lm, _batched(cache), _as_index(token, dev), _as_index(rope_pos, dev), cfg,
+                          compute_dtype, _rope_inv_freq(cfg, dev))
+    return logits[0], cache
+
+
+@torch.inference_mode()
+def extend_cache(
+    lm: MoTForCausalLM, cache: KVCache, tokens, rope_pos, cfg: LLMConfig,
+    n_tokens: Optional[int] = None, compute_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Teacher-forced cache extension for a follow-up turn: feeds the first
+    `n_tokens` of `tokens` through the decode step (each appends its K/V row
+    in place). Token for token identical to having had the text in the
+    prefill: text rows are causal and their rope position is the scalar
+    counter, as decode rows. Returns (the last token's logits (V,), cache)."""
+    dev = cache.k.device
+    tokens = _as_index(tokens, dev)
+    n = len(tokens) if n_tokens is None else int(n_tokens)
+    pos = _as_index(rope_pos, dev)
+    inv_freq2 = _rope_inv_freq(cfg, dev)
+    batched = _batched(cache)
+    logits = torch.zeros((1, cfg.vocab_size), dtype=torch.float32, device=dev)
+    for i in range(n):
+        logits = _decode_step(lm, batched, tokens[i : i + 1], pos + i, cfg, compute_dtype, inv_freq2)
+    return logits[0], cache
+
+
+_DONE_CHECK_EVERY = 8  # steps between reads of `done` on the host (a finished sequence's steps change nothing)
+
+
+def _generate_loop(
+    lm, cache: KVCache, start_tokens, rope_pos, eos_token_id: int, cfg: LLMConfig, max_new_tokens: int,
+    do_sample: bool, temperature: float, generator: Optional[torch.Generator], dt: torch.dtype,
+    cuda_graph: Optional[bool],
+):
+    """The loop over a batched cache; returns (tokens (B, max_new_tokens)
+    padded with eos, num_generated (B,))."""
+    dev = cache.k.device
+    b = cache.k.shape[0]
+    tokens = torch.full((b, max_new_tokens), eos_token_id, dtype=torch.int64, device=dev)
+    tok = _as_index(start_tokens, dev).clone()
+    pos = _as_index(rope_pos, dev).clone()
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    num = torch.zeros(b, dtype=torch.int64, device=dev)
+    slot = torch.zeros((1, 1), dtype=torch.int64, device=dev)  # the column of `tokens` this step writes
+    inv_freq2 = _rope_inv_freq(cfg, dev)
+
+    def step():
+        logits = _decode_step(lm, cache, tok, pos, cfg, dt, inv_freq2, active=~done)
+        if do_sample:
+            nxt = torch.multinomial(torch.softmax(logits / temperature, dim=-1), 1, generator=generator)[:, 0]
+        else:
+            nxt = logits.argmax(-1)
+        nxt = torch.where(done, torch.full_like(nxt, eos_token_id), nxt)
+        tokens.scatter_(1, slot.expand(b, 1), nxt[:, None])
+        num.add_((~done).to(num.dtype))
+        done.logical_or_(nxt == eos_token_id)
+        tok.copy_(nxt)
+        pos.add_(1)
+        slot.add_(1)
+
+    if cuda_graph is None:
+        cuda_graph = dev.type == "cuda" and not do_sample and max_new_tokens > 2
+    graph = None
+    for i in range(max_new_tokens):
+        if not cuda_graph or i == 0:
+            step()  # eager; with a graph this is the warm-up, and a real step
+        else:
+            if graph is None:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    step()  # captured, not run
+            graph.replay()
+        if ((i + 1) % _DONE_CHECK_EVERY == 0 or i + 1 == max_new_tokens) and bool(done.all()):
+            break
+    return tokens, num
+
+
+@torch.inference_mode()
+def generate(
+    lm: MoTForCausalLM, cache: KVCache, start_token, rope_pos, eos_token_id: int, cfg: LLMConfig,
+    max_new_tokens: int = 100, do_sample: bool = False, temperature: float = 1.0,
+    generator: Optional[torch.Generator] = None, compute_dtype: torch.dtype = torch.bfloat16,
+    cuda_graph: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """Greedy / temperature generation of one sequence. Returns (tokens
+    (max_new_tokens,) padded with eos, num_generated (), the cache, extended in
+    place by num_generated rows: a follow-up turn continues on it).
+    `cuda_graph` None takes the graph for a greedy loop on a CUDA device."""
+    tokens, num = _generate_loop(lm, _batched(cache), start_token, rope_pos, eos_token_id, cfg, max_new_tokens,
+                                 do_sample, temperature, generator, compute_dtype, cuda_graph)
+    return tokens[0], num[0], cache
+
+
+@torch.inference_mode()
+def generate_batched(
+    lm: MoTForCausalLM, caches: KVCache, start_tokens, rope_pos, eos_token_id: int, cfg: LLMConfig,
+    max_new_tokens: int = 100, do_sample: bool = False, temperature: float = 1.0,
+    generator: Optional[torch.Generator] = None, compute_dtype: torch.dtype = torch.bfloat16,
+    cuda_graph: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """B independent sequences (own caches and positions, a leading batch axis
+    on every cache leaf) advance in one loop; the per-token weight reads are
+    shared by the batch. A finished sequence emits eos and stops counting.
+    Returns (tokens (B, max_new_tokens), num_generated (B,), the caches)."""
+    tokens, num = _generate_loop(lm, caches, start_tokens, rope_pos, eos_token_id, cfg, max_new_tokens,
+                                 do_sample, temperature, generator, compute_dtype, cuda_graph)
+    return tokens, num, caches
+
+
+def stack_caches(caches: Sequence[KVCache]) -> KVCache:
+    """Single-sequence caches of one capacity -> the batched form."""
+    return KVCache(*(None if ts[0] is None else torch.stack(ts) for ts in zip(*caches)))

@@ -1,13 +1,16 @@
-"""G2VLM reconstruction model (port of g2vlm_tpu/models/g2vlm.py: the recon
-path and the pieces the training step calls).
+"""G2VLM model (port of g2vlm_tpu/models/g2vlm.py: the recon path, the chat
+prefill and the pieces the training step calls).
 
-`G2VLM` owns the MoT LLM, the DINOv2 encoder, the `dino2llm` projection and
-the Pi3 heads under the reference's state-dict prefixes (`language_model.`,
-`dino_model.`, `dino2llm.`, `point_decoder.`, `camera_decoder.`,
-`global_points_decoder.`, `point_head.`, `camera_head.`,
-`global_point_head.`), which are the keys g2vlm_tpu's `params_from_torch`
-reads. Recon is one packed prefill through the decoder in GEO_MAIN routing,
-then the heads over the hidden states at the dino-token rows.
+`G2VLM` owns the MoT LLM, the DINOv2 encoder, the `dino2llm` projection, the
+Pi3 heads and, with `cfg.visual_und`, the Qwen2-VL ViT under the reference's
+state-dict prefixes (`language_model.`, `dino_model.`, `dino2llm.`,
+`point_decoder.`, `camera_decoder.`, `global_points_decoder.`, `point_head.`,
+`camera_head.`, `global_point_head.`, `vit_model.`), which are the keys
+g2vlm_tpu's `params_from_torch` reads. Recon is one packed prefill through the
+decoder in GEO_MAIN routing, then the heads over the hidden states at the
+dino-token rows. The chat prefill mixes dino (geo expert) and ViT and text
+(und expert) rows: it is sorted host-side into [und | geo | padding] and runs
+the SPLIT layers, and its per-layer K/V feed the decode cache.
 
 `PackedPrefill` and `SequenceBuilder` are numpy host code, the port's own copy
 of the JAX module's (the port imports nothing of g2vlm_tpu); a test holds the
@@ -27,7 +30,7 @@ from ..config import G2VLMConfig
 from ..ops.linear import linear
 from ..ops.masks import TokenInfo
 from ..utils.geometry import homogenize_points
-from . import dinov2, mot_decoder, pi3_heads
+from . import dinov2, mot_decoder, pi3_heads, qwen_vit
 
 
 class PackedPrefill(NamedTuple):
@@ -153,7 +156,8 @@ class SequenceBuilder:
 
 
 class G2VLM(nn.Module):
-    """The recon model: LLM + DINOv2 + dino2llm + Pi3 heads."""
+    """LLM + DINOv2 + dino2llm + Pi3 heads, and the Qwen2-VL ViT when
+    `cfg.visual_und`."""
 
     def __init__(self, cfg: G2VLMConfig):
         super().__init__()
@@ -174,6 +178,8 @@ class G2VLM(nn.Module):
                 cfg.pi3, d, cfg.pi3.point_out_dim, cross=True
             )
             self.global_point_head = pi3_heads.LinearPts3d(cfg.pi3.point_out_dim, p, 3)
+        if cfg.visual_und:
+            self.vit_model = qwen_vit.QwenVit(cfg.vit)
 
     @property
     def device(self) -> torch.device:
@@ -211,25 +217,109 @@ def _geo_dominant(cfg: G2VLMConfig, prefill: PackedPrefill) -> bool:
     )
 
 
-def prefill_hidden(
-    model: G2VLM, prefill: PackedPrefill, dino_images: torch.Tensor, cfg: G2VLMConfig
+def split_order(prefill: PackedPrefill) -> Tuple[np.ndarray, int]:
+    """(perm, geo_start): the stable host-side sort of a mixed prefill's rows
+    into [und | geo | padding], and the row where the geo expert's part
+    begins."""
+    key = np.where(prefill.doc_id < 0, 2, np.asarray(prefill.is_geo).astype(np.int32))
+    return np.argsort(key, kind="stable"), int((key == 0).sum())
+
+
+def encode_vit_to_llm(
+    model: G2VLM,
+    vit_patches: torch.Tensor,  # (P, pdim)
+    vit_coords,  # (P, 2) host array or tensor
+    vit_seg,  # (P,) host array or tensor; -1 = padding
+    attn_impl: str = "auto",
+    attn_pipe: bool = False,
 ) -> torch.Tensor:
-    """One packed prefill forward in GEO_MAIN routing -> hidden (S, D)."""
-    if not _geo_dominant(cfg, prefill):
-        raise NotImplementedError("only the geo-dominant (GEO_MAIN) prefill is ported")
+    """Packed ViT encode -> (P // 4, D_llm) in the parameters' dtype, chunked
+    over rows by `packed_row_chunks` so that the tower's live activations stay
+    bounded for many-image prefills."""
+    dev = model.device
+    seg_np = vit_seg.cpu().numpy() if isinstance(vit_seg, torch.Tensor) else np.asarray(vit_seg)
+    return qwen_vit.encode_packed(
+        model.vit_model, vit_patches.to(dev), torch.as_tensor(vit_coords).to(dev), torch.as_tensor(seg_np).to(dev),
+        model.dtype, attn_impl, attn_pipe, row_chunks=qwen_vit.packed_row_chunks(seg_np),
+    )
+
+
+def prefill_hidden(
+    model: G2VLM,
+    prefill: PackedPrefill,
+    dino_images: Optional[torch.Tensor],
+    cfg: G2VLMConfig,
+    attn_impl: str = "auto",
+    attn_pipe: bool = False,
+    vit_patches: Optional[torch.Tensor] = None,
+    vit_grid_hw: Optional[Tuple[int, int, int]] = None,
+    return_kv: bool = False,
+    vit_coords=None,
+    vit_seg=None,
+    dino_emb: Optional[torch.Tensor] = None,
+    vit_emb: Optional[torch.Tensor] = None,
+):
+    """One packed prefill forward -> hidden (S, D), or with `return_kv`
+    (hidden, the layers' LayerKV list).
+
+    ViT images enter as one uniform grid (`vit_grid_hw`, a (t, h, w) grid) or
+    as packed per-image grids (`vit_coords` / `vit_seg`); `dino_emb` (N*hw,
+    D_llm) and `vit_emb` supply tower tokens that were encoded beforehand
+    instead of `dino_images` / `vit_patches`.
+
+    Routing: a geo-dominant prefill without ViT rows (recon) runs the geo
+    expert everywhere and fixes up the few und rows (GEO_MAIN); a prefill that
+    mixes und and geo rows (chat) is sorted host-side, stably, into
+    [und | geo | padding] and runs the SPLIT layers, every expert product on a
+    contiguous slice (the hidden states are un-sorted on return, the K/V stay
+    sorted: a cache does not care about row order, and padding stays at the
+    tail); anything else computes both experts and selects (MIXED)."""
     dev, dt = model.device, model.dtype
     lm = model.language_model.model
+
+    def rows(idx):
+        return torch.as_tensor(idx, dtype=torch.long).to(dev)
+
+    if len(prefill.text_ids) and not 0 <= int(np.min(prefill.text_ids)) <= int(np.max(prefill.text_ids)) < cfg.llm.vocab_size:
+        raise ValueError(f"token ids outside the vocabulary of {cfg.llm.vocab_size}")
     seq = torch.zeros((len(prefill.doc_id), cfg.llm.hidden_size), dtype=dt, device=dev)
-    text_idx = torch.as_tensor(prefill.text_indexes, dtype=torch.long).to(dev)
-    text_ids = torch.as_tensor(prefill.text_ids, dtype=torch.long).to(dev)
-    seq[text_idx] = mot_decoder.embed_tokens(lm, text_ids).to(dt)
+    text_idx = rows(prefill.text_indexes)
+    seq[text_idx] = mot_decoder.embed_tokens(lm, rows(prefill.text_ids)).to(dt)
     if len(prefill.dino_indexes):
-        dino_idx = torch.as_tensor(prefill.dino_indexes, dtype=torch.long).to(dev)
-        seq[dino_idx] = encode_dino_to_llm(model, dino_images)
+        if dino_emb is None and dino_images is not None:
+            dino_emb = encode_dino_to_llm(model, dino_images)
+        if dino_emb is not None:
+            seq[rows(prefill.dino_indexes)] = dino_emb.to(dt)
+    n_vit = len(prefill.vit_indexes)
+    if n_vit:
+        if vit_emb is None and vit_patches is not None:
+            if vit_coords is not None:
+                vit_emb = encode_vit_to_llm(model, vit_patches, vit_coords, vit_seg, attn_impl, attn_pipe)
+            else:
+                vit_emb = qwen_vit.encode(model.vit_model, vit_patches.to(dev), vit_grid_hw, dt)
+        if vit_emb is not None:
+            seq[rows(prefill.vit_indexes)] = vit_emb[:n_vit].to(dt)
+
+    info = prefill.token_info(dev)
     position_ids = torch.as_tensor(prefill.position_ids).to(dev)
-    return mot_decoder.decoder_forward(
-        lm, seq, position_ids, prefill.token_info(dev), und_idx=text_idx
+    kw = dict(attn_impl=attn_impl, attn_pipe=attn_pipe, return_kv=return_kv)
+    if _geo_dominant(cfg, prefill):
+        return mot_decoder.decoder_forward(lm, seq, position_ids, info, und_idx=text_idx, **kw)
+    is_geo = np.asarray(prefill.is_geo)
+    perm = geo_start = None
+    if cfg.llm.layer_module == "mot" and 0 < int(is_geo.sum()) < int((prefill.doc_id >= 0).sum()):
+        perm, geo_start = split_order(prefill)
+        perm_t = rows(perm)
+        seq, position_ids = seq[perm_t], position_ids[:, perm_t]
+        info = TokenInfo(*(f[perm_t] for f in info))
+        is_geo = is_geo[perm]
+    out = mot_decoder.decoder_forward_train(
+        lm, seq, torch.as_tensor(is_geo).to(dev), position_ids, info, geo_start=geo_start, compute_dtype=dt, **kw
     )
+    hidden, kvs = out if return_kv else (out, None)
+    if perm is not None:
+        hidden = hidden[rows(np.argsort(perm, kind="stable"))]
+    return (hidden, kvs) if return_kv else hidden
 
 
 def pi3_predict(
@@ -302,12 +392,14 @@ def recon_forward(
     prefill: PackedPrefill,
     dino_images: torch.Tensor,  # (N, 3, H, W) RESNET-normalized
     cfg: G2VLMConfig,
+    attn_impl: str = "auto",
+    attn_pipe: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Multi-view reconstruction as one forward: prefill, then the heads."""
     _, _, h, w = dino_images.shape
     hw = (h // cfg.dino_patch_size) * (w // cfg.dino_patch_size)
     n = len(prefill.dino_indexes) // hw
-    hidden = prefill_hidden(model, prefill, dino_images, cfg)
+    hidden = prefill_hidden(model, prefill, dino_images, cfg, attn_impl, attn_pipe)
     dino_idx = torch.as_tensor(prefill.dino_indexes, dtype=torch.long).to(hidden.device)
     dino_hidden = hidden[dino_idx].reshape(n, hw, -1)
     return pi3_predict(model, dino_hidden, (h, w), cfg)

@@ -1,6 +1,6 @@
 """Mixture-of-Transformers Qwen2-VL decoder (port of
 g2vlm_tpu/models/mot_decoder.py): the GEO_MAIN prefill of recon and the MIXED
-and SPLIT expert modes of training.
+and SPLIT expert modes of training and of the chat prefill.
 
 Submodule names follow the reference key space under `language_model.`
 (`model.layers.{i}.self_attn.q_proj_moe_geo`, `model.layers.{i}.ls1.gamma`,
@@ -15,12 +15,14 @@ static boundary and runs each expert on its contiguous slice. There the
 parameters may be fp32 masters: every use casts them to the compute dtype, as
 the JAX code does, and layers (or groups of layers) are recomputed in the
 backward with `torch.utils.checkpoint`. In every mode the RMS norms, the
-per-head qk-norm and mRoPE run in fp32.
+per-head qk-norm and mRoPE run in fp32. With `return_kv` a forward also gives
+each layer's roped K and V (`LayerKV`), which the decode cache is built from;
+`attn_impl` and `attn_pipe` are the serving options of `ops.attention`.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -29,11 +31,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
 
-from ..ops.flash_attention import flash_segment_attention
+from ..ops.attention import self_attender
 from ..ops.linear import linear as _lin
 from ..ops.masks import TokenInfo
 from ..ops.norms import rms_norm
 from ..ops.rope import mrope_cos_sin, rotate_half
+
+
+class LayerKV(NamedTuple):
+    k: torch.Tensor  # (S, KVH, HD), roped
+    v: torch.Tensor
 
 
 MIXED = "mixed"  # route per token by is_geo: both experts computed, one selected
@@ -125,8 +132,9 @@ class MoTDecoderLayer(nn.Module):
         und_idx: torch.Tensor,  # (T,) int64 rows of the und (text) tokens
         cos: torch.Tensor,  # (S, hd) fp32
         sin: torch.Tensor,
-        info: TokenInfo,
-    ) -> torch.Tensor:
+        attend,  # (q, k, v) -> (S, H, hd): `ops.attention.self_attender` of the sequence
+        return_kv: bool = False,
+    ):
         cfg = self.cfg
         nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         s = x.shape[0]
@@ -145,13 +153,13 @@ class MoTDecoderLayer(nn.Module):
         q = (q * c + rotate_half(q) * sn).to(x.dtype)
         k = (k * c + rotate_half(k) * sn).to(x.dtype)
 
-        attn = flash_segment_attention(q, k, v, info, info).reshape(s, nh * hd)
+        attn = attend(q, k, v).reshape(s, nh * hd)
         out = (at.o_proj_moe_geo(attn) * self.ls1.gamma).index_copy_(0, und_idx, at.o_proj(attn[und_idx]))
         x = x + out
 
         m = self.mlp_moe_geo(self.post_attention_layernorm_moe_geo(x)) * self.ls2.gamma
         m = m.index_copy_(0, und_idx, self.mlp(self.post_attention_layernorm(x[und_idx])))
-        return x + m
+        return (x + m, LayerKV(k, v)) if return_kv else x + m
 
     def forward_train(
         self,
@@ -159,9 +167,10 @@ class MoTDecoderLayer(nn.Module):
         is_geo: torch.Tensor,  # (S,) bool; read in MIXED only
         cos: torch.Tensor,  # (S, hd) fp32
         sin: torch.Tensor,
-        info: TokenInfo,
+        attend,  # (q, k, v) -> (S, H, hd): `ops.attention.self_attender` of the sequence
         geo_start: Optional[int],  # None: MIXED; else SPLIT with rows [geo_start:] on the geo expert
-    ) -> torch.Tensor:
+        return_kv: bool = False,
+    ):
         cfg = self.cfg
         nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         s, dt, eps = x.shape[0], x.dtype, cfg.rms_norm_eps
@@ -201,14 +210,15 @@ class MoTDecoderLayer(nn.Module):
 
             q, k = nr(q, at.q_norm, at.q_norm_moe_geo), nr(k, at.k_norm, at.k_norm_moe_geo)
 
-        attn = flash_segment_attention(q, k, v, info, info).reshape(s, nh * hd)
+        attn = attend(q, k, v).reshape(s, nh * hd)
         # LayerScale on the geo expert's rows only
         x = x + both(lambda t: _lin(t, at.o_proj, dt), lambda t: _lin(t, at.o_proj_moe_geo, dt) * ls1, attn)
-        return x + both(
+        x = x + both(
             lambda t: _mlp(self.post_attention_layernorm(t), self.mlp, dt),
             lambda t: _mlp(self.post_attention_layernorm_moe_geo(t), self.mlp_moe_geo, dt) * ls2,
             x,
         )
+        return (x, LayerKV(k, v)) if return_kv else x
 
 
 class MoTModel(nn.Module):
@@ -238,16 +248,25 @@ def decoder_forward(
     position_ids: torch.Tensor,  # (3, S)
     info: TokenInfo,
     und_idx: torch.Tensor,  # (T,) rows routed to the und expert
-) -> torch.Tensor:
+    attn_impl: str = "auto",
+    attn_pipe: bool = False,
+    return_kv: bool = False,
+):
     """All layers in GEO_MAIN routing plus the final norm; returns the
-    hidden states (S, D)."""
+    hidden states (S, D), with `return_kv` also the layers' `LayerKV`s."""
     cfg = model.cfg
     cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     h = x.to(model.norm.weight.dtype)
+    attend = self_attender(info, attn_impl, attn_pipe)
+    kvs: List[LayerKV] = []
     for layer in model.layers:
-        h = layer.forward_geo_main(h, und_idx, cos, sin, info)
+        h = layer.forward_geo_main(h, und_idx, cos, sin, attend, return_kv)
+        if return_kv:
+            h, kv = h
+            kvs.append(kv)
     hu = model.norm(h[und_idx])
-    return model.norm_moe_geo(h).index_copy_(0, und_idx, hu)
+    h = model.norm_moe_geo(h).index_copy_(0, und_idx, hu)
+    return (h, kvs) if return_kv else h
 
 
 def decoder_forward_train(
@@ -261,9 +280,13 @@ def decoder_forward_train(
     remat: bool = False,
     remat_group: int = 1,
     remat_inner: bool = True,
-) -> torch.Tensor:
+    attn_impl: str = "auto",
+    attn_pipe: bool = False,
+    return_kv: bool = False,
+):
     """All layers in MIXED or SPLIT routing plus the final norm; returns the
-    hidden states (S, D) in the compute dtype. With `remat` every layer is
+    hidden states (S, D) in the compute dtype, with `return_kv` (the chat
+    prefill: no checkpointing) also the layers' `LayerKV`s. With `remat` every layer is
     recomputed in the backward; `remat_group` > 1 checkpoints groups of that
     many layers instead (one saved carry per group), with the per-layer
     checkpoint nested inside unless `remat_inner` is off."""
@@ -277,8 +300,17 @@ def decoder_forward_train(
     if grouped and n_layers % remat_group:
         raise ValueError(f"remat_group {remat_group} does not divide {n_layers} layers")
 
+    if return_kv and remat:
+        raise ValueError("return_kv is the inference prefill: it does not checkpoint")
+    attend = self_attender(info, attn_impl, attn_pipe)
+    kvs: List[LayerKV] = []
+
     def run_layer(layer, h):
-        return layer.forward_train(h, is_geo, cos, sin, info, geo_start)
+        out = layer.forward_train(h, is_geo, cos, sin, attend, geo_start, return_kv)
+        if return_kv:
+            kvs.append(out[1])
+            return out[0]
+        return out
 
     def run_layers(layers, h, per_layer_remat):
         for layer in layers:
@@ -293,8 +325,10 @@ def decoder_forward_train(
         h = run_layers(model.layers, h, remat)
 
     if geo_start is None:
-        return torch.where(is_geo[:, None], model.norm_moe_geo(h), model.norm(h))
-    return torch.cat([model.norm(h[:geo_start]), model.norm_moe_geo(h[geo_start:])], dim=0)
+        h = torch.where(is_geo[:, None], model.norm_moe_geo(h), model.norm(h))
+    else:
+        h = torch.cat([model.norm(h[:geo_start]), model.norm_moe_geo(h[geo_start:])], dim=0)
+    return (h, kvs) if return_kv else h
 
 
 def lm_head(lm: MoTForCausalLM, hidden: torch.Tensor, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Plain PyTorch attention (port of g2vlm_tpu/ops/attention.py).
 
 These are the CPU path and the test oracle of the CUDA kernels in
-ops/flash_attention.py; the dispatch lives in the kernels' wrappers there
-(CUDA tensors launch the kernel, CPU tensors take these functions). Every
-form computes in float32 and returns the input dtype.
+ops/flash_attention.py; the dispatch by device lives in the kernels' wrappers
+there (CUDA tensors launch the kernel, CPU tensors take these functions).
+Every form computes in float32 and returns the input dtype.
+`segment_attention` chooses among the segment kernels by the caller's
+serving options.
 
 Layout: batched q (..., S, H, D); packed q (S_q, H, D) against k, v
 (S_kv, KVH, D) with GQA, query head h reading KV head h // (H / KVH).
@@ -95,3 +97,42 @@ def segment_attention_chunked(
         return out
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), torch.full_like(l, -1e30))
     return out, lse.reshape(h, s_q)
+
+
+INT8_MIN_PAIRS = 4096 * 4096  # the int8 QK^T pays off on large prefill tiles only
+
+
+def segment_attention(
+    q, k, v, q_info: TokenInfo, kv_info: TokenInfo, scale=None, impl: str = "auto", pipelined: bool = False,
+    plan=None,
+):
+    """Packed segment-masked GQA attention by the serving options, with the
+    rules of g2vlm_tpu's `segment_attention`: impl "int8" takes the int8-QK
+    kernel only when S_q * S_kv >= 4096^2 (small phases take the normal
+    rule); everything else takes the segment kernel, in the two-stage
+    schedule when `pipelined`. On the card every size takes a kernel: the port
+    has no dense or chunked path there, so a call of a few hundred rows costs
+    about what its tile codes cost on the host. `plan` is the caller's
+    `flash_attention.segment_plan(q_info, kv_info)`, made once for the layers
+    of a forward; without it each call makes its own."""
+    from . import flash_attention as fa
+
+    if impl not in ("auto", "int8"):
+        raise ValueError(f"unknown attention impl: {impl}")
+    if impl == "int8" and q.shape[0] * k.shape[0] >= INT8_MIN_PAIRS:
+        return fa.flash_segment_attention_int8(q, k, v, q_info, kv_info, scale, plan=plan)
+    return fa.flash_segment_attention(q, k, v, q_info, kv_info, scale, pipelined=pipelined, plan=plan)
+
+
+def self_attender(info: TokenInfo, impl: str = "auto", pipelined: bool = False):
+    """attend(q, k, v) for the layers of one forward, which all attend over
+    the same packed sequence: `segment_attention` with the kernels' plan
+    (packed metadata and tile codes) made here, once."""
+    from . import flash_attention as fa
+
+    plan = fa.segment_plan(info, info)
+
+    def attend(q, k, v):
+        return segment_attention(q, k, v, info, info, impl=impl, pipelined=pipelined, plan=plan)
+
+    return attend

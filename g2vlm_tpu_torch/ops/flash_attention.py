@@ -10,6 +10,17 @@ attention, for the MoT decoder. K6 and K3 are the same kernels with a per-row
 log-sum-exp output, replacing `_batched_flash_kernel_lse` and
 `_flash_kernel_lse`: the training forwards.
 
+K4 `flash_segment_attention(..., pipelined=True)` (csrc/attention_pipe.cu)
+replaces `_flash_kernel_pipe` (the pipe branch of `_fwd_pallas`): K2's and
+K3's function in a two-stage schedule, QK^T of one tile issued before the
+softmax and P.V of the tile before it, with cp.async copies in flight under
+both. K8 `flash_segment_attention_int8` (csrc/attention_int8.cu) replaces
+`_flash_kernel_int8` (through `_flash_int8`): K2's function with QK^T as an
+int8 x int8 -> int32 product on per-token scales, the quantized serving mode's
+prefill attention; its quantiser `quantize_qk` is plain tensor code here, as
+the JAX package keeps it outside its kernel. K2, K4 and K8 also take the
+Qwen2-VL ViT's head dim 80 (forward only).
+
 Backwards (csrc/attention_bwd.cu). K7 replaces `_batched_bwd_dq_kernel` and
 `_batched_bwd_dkv_kernel` (through `_batched_vjp_bwd`), K5 replaces
 `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (through `_flash_bwd`):
@@ -19,7 +30,8 @@ give dQ (one kernel) and dK, dV (another, the GQA group summed inside it).
 All are CUDA C++ for sm_90a, built with nvcc into plain-C shared libraries at
 first use (one per source, in parallel) and called through ctypes.
 
-What bounds them on the H100: tensor-core FLOPs. K2 at the 32-view prefill
+What bounds them on the H100: tensor-core FLOPs (K8: int8 operations for
+QK^T, bf16 for P.V). K2 at the 32-view prefill
 (25,088 rows, 12 heads of 128) is 3.9 TFLOP per launch on ~0.2 GB of q/k/v/o;
 at the training pack of 12,800 rows K3 is 1.0, K5's dq kernel 1.5 and its dkv
 kernel 2.0 TFLOP; K1 at a DINOv2-L view batch (32, 782, 16, 64) is 80 GFLOP.
@@ -43,7 +55,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,7 +65,8 @@ from .masks import TokenInfo, make_segment_mask
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 # one shared library per source, all built at once by parallel nvcc processes
-_SOURCES = (_CSRC / "attention.cu", _CSRC / "attention_bwd.cu")
+_SOURCES = (_CSRC / "attention.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_pipe.cu",
+            _CSRC / "attention_int8.cu")
 _HEADERS = (_CSRC / "attention_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -61,6 +74,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HEAD_DIMS = (64, 96, 128)
+# the segment forwards without lse (K2, K4, K8) also take the Qwen2-VL ViT's head dim
+FORWARD_HEAD_DIMS = (64, 80, 96, 128)
 TILE = 64  # kBlockM == kBlockN in csrc/attention_common.cuh: the tile of the codes
 BLOCK_SKIP, BLOCK_PARTIAL, BLOCK_FULL = 0, 1, 2
 LSE_EMPTY = -1e30  # lse of a row that sees no key (kLseEmpty; g2vlm_tpu's NEG_INF)
@@ -71,14 +86,16 @@ launch_counts: Dict[str, int] = {
     "flash_batched_attention": 0,  # K1
     "flash_segment_attention": 0,  # K2
     "flash_segment_attention_lse": 0,  # K3
+    "flash_segment_attention_pipe": 0,  # K4 (with or without lse)
     "flash_segment_attention_bwd_dq": 0,  # K5
     "flash_segment_attention_bwd_dkv": 0,
     "flash_batched_attention_lse": 0,  # K6
     "flash_batched_attention_bwd_dq": 0,  # K7
     "flash_batched_attention_bwd_dkv": 0,
+    "flash_segment_attention_int8": 0,  # K8
 }
 
-_libs: Optional[Tuple[ctypes.CDLL, ctypes.CDLL]] = None
+_libs: Optional[Tuple[ctypes.CDLL, ...]] = None
 
 
 def reset_launch_counts() -> None:
@@ -131,12 +148,13 @@ def build_library() -> Tuple[Tuple[Path, ...], str]:
     return outs, log
 
 
-def load_library() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
-    """(forward library, backward library), built at first use."""
+def load_library() -> Tuple[ctypes.CDLL, ...]:
+    """(forward, backward, pipelined forward, int8 forward) libraries, built at
+    first use."""
     global _libs
     if _libs is None:
-        (fwd_path, bwd_path), _ = build_library()
-        fwd, bwd = ctypes.CDLL(str(fwd_path)), ctypes.CDLL(str(bwd_path))
+        paths, _ = build_library()
+        fwd, bwd, pipe, int8 = (ctypes.CDLL(str(path)) for path in paths)
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         fwd.g2_batched_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 9 + [f, p]
         fwd.g2_batched_attention.restype = i
@@ -146,11 +164,15 @@ def load_library() -> Tuple[ctypes.CDLL, ctypes.CDLL]:
         bwd.g2_attention_bwd_dq.restype = i
         bwd.g2_attention_bwd_dkv.argtypes = [i, i] + [p] * 11 + [i] * 7 + [ll] * 9 + [f, p]
         bwd.g2_attention_bwd_dkv.restype = i
-        _libs = (fwd, bwd)
+        pipe.g2_segment_attention_pipe.argtypes = fwd.g2_segment_attention.argtypes
+        pipe.g2_segment_attention_pipe.restype = i
+        int8.g2_segment_attention_int8.argtypes = [i] + [p] * 9 + [i] * 6 + [ll] * 6 + [p]
+        int8.g2_segment_attention_int8.restype = i
+        _libs = (fwd, bwd, pipe, int8)
     return _libs
 
 
-def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
+def _check_cuda_inputs(name: str, *tensors: torch.Tensor, head_dims=HEAD_DIMS) -> None:
     dev = tensors[0].device
     dtype = tensors[0].dtype
     if dtype not in _DTYPES:
@@ -164,8 +186,8 @@ def _check_cuda_inputs(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: the head dim must be contiguous")
         if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
             raise ValueError(f"{name}: rows must be 16-byte aligned (strides {t.stride()})")
-    if tensors[0].shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {tensors[0].shape[-1]} not in {HEAD_DIMS}")
+    if tensors[0].shape[-1] not in head_dims:
+        raise ValueError(f"{name}: head dim {tensors[0].shape[-1]} not in {head_dims}")
 
 
 def _raise_on_error(name: str, err: int) -> None:
@@ -387,6 +409,27 @@ def block_codes(q_meta: torch.Tensor, kv_meta: torch.Tensor, tile: int = TILE) -
     return codes.to(torch.int8).contiguous()
 
 
+class SegmentPlan(NamedTuple):
+    """What the segment kernels read besides q, k and v: the packed (S, 4)
+    int32 metadata of both sides and the tile codes."""
+
+    q_meta: torch.Tensor
+    kv_meta: torch.Tensor
+    codes: torch.Tensor
+
+
+def segment_plan(q_info: TokenInfo, kv_info: TokenInfo) -> Optional[SegmentPlan]:
+    """The plan of a call on CUDA metadata, None on the CPU (the plain
+    versions read the TokenInfo itself). Packing the metadata and classifying
+    its tiles is ~20 small launches, so a forward whose layers all attend over
+    one TokenInfo makes the plan once and hands it to every layer's call."""
+    if q_info.doc_id.device.type == "cpu":
+        return None
+    q_meta = q_info.packed()
+    kv_meta = q_meta if kv_info is q_info else kv_info.packed()
+    return SegmentPlan(q_meta, kv_meta, block_codes(q_meta, kv_meta))
+
+
 def flash_segment_attention_reference(q, k, v, q_info: TokenInfo, kv_info: TokenInfo, scale=None):
     """Plain version of K2: the chunked online-softmax form."""
     return segment_attention_chunked(q, k, v, q_info, kv_info, scale)
@@ -437,30 +480,41 @@ def flash_segment_attention_bwd_reference(
     return dq.to(q.dtype), dk.transpose(0, 1).to(k.dtype), dv.transpose(0, 1).to(v.dtype)
 
 
-def _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale):
+def _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale, head_dims=HEAD_DIMS):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     s_q, h, d = q.shape
     s_kv, kvh, _ = k.shape
     if k.shape != (s_kv, kvh, d) or v.shape != k.shape or h % kvh:
         raise ValueError(f"{name}: shapes q {q.shape} k {k.shape} v {v.shape}")
-    _check_cuda_inputs(name, q, k, v)
+    _check_cuda_inputs(name, q, k, v, head_dims=head_dims)
+    _check_meta(name, q, s_q, s_kv, q_meta, kv_meta)
+    return float(d ** -0.5 if scale is None else scale)
+
+
+def _check_meta(name, q, s_q, s_kv, q_meta, kv_meta):
     if q_meta.shape != (s_q, 4) or kv_meta.shape != (s_kv, 4):
         raise ValueError(f"{name}: metadata length differs from the sequence")
     if q_meta.device != q.device or kv_meta.device != q.device:
         raise ValueError(f"{name}: metadata must be on the inputs' device")
-    return float(d ** -0.5 if scale is None else scale)
 
 
-def _segment_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale, with_lse: bool):
-    """Launches K2 (with_lse False) or K3; returns (out, lse or None)."""
-    name = "flash_segment_attention_lse" if with_lse else "flash_segment_attention"
-    scale = _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale)
+def _segment_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale, with_lse: bool, pipelined: bool = False):
+    """Launches K2 (with_lse False) or K3, or with `pipelined` K4 in either
+    form; returns (out, lse or None)."""
+    if pipelined:
+        name = "flash_segment_attention_pipe"
+    else:
+        name = "flash_segment_attention_lse" if with_lse else "flash_segment_attention"
+    scale = _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale,
+                               head_dims=HEAD_DIMS if with_lse else FORWARD_HEAD_DIMS)
     s_q, h, d = q.shape
     s_kv, kvh, _ = k.shape
     out = torch.empty((s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((h, s_q), dtype=torch.float32, device=q.device) if with_lse else None
-    err = load_library()[0].g2_segment_attention(
+    libs = load_library()
+    launch = libs[2].g2_segment_attention_pipe if pipelined else libs[0].g2_segment_attention
+    err = launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None,
         q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr(), s_q, s_kv, h, kvh, d,
@@ -510,21 +564,20 @@ def _segment_backward_cuda(q, k, v, out, lse, dout, q_meta, kv_meta, codes, scal
 
 
 class _SegmentAttention(torch.autograd.Function):
-    """K3 forward (saves q, k, v, out, lse and, on the card, the packed
-    metadata and the tile codes, computed once) and K5 backward; on CPU
-    tensors the plain versions of both."""
+    """K3 forward, or with `pipelined` K4 with lse (saves q, k, v, out, lse
+    and, on the card, the packed metadata and the tile codes, computed once)
+    and K5 backward; on CPU tensors the plain versions of both."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_info, kv_info, scale):
+    def forward(ctx, q, k, v, q_info, kv_info, scale, pipelined=False, plan=None):
         if q.device.type == "cpu":
             out, lse = flash_segment_attention_lse_reference(q, k, v, q_info, kv_info, scale)
             ctx.save_for_backward(q, k, v, out, lse)
             ctx.infos = (q_info, kv_info)
         else:
-            q_meta, kv_meta = q_info.packed(), kv_info.packed()
-            codes = block_codes(q_meta, kv_meta)
-            out, lse = _segment_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale, with_lse=True)
-            ctx.save_for_backward(q, k, v, out, lse, q_meta, kv_meta, codes)
+            plan = plan or segment_plan(q_info, kv_info)
+            out, lse = _segment_forward_cuda(q, k, v, *plan, scale, with_lse=True, pipelined=pipelined)
+            ctx.save_for_backward(q, k, v, out, lse, *plan)
         ctx.scale = scale
         return out
 
@@ -535,7 +588,7 @@ class _SegmentAttention(torch.autograd.Function):
             grads = flash_segment_attention_bwd_reference(q, k, v, out, lse, dout, *ctx.infos, ctx.scale)
         else:
             grads = _segment_backward_cuda(q, k, v, out, lse, dout, *meta, ctx.scale)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_segment_attention(
@@ -545,14 +598,172 @@ def flash_segment_attention(
     q_info: TokenInfo,
     kv_info: TokenInfo,
     scale: Optional[float] = None,
+    pipelined: bool = False,
+    plan: Optional[SegmentPlan] = None,
 ) -> torch.Tensor:
     """Packed segment-masked GQA attention. Returns a contiguous (S_q, H, D)
     tensor; rows with no visible key are 0. An input that requires grad takes
     the lse forward (K3) and the kernel backward (K5); otherwise the plain
-    forward (K2) runs."""
+    forward (K2) runs. `pipelined` selects the two-stage schedule (K4) for the
+    forward in either case; it computes the same function, so on CPU tensors
+    it changes nothing. `plan` is `segment_plan(q_info, kv_info)` when the
+    caller already has it; without it the call makes its own."""
     if _needs_grad(q, k, v):
-        return _SegmentAttention.apply(q, k, v, q_info, kv_info, scale)
+        return _SegmentAttention.apply(q, k, v, q_info, kv_info, scale, pipelined, plan)
     if q.device.type == "cpu":
         return flash_segment_attention_reference(q, k, v, q_info, kv_info, scale)
-    q_meta, kv_meta = q_info.packed(), kv_info.packed()
-    return _segment_forward_cuda(q, k, v, q_meta, kv_meta, block_codes(q_meta, kv_meta), scale, with_lse=False)[0]
+    plan = plan or segment_plan(q_info, kv_info)
+    return _segment_forward_cuda(q, k, v, *plan, scale, with_lse=False, pipelined=pipelined)[0]
+
+
+# ---------------------------------------------------------------------------
+# K8: segment attention with an int8 QK^T product (inference only)
+# ---------------------------------------------------------------------------
+
+_LOG2E = 1.4426950408889634
+
+
+def _hadamard(d: int) -> torch.Tensor:
+    """Normalised Sylvester-Hadamard matrix (d a power of two), fp32."""
+    h = torch.ones((1, 1), dtype=torch.float32)
+    while h.shape[0] < d:
+        h = torch.cat([torch.cat([h, h], dim=1), torch.cat([h, -h], dim=1)], dim=0)
+    return h * (d ** -0.5)
+
+
+def quantize_qk(
+    q: torch.Tensor,  # (S_q, H, D)
+    k: torch.Tensor,  # (S_kv, KVH, D)
+    kv_meta: torch.Tensor,  # (S_kv, 4) int32 packed kv metadata: doc < 0 marks padding keys
+    scale: Optional[float] = None,
+    hadamard: bool = True,
+    kmean: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The quantiser of K8, plain tensor code as in g2vlm_tpu's `_flash_int8`:
+    per-token symmetric int8 for q and k. With `kmean` the per-(kv head,
+    channel) mean of the real keys is subtracted first (every score of a query
+    row shifts by the same amount, which the softmax cancels); with
+    `hadamard`, when D is a power of two, both are rotated by a normalised
+    Hadamard matrix ((qH)(kH)^T == qk^T) to spread outlier channels. Scales
+    are absmax / 127 floored at 1e-6 / 127.
+
+    Returns q8 (S_q, H, DP) int8, qs (H, S_q) fp32 folded with
+    scale * log2(e), k8 (S_kv, KVH, DP) int8 and ks (KVH, S_kv) fp32, with DP
+    the head dim rounded up to 32 (the kernel's k-step) and zeros past D."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = d ** -0.5
+    qf, kf = q.float(), k.float()
+    if kmean:
+        real = (kv_meta[:, 0] >= 0).float()
+        denom = real.sum().clamp_min(1.0)
+        kf = kf - (kf * real[:, None, None]).sum(0, keepdim=True) / denom
+    if hadamard and d & (d - 1) == 0:
+        had = _hadamard(d).to(q.device)
+        qf, kf = qf @ had, kf @ had
+    dp = -(-d // 32) * 32
+
+    def quant(x):
+        s = x.abs().amax(-1).clamp_min(1e-6) / 127.0  # (S, heads)
+        x8 = torch.round(x / s[..., None]).to(torch.int8)
+        if dp != d:
+            x8 = torch.nn.functional.pad(x8, (0, dp - d))
+        return x8.contiguous(), s
+
+    q8, qscale = quant(qf)
+    k8, kscale = quant(kf)
+    qs = (qscale * (scale * _LOG2E)).T.contiguous()
+    return q8, qs, k8, kscale.T.contiguous()
+
+
+def _int8_attention_plain(q8, qs, k8, ks, v, q_info: TokenInfo, kv_info: TokenInfo, kv_chunk: int = 2048):
+    """K8's arithmetic in plain tensor code: an exact integer QK^T (int8
+    products summed in fp32 stay below 2^24, so the fp32 product is exact),
+    row scale then column scale, the segment mask, an fp32 exp2 softmax with
+    the running max, P rounded to v's type when that is bf16 or fp16, P.V."""
+    s_q, h, _ = q8.shape
+    s_kv, kvh, d = v.shape
+    g = h // kvh
+    round_p = v.dtype in _DTYPES
+    qh = q8.float().reshape(s_q, kvh, g, -1).permute(1, 2, 0, 3).reshape(kvh, g * s_q, -1)
+    qs_h = qs.reshape(kvh, g * s_q)
+    m = torch.full((kvh, g * s_q), float("-inf"), device=v.device)
+    l = torch.zeros((kvh, g * s_q), device=v.device)
+    acc = torch.zeros((kvh, g * s_q, d), device=v.device)
+    for c0 in range(0, s_kv, kv_chunk):
+        kb = k8[c0 : c0 + kv_chunk].float().transpose(0, 1)  # (KVH, T, DP)
+        vb = v[c0 : c0 + kv_chunk].float().transpose(0, 1)
+        mask = make_segment_mask(q_info, kv_info.slice(c0, kb.shape[1])).repeat(g, 1)  # (G*S_q, T)
+        logits = torch.matmul(qh, kb.transpose(1, 2)) * qs_h[..., None] * ks[:, None, c0 : c0 + kv_chunk]
+        logits = logits.masked_fill(~mask, float("-inf"))
+        m_new = torch.maximum(m, logits.amax(-1))
+        m_use = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+        p = torch.exp2(logits - m_use[..., None])
+        alpha = torch.exp2(m - m_use)
+        l = l * alpha + p.sum(-1)
+        if round_p:
+            p = p.to(v.dtype).float()
+        acc = acc * alpha[..., None] + torch.matmul(p, vb)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(kvh, g, s_q, d).permute(2, 0, 1, 3).reshape(s_q, h, d).to(v.dtype)
+
+
+def flash_segment_attention_int8_reference(
+    q, k, v, q_info: TokenInfo, kv_info: TokenInfo, scale=None, hadamard: bool = True, kmean: bool = True
+):
+    """Plain version of K8: the same quantiser, then `_int8_attention_plain`."""
+    q8, qs, k8, ks = quantize_qk(q, k, kv_info.packed(), scale, hadamard, kmean)
+    return _int8_attention_plain(q8, qs, k8, ks, v, q_info, kv_info)
+
+
+def _int8_forward_cuda(q8, qs, k8, ks, v, q_meta, kv_meta, codes):
+    """Launches K8 on quantised inputs; returns out (S_q, H, D) in v's type."""
+    name = "flash_segment_attention_int8"
+    if v.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {v.device}")
+    s_q, h, dp = q8.shape
+    s_kv, kvh, d = v.shape
+    if k8.shape != (s_kv, kvh, dp) or dp != -(-d // 32) * 32 or h % kvh:
+        raise ValueError(f"{name}: shapes q8 {q8.shape} k8 {k8.shape} v {v.shape}")
+    _check_cuda_inputs(name, v, head_dims=FORWARD_HEAD_DIMS)
+    for t, shape in ((q8, None), (k8, None), (qs, (h, s_q)), (ks, (kvh, s_kv))):
+        want = torch.int8 if shape is None else torch.float32
+        if t.dtype != want or t.device != v.device or not t.is_contiguous() or (shape and t.shape != shape):
+            raise ValueError(f"{name}: q8/k8 must be contiguous int8 and qs/ks contiguous fp32 of (heads, rows)")
+    _check_meta(name, v, s_q, s_kv, q_meta, kv_meta)
+    out = torch.empty((s_q, h, d), dtype=v.dtype, device=v.device)
+    err = load_library()[3].g2_segment_attention_int8(
+        _DTYPES[v.dtype], q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
+        qs.data_ptr(), ks.data_ptr(), q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr(),
+        s_q, s_kv, h, kvh, d, dp,
+        *q8.stride()[:2], *k8.stride()[:2], *v.stride()[:2],
+        torch.cuda.current_stream(v.device).cuda_stream,
+    )
+    _raise_on_error(name, err)
+    launch_counts[name] += 1
+    return out
+
+
+def flash_segment_attention_int8(
+    q: torch.Tensor,  # (S_q, H, D)
+    k: torch.Tensor,  # (S_kv, KVH, D)
+    v: torch.Tensor,
+    q_info: TokenInfo,
+    kv_info: TokenInfo,
+    scale: Optional[float] = None,
+    hadamard: bool = True,
+    kmean: bool = True,
+    plan: Optional[SegmentPlan] = None,
+) -> torch.Tensor:
+    """K2's function with QK^T as an int8 product on per-token scales (K8):
+    the quantized serving mode's prefill attention. Inference only: the
+    quantiser rounds, so an input that requires grad raises instead of
+    training through quantisation noise."""
+    if _needs_grad(q, k, v):
+        raise RuntimeError("flash_segment_attention_int8 has no gradient: train through flash_segment_attention")
+    if q.device.type == "cpu":
+        return flash_segment_attention_int8_reference(q, k, v, q_info, kv_info, scale, hadamard, kmean)
+    plan = plan or segment_plan(q_info, kv_info)
+    q8, qs, k8, ks = quantize_qk(q, k, plan.kv_meta, scale, hadamard, kmean)
+    return _int8_forward_cuda(q8, qs, k8, ks, v, *plan)

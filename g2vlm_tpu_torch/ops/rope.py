@@ -1,5 +1,6 @@
 """Rotary position embeddings (port of g2vlm_tpu/ops/rope.py): the 3-axis
-mRoPE of the LLM and the 2D axial RoPE of the Pi3 heads.
+mRoPE of the LLM, the 2D axial RoPE of the Pi3 heads and the Qwen2-VL vision
+RoPE of the ViT tower.
 
 Frequency tables are built with numpy exactly as the JAX package builds them;
 cos/sin and the rotation are float32.
@@ -79,3 +80,30 @@ def apply_rope2d_bshd(
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
     return (t * c + rotate_half_axial(t) * s).to(tokens.dtype)
+
+
+def apply_mrope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """mRoPE of q (S, H, D) and k (S, KVH, D) with cos/sin (S, D) in fp32;
+    returns the inputs' dtypes. A decode step passes S = 1."""
+    c, s = cos[:, None, :], sin[:, None, :]
+    qf, kf = q.float(), k.float()
+    return (qf * c + rotate_half(qf) * s).to(q.dtype), (kf * c + rotate_half(kf) * s).to(k.dtype)
+
+
+def vision_rope_cos_sin(
+    pos_hw: torch.Tensor,  # (S, 2) int: (h, w) patch coords in merge-permuted order
+    head_dim: int,
+    theta: float = 10000.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin of shape (S, head_dim), float32: head_dim // 2 channels per
+    axis, the (h, w) frequency vectors concatenated and then duplicated."""
+    dim = head_dim // 2
+    inv_freq = torch.from_numpy(1.0 / (theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))).to(pos_hw.device)
+    posf = pos_hw.float()
+    half = torch.cat([posf[:, 0:1] * inv_freq[None, :], posf[:, 1:2] * inv_freq[None, :]], dim=-1)
+    ang = torch.cat([half, half], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+# the vision rotation is the same rotate_half form on (S, heads, head_dim)
+apply_vision_rope = apply_mrope

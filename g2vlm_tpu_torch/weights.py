@@ -19,7 +19,7 @@ from torch import nn
 
 from .config import G2VLMConfig
 
-from .models import dinov2, mot_decoder
+from .models import dinov2, mot_decoder, qwen_vit
 from .models.g2vlm import G2VLM
 
 
@@ -119,9 +119,26 @@ def _camera_head(sd: Dict, p: Dict, pre: str) -> None:
     _put_lin(sd, pre + "fc_rot", p["fc_rot"])
 
 
+def _vit(sd: Dict, p: Dict, cfg, pre: str) -> None:
+    conv = (cfg.embed_dim, cfg.in_channels, cfg.temporal_patch_size, cfg.patch_size, cfg.patch_size)
+    sd[pre + "patch_embed.proj.weight"] = _t(np.asarray(p["patch_embed"]["w"]).T).reshape(conv)
+    for i in range(cfg.depth):
+        bp = _layer(p["blocks"], i)
+        bpre = f"{pre}blocks.{i}."
+        _put_norm(sd, bpre + "norm1", bp["norm1"])
+        _put_norm(sd, bpre + "norm2", bp["norm2"])
+        _put_lin(sd, bpre + "attn.qkv", bp["qkv"])
+        _put_lin(sd, bpre + "attn.proj", bp["proj"])
+        _put_lin(sd, bpre + "mlp.fc1", bp["fc1"])
+        _put_lin(sd, bpre + "mlp.fc2", bp["fc2"])
+    _put_norm(sd, pre + "merger.ln_q", p["merger"]["ln_q"])
+    _put_lin(sd, pre + "merger.mlp.0", p["merger"]["fc1"])
+    _put_lin(sd, pre + "merger.mlp.2", p["merger"]["fc2"])
+
+
 def state_dict_from_jax(params_np: Dict, cfg: G2VLMConfig) -> Dict[str, torch.Tensor]:
-    """The JAX parameter tree (numpy leaves, recon parts) -> the port's
-    fp32 CPU state dict."""
+    """The JAX parameter tree (numpy leaves) -> the port's fp32 CPU state
+    dict."""
     sd: Dict[str, torch.Tensor] = {}
     _llm(sd, params_np["llm"], cfg.llm, "language_model.")
     _dino(sd, params_np["dino"], cfg.dino, "dino_model.")
@@ -134,6 +151,8 @@ def state_dict_from_jax(params_np: Dict, cfg: G2VLMConfig) -> Dict[str, torch.Te
     if cfg.use_global_points:
         _decoder(sd, params_np["global_decoder"], cfg.pi3.depth, "global_points_decoder.")
         _put_lin(sd, "global_point_head.proj", params_np["global_point_head"]["proj"])
+    if cfg.visual_und:
+        _vit(sd, params_np["vit"], cfg.vit, "vit_model.")
     return sd
 
 
@@ -143,7 +162,7 @@ def init_random_(model: G2VLM, generator: torch.Generator) -> G2VLM:
     `init_params`: Linear/conv weights N(0, 1/fan_in), biases 0, norm gains 1,
     token embeddings N(0, 0.02^2), the DINOv2 CLS token N(0, 1), position
     embeddings N(0, 0.02^2), mask and register tokens 0, LayerScales at their
-    configured values. One exception: `dino2llm` is drawn N(0, 1/fan_in)
+    configured values, the ViT's patch embed N(0, 0.02^2). One exception: `dino2llm` is drawn N(0, 1/fan_in)
     instead of zero, so that the encoder reaches the outputs."""
     cfg = model.cfg
     g = generator
@@ -153,6 +172,8 @@ def init_random_(model: G2VLM, generator: torch.Generator) -> G2VLM:
             mod.weight.normal_(0.0, fan_in ** -0.5, generator=g)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, qwen_vit.PatchEmbed):
+            mod.proj.weight.normal_(0.0, 0.02, generator=g)
         elif isinstance(mod, (nn.LayerNorm, mot_decoder.RMSNorm)):
             mod.weight.fill_(1.0)
             if getattr(mod, "bias", None) is not None:
@@ -173,14 +194,17 @@ def init_random_(model: G2VLM, generator: torch.Generator) -> G2VLM:
 
 def build_model(
     cfg: G2VLMConfig,
-    device="cpu",
+    device="cuda",
     dtype: torch.dtype = torch.float32,
     seed: Optional[int] = 0,
 ) -> G2VLM:
     """Construct the model directly on `device` in `dtype` (no host copy of
     the weights) and, with a seed, fill it from a torch.Generator on that
     device. With seed=None the weights are left uninitialized for a
-    following load_state_dict."""
+    following load_state_dict. The default device is the card, and without
+    one this raises: a caller that wants the CPU says device="cpu"."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA device is available; pass device='cpu' to build on the CPU")
     with torch.device("meta"):
         model = G2VLM(cfg)
     model = model.to(dtype).to_empty(device=device).eval()

@@ -1,0 +1,90 @@
+#!/usr/bin/env python
+"""Spatial-QA chat CLI of the PyTorch/CUDA port (counterpart of infer_chat.py):
+image(s) + question -> answer, with the 3D reconstruction natively in context.
+
+Usage:
+  python infer_chat_torch.py --image a.jpg b.jpg --question "Which point is closer?"
+  python infer_chat_torch.py --tiny --device cpu --synthetic 2      # CPU smoke, no image file
+
+Without a checkpoint the weights are random (from --seed) and the text is the
+generated token ids. Runs on the card unless --device cpu is given.
+"""
+
+import argparse
+import dataclasses
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--image", type=str, nargs="+", default=None)
+    ap.add_argument("--synthetic", type=int, default=0, metavar="N",
+                    help="N random 294x518 uint8 frames from --seed instead of --image")
+    ap.add_argument("--video", type=str, default=None, help="not ported yet")
+    ap.add_argument(
+        "--question", type=str,
+        default="The red point and blue point in the image mark two positions. Which one is closer to the camera?",
+    )
+    ap.add_argument("--model_path", type=str, default=None, help="not ported yet: needs the checkpoint ingest")
+    ap.add_argument("--max_length", type=int, default=100)
+    ap.add_argument("--do_sample", action="store_true")
+    ap.add_argument("--temperature", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tiny", action="store_true", help="tiny random-weight config")
+    ap.add_argument("--dtype", type=str, default="bfloat16", choices=["bfloat16", "float32"])
+    ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--attn_int8", action="store_true", help="quantized serving mode: int8 QK^T prefill attention")
+    ap.add_argument("--attn_pipe", action="store_true", help="two-stage schedule of the segment attention kernel")
+    ap.add_argument("--quantized_kv", action="store_true", help="int8 KV cache")
+    ap.add_argument("--device_preprocess", action="store_true",
+                    help="preprocess uniform uint8 frames for both towers on the device")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.model_path:
+        raise NotImplementedError("--model_path: the checkpoint ingest and the tokenizer files are not ported yet")
+    if args.video:
+        raise NotImplementedError("--video: the video frame sampler is not ported yet")
+
+    import numpy as np
+    import torch
+
+    from g2vlm_tpu_torch.config import G2VLMConfig, tiny_test_config
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+    from g2vlm_tpu_torch.weights import build_model
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda (the default) needs an NVIDIA GPU; pass --device cpu for the CPU")
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    print("no --model_path: using random weights (smoke mode)")
+    new_token_ids = None
+    if args.tiny:
+        # the tokenizer-less prompt ids reach 5,100 and the default special ids 151,653: widen the
+        # tiny vocabulary and take small special ids (an id past the table raises here)
+        tiny = tiny_test_config()
+        cfg = dataclasses.replace(tiny, llm=dataclasses.replace(tiny.llm, vocab_size=5120))
+        new_token_ids = dict(bos_token_id=7, eos_token_id=8, start_of_image=11, end_of_image=12)
+    else:
+        cfg = G2VLMConfig()
+    model = build_model(cfg, device=args.device, dtype=dtype, seed=args.seed)
+    pipe = G2VLMPipeline(model, cfg, new_token_ids=new_token_ids,
+                         attn_impl="int8" if args.attn_int8 else "auto", attn_pipe=args.attn_pipe)
+    if args.synthetic:
+        rng = np.random.default_rng(args.seed)
+        inputs = list(rng.integers(0, 256, (args.synthetic, 294, 518, 3), dtype=np.uint8))
+    elif args.image:
+        inputs = args.image
+    else:
+        raise SystemExit("--image or --synthetic required")
+    answer = pipe.chat(
+        inputs, args.question, max_new_tokens=args.max_length, do_sample=args.do_sample,
+        temperature=args.temperature, seed=args.seed, quantized_kv=args.quantized_kv,
+        device_preprocess=args.device_preprocess,
+    )
+    print(answer)
+    return answer
+
+
+if __name__ == "__main__":
+    main()

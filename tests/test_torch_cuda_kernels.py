@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (g2vlm_tpu_torch/csrc/attention.cu forwards
-K1, K2 and their lse forms K3, K6; csrc/attention_bwd.cu backwards K5, K7)
-against their plain PyTorch versions, on the card in bf16 (and fp16).
+K1, K2 and their lse forms K3, K6; csrc/attention_bwd.cu backwards K5, K7;
+csrc/attention_pipe.cu the two-stage forward K4; csrc/attention_int8.cu the
+int8-QK forward K8) against their plain PyTorch versions, on the card in bf16
+(and fp16).
 
 Needs an NVIDIA GPU with nvcc; imports no jax. Run it on the card with
 
@@ -259,3 +261,144 @@ def test_fp16_backward_matches_plain(gen):
     ref = fa.flash_batched_attention_reference(qf, qf, qf, valid_kv=40)
     (want,) = torch.autograd.grad(ref, qf, dout.float())
     _check_grad(dq, want, "dq")
+
+
+def _vit_info(n_images, per, pad=0):
+    """Each image a segment of `per` rows with full attention inside it (doc = fn = image id)."""
+    seg = torch.arange(n_images, device="cuda", dtype=torch.int32).repeat_interleave(per)
+    seg = torch.cat([seg, torch.full((pad,), -1, device="cuda", dtype=torch.int32)])
+    from g2vlm_tpu_torch.ops.masks import TokenInfo
+
+    return TokenInfo(seg, seg, torch.full_like(seg, -1), torch.arange(len(seg), device="cuda", dtype=torch.int32))
+
+
+FORWARD_CASES = [
+    dict(info=lambda: _vit_info(4, 2916), h=16, kvh=16, d=80),  # one ViT chunk: 4 images of 54x54 patches
+    dict(info=lambda: _vit_info(3, 100, pad=20), h=4, kvh=4, d=80),
+    dict(info=lambda: make_token_info([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"],
+                                      pad_to=300, device="cuda"), h=12, kvh=2, d=128),
+    dict(info=lambda: make_token_info([77], [30, 47], ["full", "causal"], device="cuda"), h=6, kvh=3, d=96),
+    dict(info=lambda: make_token_info([50, 13], [50, 13], ["causal", "full"], pad_to=70, device="cuda"),
+         h=2, kvh=1, d=64),
+    dict(info=lambda: _recon_info(8), h=12, kvh=2, d=128),
+]
+
+
+def _qkv(gen, case, dtype=torch.bfloat16):
+    info = case["info"]()
+    n = info.seq_len
+    return (info, _rnd(gen, n, case["h"], case["d"], dtype=dtype), _rnd(gen, n, case["kvh"], case["d"], dtype=dtype),
+            _rnd(gen, n, case["kvh"], case["d"], dtype=dtype))
+
+
+@pytest.mark.parametrize("case", FORWARD_CASES[:2])
+def test_segment_kernel_head_dim_80_matches_plain(gen, case):
+    info, q, k, v = _qkv(gen, case)
+    got = fa.flash_segment_attention(q, k, v, info, info)
+    _check(got, fa.flash_segment_attention_reference(q.float(), k.float(), v.float(), info, info))
+    assert (got[info.doc_id < 0] == 0).all()
+    with pytest.raises(ValueError):  # no lse forward or backward at this width yet
+        fa.flash_segment_attention(q.clone().requires_grad_(True), k, v, info, info)
+
+
+def test_a_callers_plan_gives_the_calls_own_result(gen):
+    """`segment_plan` made once and handed to K2, K4, K8 and the lse forward
+    gives bitwise what each call computes with a plan of its own."""
+    info, q, k, v = _qkv(gen, FORWARD_CASES[2])
+    plan = fa.segment_plan(info, info)
+    assert torch.equal(plan.codes, fa.block_codes(info.packed(), info.packed()))
+    for kw in ({}, dict(pipelined=True)):
+        assert torch.equal(fa.flash_segment_attention(q, k, v, info, info, plan=plan, **kw),
+                           fa.flash_segment_attention(q, k, v, info, info, **kw))
+    assert torch.equal(fa.flash_segment_attention_int8(q, k, v, info, info, plan=plan),
+                       fa.flash_segment_attention_int8(q, k, v, info, info))
+    dout = _rnd(gen, *q.shape)
+    grads = []
+    for kw in (dict(plan=plan), {}):
+        qg = q.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fa.flash_segment_attention(qg, k, v, info, info, **kw), qg, dout)[0])
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.parametrize("case", FORWARD_CASES)
+def test_pipelined_kernel_equals_the_plain_schedule(gen, case):
+    """K4 computes K2's function: equal to K2's output to rounding (1e-3), and
+    against the plain version within the forward limits."""
+    info, q, k, v = _qkv(gen, case)
+    before = dict(fa.launch_counts)
+    got = fa.flash_segment_attention(q, k, v, info, info, pipelined=True)
+    assert fa.launch_counts["flash_segment_attention_pipe"] == before["flash_segment_attention_pipe"] + 1
+    assert fa.launch_counts["flash_segment_attention"] == before["flash_segment_attention"]
+    base = fa.flash_segment_attention(q, k, v, info, info)
+    torch.cuda.synchronize()
+    assert (got.float() - base.float()).abs().max().item() <= 1e-3
+    _check(got, fa.flash_segment_attention_reference(q.float(), k.float(), v.float(), info, info))
+    assert (got[info.doc_id < 0] == 0).all()
+    if case["d"] != 80:  # with lse: K3's function, and the K5 backward behind it
+        meta = info.packed()
+        codes = fa.block_codes(meta, meta)
+        out, lse = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True, pipelined=True)
+        _, lse3 = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True)
+        assert torch.equal(out, got)
+        assert (lse - lse3).abs().max().item() <= 1e-5 * max(1.0, lse3[lse3 > -1e29].abs().max().item())
+        qg = q.clone().requires_grad_(True)
+        dout = _rnd(gen, *q.shape)
+        (dq,) = torch.autograd.grad(fa.flash_segment_attention(qg, k, v, info, info, pipelined=True), qg, dout)
+        qg2 = q.clone().requires_grad_(True)
+        (dq2,) = torch.autograd.grad(fa.flash_segment_attention(qg2, k, v, info, info), qg2, dout)
+        _check_grad(dq, dq2, "dq through the pipelined forward")
+
+
+def test_pipelined_kernel_fp16_and_extreme_logits(gen):
+    info, q, k, v = _qkv(gen, FORWARD_CASES[4], dtype=torch.float16)
+    _check(fa.flash_segment_attention(q, k, v, info, info, pipelined=True),
+           fa.flash_segment_attention_reference(q.float(), k.float(), v.float(), info, info))
+    s, h, kvh, d = 128, 2, 2, 128
+    v0 = torch.randn(d, generator=gen, device="cuda")
+    v0 /= v0.norm()
+    q = (50.0 * v0).expand(s, h, d).to(torch.bfloat16).contiguous()
+    v = _rnd(gen, s, kvh, d)
+    info = make_token_info([s], [s], ["full"], device="cuda")
+    out = fa.flash_segment_attention(q, q.clone(), v, info, info, pipelined=True)
+    want = v.float().mean(0, keepdim=True).expand(s, h, d)
+    assert torch.isfinite(out).all() and (out.float() - want).abs().max().item() < 1e-2
+
+
+@pytest.mark.parametrize("had,kmean", [(True, True), (False, False)])
+@pytest.mark.parametrize("case", FORWARD_CASES)
+def test_int8_kernel_matches_its_plain_version(gen, case, had, kmean):
+    """K8 against its own plain version (same quantiser, exact integer QK^T),
+    and within the quantisation budget of the unquantised attention."""
+    info, q, k, v = _qkv(gen, case)
+    before = fa.launch_counts["flash_segment_attention_int8"]
+    got = fa.flash_segment_attention_int8(q, k, v, info, info, hadamard=had, kmean=kmean)
+    assert fa.launch_counts["flash_segment_attention_int8"] == before + 1
+    meta = info.packed()
+    q8, qs, k8, ks = fa.quantize_qk(q, k, meta, None, had, kmean)
+    _check(got, fa._int8_attention_plain(q8, qs, k8, ks, v.float(), info, info))
+    assert (got[info.doc_id < 0] == 0).all()
+    ref = fa.flash_segment_attention_reference(q.float(), k.float(), v.float(), info, info)
+    assert (got.float() - ref).abs().max().item() <= 2e-2 * ref.abs().max().item() + 2e-2
+
+
+def test_int8_kernel_outliers_common_mode_and_extreme_logits(gen):
+    """An outlier channel (Hadamard spreads it), a common-mode K offset (the
+    K-mean removes it) and logits of hundreds of nats (finite)."""
+    info = make_token_info([256], [256], ["causal"], pad_to=300, device="cuda")
+    n, h, kvh, d = 300, 4, 2, 128
+    q, k, v = _rnd(gen, n, h, d), _rnd(gen, n, kvh, d), _rnd(gen, n, kvh, d)
+    q[:, :, 5] *= 20.0
+    k = (k.float() + 8.0 * torch.randn(1, kvh, d, generator=gen, device="cuda")).to(torch.bfloat16)
+    got = fa.flash_segment_attention_int8(q, k, v, info, info)
+    q8, qs, k8, ks = fa.quantize_qk(q, k, info.packed())
+    _check(got, fa._int8_attention_plain(q8, qs, k8, ks, v.float(), info, info))
+    v0 = torch.randn(d, generator=gen, device="cuda")
+    v0 /= v0.norm()
+    q2, k2 = _rnd(gen, n, h, d), _rnd(gen, n, kvh, d)
+    q2[7] = (60.0 * v0).to(torch.bfloat16)
+    k2[3] = (60.0 * v0).to(torch.bfloat16)
+    out = fa.flash_segment_attention_int8(q2, k2, v, info, info)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    with pytest.raises(RuntimeError):
+        fa.flash_segment_attention_int8(q.clone().requires_grad_(True), k, v, info, info)

@@ -24,9 +24,11 @@ def _port_modules():
 
 def test_every_port_module_and_script_imports_without_jax():
     """In a fresh interpreter: import every module under g2vlm_tpu_torch and
-    the two root scripts (import only), then look at sys.modules."""
-    modules = _port_modules() + ["chip_smoke", "train_torch"]
+    the root scripts (import only), then look at sys.modules."""
+    modules = _port_modules() + ["chip_smoke", "train_torch", "infer_chat_torch"]
     assert "g2vlm_tpu_torch.train.trainer" in modules and "g2vlm_tpu_torch.config" in modules
+    for name in ("models.qwen_vit", "inference.decoding", "data.vit_preprocess", "data.tokenizer"):
+        assert "g2vlm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
@@ -40,8 +42,9 @@ def test_every_port_module_and_script_imports_without_jax():
 
 
 def test_no_port_source_names_the_jax_package_in_an_import():
-    sources = list((REPO / "g2vlm_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "train_torch.py"]
-    assert len(sources) > 20
+    sources = list((REPO / "g2vlm_tpu_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "train_torch.py", REPO / "infer_chat_torch.py"]
+    assert len(sources) > 25
     for path in sources:
         for line in path.read_text().splitlines():
             words = line.strip().split()

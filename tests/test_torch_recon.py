@@ -42,7 +42,7 @@ def _random_params(seed=0):
 @pytest.fixture(scope="module")
 def models():
     params = _random_params()
-    model = build_model(CFG, seed=None)
+    model = build_model(CFG, device="cpu", seed=None)
     model.load_state_dict(state_dict_from_jax(params, CFG), strict=True)
     return params, model
 
@@ -83,8 +83,8 @@ def test_weight_round_trip_is_exact(models):
 
 
 def test_seeded_init_mirrors_init_params():
-    model = build_model(CFG, seed=3)
-    again = build_model(CFG, seed=3)
+    model = build_model(CFG, device="cpu", seed=3)
+    again = build_model(CFG, device="cpu", seed=3)
     for (name, a), b in zip(model.state_dict().items(), again.state_dict().values()):
         assert torch.equal(a, b), name
     sd = model.state_dict()
@@ -129,10 +129,19 @@ def test_recon_from_frames_matches_jax_pipeline(models, rng):
     _assert_outputs_match(got, want)
 
 
-def test_non_geo_main_prefill_raises(models):
-    _, model = models
-    b = tg.SequenceBuilder(11, 12)
-    b.add_text(list(range(20, 40)))
-    b.add_dino_images(1, 4, 4)  # 16 dino rows against 22 text rows: not geo-dominant
-    with pytest.raises(NotImplementedError):
-        tg.recon_forward(model, b.build(), torch.zeros(1, 3, 56, 56), CFG)
+def test_non_geo_main_prefill_raises(models, rng):
+    """A prefill that is not geo-dominant raises nothing: it is sorted into
+    [und | geo | padding], runs the SPLIT layers and matches the JAX package."""
+    params, model = models
+    imgs = rng.standard_normal((1, 3, 56, 56)).astype(np.float32) * 0.3
+    builders = []
+    for mod in (jg, tg):
+        b = mod.SequenceBuilder(11, 12)
+        b.add_text(list(range(20, 40)))
+        b.add_dino_images(1, 4, 4)  # 16 dino rows against 22 text rows: not geo-dominant
+        builders.append(b.build(pad_to=64))
+    assert not tg._geo_dominant(CFG, builders[1])
+    want = jg.recon_forward(jax.tree.map(jnp.asarray, params), builders[0], jnp.asarray(imgs), CFG)
+    with torch.inference_mode():
+        got = tg.recon_forward(model, builders[1], torch.from_numpy(imgs), CFG)
+    _assert_outputs_match(got, want)

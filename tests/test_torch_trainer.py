@@ -43,7 +43,7 @@ def _random_params(seed=0):
 
 
 def _fresh_model(params):
-    model = build_model(CFG, seed=None).train()
+    model = build_model(CFG, device="cpu", seed=None).train()
     model.load_state_dict(state_dict_from_jax(params, CFG), strict=True)
     return model
 
