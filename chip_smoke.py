@@ -17,7 +17,10 @@ Phases (each prints its result; any failure raises and the exit code is 1):
   7. K3 / K6 (the lse forwards): out bitwise equal to K2 / K1, lse against the
      plain version, at the training shapes;
   8. K5 / K7 (the dq and dkv backward kernels) against the plain backward at
-     the training shapes, with exact zeros for rows and keys that see nothing;
+     the training shapes, a ragged pack and one with whole rows and columns of
+     SKIP tiles, with exact zeros for rows and keys that see nothing and two
+     launches bitwise equal; dq+dk+dv timed against the function's bound (the
+     5 products it needs);
   9. train parity: one forward + backward of the cut-depth full-width model on
      the card (fp32 masters, bf16 compute, kernels) against the CPU (fp32,
      plain versions): loss and gradient norms;
@@ -471,9 +474,28 @@ def _recon_and_train_phases(env):
             worst = max(worst, max_abs)
         return worst
 
+    # a ragged pack (333 rows: no multiple of the 64-row tiles or the dkv kernel's 128-key blocks) and a
+    # pack whose last two tiles are padding: whole rows and columns of SKIP tiles
+    ragged_pack = make_token_info([200, 120], [80, 120, 50, 70], ["causal", "full", "causal", "full"],
+                                  pad_to=333, device=dev)
+    skip_pack = make_token_info([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"],
+                                pad_to=384, device=dev)
+    skip_codes = fa.block_codes(skip_pack.packed(), skip_pack.packed())
+    if not ((skip_codes == fa.BLOCK_SKIP).all(1).any() and (skip_codes == fa.BLOCK_SKIP).all(0).any()):
+        _fail("the SKIP case has no whole row and column of SKIP tiles")
+    def check_repeatable(tag, first, second):
+        """Two launches on the same inputs give bitwise equal dq, dk and dv (no atomics)."""
+        for which, x, y in zip(("dq", "dk", "dv"), first, second):
+            if not torch.equal(x, y):
+                _fail(f"{tag}: two launches gave different {which}")
+        print(f"[bwd] {tag}: two launches bitwise equal")
+
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for tag, info, h, kvh, d, iters in (
         ("train_pack_16_views", train_info, 12, 2, 128, 5),
         ("mixed_docs_padded", mixed, 12, 2, 128, 20),
+        ("ragged_333_rows", ragged_pack, 12, 2, 128, 20),
+        ("skip_rows_and_columns", skip_pack, 6, 2, 96, 20),
     ):
         n = info.seq_len
         q, k, v, dout = rnd(n, h, d), rnd(n, kvh, d), rnd(n, kvh, d), rnd(n, h, d)
@@ -499,6 +521,7 @@ def _recon_and_train_phases(env):
         want = fa.flash_segment_attention_bwd_reference(q.float(), k.float(), v.float(), out.float(), lse,
                                                         dout.float(), info, info)
         worst = check_grads(f"K5 {tag}", got, want, pad if pad.any() else None)
+        check_repeatable(f"K5 {tag}", got, fa._segment_backward_cuda(q, k, v, out, lse, dout, meta, meta, codes, None))
         k5q["max_abs_err"] = max(k5q["max_abs_err"], worst)
         k5kv["max_abs_err"] = max(k5kv["max_abs_err"], worst)
         del got, want, plain_lse
@@ -512,7 +535,9 @@ def _recon_and_train_phases(env):
 
             ms_dq, plain5 = _timed_in_turns(lambda: run(("dq",)), plain_bwd, 3)
             ms_dkv = _time_ms(lambda: run(("dkv",)), iters)
+            ms_both = _time_ms(lambda: run(("dq", "dkv")), iters)
             pairs = visible_pairs(info)
+            fb, fby = _attention_bound(pairs, h, d, 5, n, n, kvh, 4, 4, stat_rows=n * h)
             b3, by3 = _attention_bound(pairs, h, d, 2, n, n, kvh, 2, 2, stat_rows=n * h)
             bq, byq = _attention_bound(pairs, h, d, 3, n, n, kvh, 3, 2, stat_rows=2 * n * h)
             bkv, bykv = _attention_bound(pairs, h, d, 4, n, n, kvh, 2, 4, stat_rows=2 * n * h)
@@ -530,12 +555,18 @@ def _recon_and_train_phases(env):
                 why_bwd = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
             shape = f"({n},{h}:{kvh},{d})"
             k3e.update(ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=by3, library_ms=lib_fwd, shape=shape)
-            k5q.update(ms=ms_dq, plain_ms=plain5, bound_ms=bq, bound_by=byq, library_ms=lib_bwd, shape=shape,
-                       plain_and_library_cover="dq+dk+dv")
+            both = dict(dq_dk_dv_ms=ms_both, function_bound_ms=fb, function_bound_by=fby,
+                        bound_counts="ms / bound_ms: this kernel alone and its own products (dq 3, dkv 4); "
+                                     "dq_dk_dv_ms / function_bound_ms: both kernels and the 5 products the "
+                                     "function needs", plain_and_library_cover="dq+dk+dv")
+            k5q.update(ms=ms_dq, plain_ms=plain5, bound_ms=bq, bound_by=byq, library_ms=lib_bwd, shape=shape, **both)
             k5kv.update(ms=ms_dkv, plain_ms=plain5, bound_ms=bkv, bound_by=bykv, library_ms=lib_bwd, shape=shape,
-                        plain_and_library_cover="dq+dk+dv")
-            print(f"[K5] {tag}: dq kernel {ms_dq:.3f} ms (bound {bq:.3f} by {byq}), dkv kernel {ms_dkv:.3f} ms "
-                  f"(bound {bkv:.3f} by {bykv}), plain backward (dq+dk+dv) {plain5:.3f} ms; K3 bound {b3:.3f} ms; "
+                        **both)
+            blocks = fa.bwd_blocks(n, n, h, kvh, 1, fa.dkv_head_split(n, n, h, kvh, 1, n_sm))
+            print(f"[K5] {tag}: dq kernel {ms_dq:.3f} ms (its bound {bq:.3f} by {byq}), dkv kernel {ms_dkv:.3f} ms "
+                  f"(its bound {bkv:.3f} by {bykv}), dq+dk+dv {ms_both:.3f} ms against the function's bound "
+                  f"{fb:.3f} ms by {fby} ({fb / ms_both * 100:.1f}%); blocks dq {blocks[0]}, dkv {blocks[1]} on "
+                  f"{n_sm} SMs; plain backward (dq+dk+dv) {plain5:.3f} ms; K3 bound {b3:.3f} ms; "
                   f"library forward {lib_fwd} ms {why or ''}, library backward (dq+dk+dv) {lib_bwd} ms "
                   f"{why_bwd or ''} ({card})")
         del q, k, v, dout, out, lse
@@ -574,6 +605,8 @@ def _recon_and_train_phases(env):
             got = torch.autograd.grad(o_, (q_, k_, v_), dout)
             want = (want[0], want[1].sum(0, keepdim=True), want[2].sum(0, keepdim=True))
         worst = check_grads(f"K7 {tag}", got, want)
+        if not cross:
+            check_repeatable(f"K7 {tag}", got, fa._batched_backward_cuda(q, k, v, out, lse, dout, valid, None))
         if valid is not None and ((got[1][:, valid:] != 0).any() or (got[2][:, valid:] != 0).any()):
             _fail(f"K7 {tag}: dk / dv of keys >= valid_kv are not exactly 0")
         k7q["max_abs_err"] = max(k7q["max_abs_err"], worst)
@@ -590,7 +623,9 @@ def _recon_and_train_phases(env):
 
             ms_dq, plain7 = _timed_in_turns(lambda: run(("dq",)), plain_bwd, 20)
             ms_dkv = _time_ms(lambda: run(("dkv",)), 20)
+            ms_both = _time_ms(lambda: run(("dq", "dkv")), 20)
             pairs = b * s * m
+            fb, fby = _attention_bound(pairs, h, d, 5, b * s, b * m, h, 4, 4, stat_rows=b * s * h)
             b6, by6 = _attention_bound(pairs, h, d, 2, b * s, b * m, h, 2, 2, stat_rows=b * s * h)
             bq, byq = _attention_bound(pairs, h, d, 3, b * s, b * m, h, 3, 2, stat_rows=2 * b * s * h)
             bkv, bykv = _attention_bound(pairs, h, d, 4, b * s, b * m, h, 2, 4, stat_rows=2 * b * s * h)
@@ -602,18 +637,22 @@ def _recon_and_train_phases(env):
                 lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_dout, retain_graph=True), 20)
             shape = f"({b},{s},{h},{d})"
             k6e.update(ms=ms6, plain_ms=plain6, bound_ms=b6, bound_by=by6, library_ms=lib_fwd, shape=shape)
-            k7q.update(ms=ms_dq, plain_ms=plain7, bound_ms=bq, bound_by=byq, library_ms=lib_bwd, shape=shape,
-                       plain_and_library_cover="dq+dk+dv")
+            both = dict(dq_dk_dv_ms=ms_both, function_bound_ms=fb, function_bound_by=fby,
+                        bound_counts=k5q["bound_counts"], plain_and_library_cover="dq+dk+dv")
+            k7q.update(ms=ms_dq, plain_ms=plain7, bound_ms=bq, bound_by=byq, library_ms=lib_bwd, shape=shape, **both)
             k7kv.update(ms=ms_dkv, plain_ms=plain7, bound_ms=bkv, bound_by=bykv, library_ms=lib_bwd, shape=shape,
-                        plain_and_library_cover="dq+dk+dv")
-            print(f"[K7] {tag}: dq kernel {ms_dq:.3f} ms (bound {bq:.4f} by {byq}), dkv kernel {ms_dkv:.3f} ms "
-                  f"(bound {bkv:.4f} by {bykv}), plain backward (dq+dk+dv) {plain7:.3f} ms; K6 bound {b6:.4f} ms; "
+                        **both)
+            print(f"[K7] {tag}: dq kernel {ms_dq:.3f} ms (its bound {bq:.4f} by {byq}), dkv kernel {ms_dkv:.3f} ms "
+                  f"(its bound {bkv:.4f} by {bykv}), dq+dk+dv {ms_both:.3f} ms against the function's bound "
+                  f"{fb:.4f} ms by {fby} ({fb / ms_both * 100:.1f}%); "
+                  f"plain backward (dq+dk+dv) {plain7:.3f} ms; K6 bound {b6:.4f} ms; "
                   f"library forward {lib_fwd} ms {why or ''}, library backward (dq+dk+dv) {lib_bwd} ms "
                   f"{why_bwd or ''} ({card})")
             del lib_out, ql, kl, vl
         elif tag == "pi3_self":
             print(f"[K7] {tag}: dq kernel {_time_ms(lambda: run(('dq',)), 20):.3f} ms, dkv kernel "
-                  f"{_time_ms(lambda: run(('dkv',)), 20):.3f} ms ({card})")
+                  f"{_time_ms(lambda: run(('dkv',)), 20):.3f} ms, dq+dk+dv "
+                  f"{_time_ms(lambda: run(('dq', 'dkv')), 20):.3f} ms ({card})")
     del q, k, v, k0, v0_, dout, out, lse
     torch.cuda.empty_cache()
 

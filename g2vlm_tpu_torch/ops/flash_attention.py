@@ -26,6 +26,9 @@ Backwards (csrc/attention_bwd.cu). K7 replaces `_batched_bwd_dq_kernel` and
 `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (through `_flash_bwd`):
 from q, k, v, dO, lse and delta = rowsum(dO * O) they recompute P per tile and
 give dQ (one kernel) and dK, dV (another, the GQA group summed inside it).
+Every product there is a Hopper `wgmma.mma_async`, fed through a ring of
+cp.async stages on mbarriers (csrc/hopper_common.cuh); `bwd_blocks` and
+`dkv_head_split` reckon their grids on the host.
 
 All are CUDA C++ for sm_90a, built with nvcc into plain-C shared libraries at
 first use (one per source, in parallel) and called through ctypes.
@@ -36,7 +39,8 @@ QK^T, bf16 for P.V). K2 at the 32-view prefill
 at the training pack of 12,800 rows K3 is 1.0, K5's dq kernel 1.5 and its dkv
 kernel 2.0 TFLOP; K1 at a DINOv2-L view batch (32, 782, 16, 64) is 80 GFLOP.
 All keep the logits, P and dS out of device memory (fp32 softmax statistics
-in registers over 64-row tiles fed to bf16 mma.sync), and the segment kernels
+in registers over 64-row tiles fed to bf16 tensor-core products: mma.sync in
+the forwards, wgmma in the backwards), and the segment kernels
 skip the per-element mask on tiles their codes prove fully visible, and whole
 tiles the codes prove invisible (the .cu headers have the details).
 
@@ -67,7 +71,7 @@ _CSRC = _PKG / "csrc"
 # one shared library per source, all built at once by parallel nvcc processes
 _SOURCES = (_CSRC / "attention.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_pipe.cu",
             _CSRC / "attention_int8.cu")
-_HEADERS = (_CSRC / "attention_common.cuh",)
+_HEADERS = (_CSRC / "attention_common.cuh", _CSRC / "hopper_common.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
@@ -77,6 +81,8 @@ HEAD_DIMS = (64, 96, 128)
 # the segment forwards without lse (K2, K4, K8) also take the Qwen2-VL ViT's head dim
 FORWARD_HEAD_DIMS = (64, 80, 96, 128)
 TILE = 64  # kBlockM == kBlockN in csrc/attention_common.cuh: the tile of the codes
+BWD_KEYS_PER_BLOCK = 2 * TILE  # the dkv kernel's block: two warpgroups of 64 keys
+SPLIT_SLACK = 0.1  # dkv_head_split: waves a cut of the GQA group must save, as a share
 BLOCK_SKIP, BLOCK_PARTIAL, BLOCK_FULL = 0, 1, 2
 LSE_EMPTY = -1e30  # lse of a row that sees no key (kLseEmpty; g2vlm_tpu's NEG_INF)
 _DTYPES = {torch.bfloat16: 0, torch.float16: 1}
@@ -162,7 +168,7 @@ def load_library() -> Tuple[ctypes.CDLL, ...]:
         fwd.g2_segment_attention.restype = i
         bwd.g2_attention_bwd_dq.argtypes = [i, i] + [p] * 10 + [i] * 6 + [ll] * 9 + [f, p]
         bwd.g2_attention_bwd_dq.restype = i
-        bwd.g2_attention_bwd_dkv.argtypes = [i, i] + [p] * 11 + [i] * 7 + [ll] * 9 + [f, p]
+        bwd.g2_attention_bwd_dkv.argtypes = [i, i] + [p] * 9 + [i] + [p] * 3 + [i] * 7 + [ll] * 9 + [f, p]
         bwd.g2_attention_bwd_dkv.restype = i
         pipe.g2_segment_attention_pipe.argtypes = fwd.g2_segment_attention.argtypes
         pipe.g2_segment_attention_pipe.restype = i
@@ -188,6 +194,44 @@ def _check_cuda_inputs(name: str, *tensors: torch.Tensor, head_dims=HEAD_DIMS) -
             raise ValueError(f"{name}: rows must be 16-byte aligned (strides {t.stride()})")
     if tensors[0].shape[-1] not in head_dims:
         raise ValueError(f"{name}: head dim {tensors[0].shape[-1]} not in {head_dims}")
+
+
+def bwd_blocks(n_q: int, n_kv_store: int, h: int, kvh: int, batch: int, n_split: int) -> Tuple[int, int]:
+    """(dq blocks, dkv blocks) of the backward kernels' grids, as `launch_bwd`
+    in csrc/attention_bwd.cu makes them: a dq block takes 64 query rows of two
+    query heads of a GQA group (an odd group: of one head, and two query
+    tiles), a dkv block BWD_KEYS_PER_BLOCK keys of one KV head and one of the
+    group's `n_split` slices of query heads."""
+    group = h // kvh
+    heads = 2 if group % 2 == 0 else 1
+    q_tiles = -(-n_q // TILE)
+    dq = -(-q_tiles // (2 // heads)) * kvh * (group // heads) * batch
+    dkv = -(-n_kv_store // BWD_KEYS_PER_BLOCK) * kvh * n_split * batch
+    return dq, dkv
+
+
+def dkv_head_split(n_q: int, n_kv_store: int, h: int, kvh: int, batch: int, n_sm: int) -> int:
+    """Slices of each GQA group for the dkv kernel. A block holds its dK and
+    dV in registers (one block per SM), so 200 blocks on 132 SMs run in two
+    waves with the second two-thirds idle; cut into s slices, the group takes
+    ceil(blocks * s / n_sm) waves of 1/s the work. The smallest s (a divisor
+    of the group) within SPLIT_SLACK of the fewest such waves, counted in
+    units of a whole block: each slice writes fp32 partial sums that a second
+    kernel adds in order, so a cut has to buy more than a few percent."""
+    group = h // kvh
+    splits = [s for s in range(1, group + 1) if group % s == 0]
+    waves = [-(-bwd_blocks(n_q, n_kv_store, h, kvh, batch, s)[1] // n_sm) / s for s in splits]
+    return next(s for s, w in zip(splits, waves) if w <= min(waves) * (1 + SPLIT_SLACK))
+
+
+def _dkv_scratch(q: torch.Tensor, n_kv_store: int, h: int, kvh: int, batch: int):
+    """(n_split, fp32 partial-sum scratch or None) for a dkv launch on q's card."""
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = dkv_head_split(q.shape[-3], n_kv_store, h, kvh, batch, n_sm)
+    if n_split == 1:
+        return 1, None
+    part = torch.empty((n_split, 2, batch, n_kv_store, kvh, q.shape[-1]), dtype=torch.float32, device=q.device)
+    return n_split, part
 
 
 def _raise_on_error(name: str, err: int) -> None:
@@ -319,7 +363,9 @@ def _batched_backward_cuda(q, k, v, out, lse, dout, valid_kv, scale, which=("dq"
     if "dkv" in which:
         dk = torch.empty((b, m, h, d), dtype=q.dtype, device=q.device)
         dv = torch.empty_like(dk)
-        err = lib.g2_attention_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), None, None, None,
+        n_split, part = _dkv_scratch(q, m, h, h, b)
+        err = lib.g2_attention_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(),
+                                       part.data_ptr() if part is not None else None, n_split, None, None, None,
                                        b, s, m_valid, m, h, h, d, *strides, scale, stream)
         _raise_on_error(name + "_dkv", err)
         launch_counts[name + "_dkv"] += 1
@@ -556,7 +602,9 @@ def _segment_backward_cuda(q, k, v, out, lse, dout, q_meta, kv_meta, codes, scal
     if "dkv" in which:
         dk = torch.empty((s_kv, kvh, d), dtype=q.dtype, device=q.device)
         dv = torch.empty_like(dk)
-        err = lib.g2_attention_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), *meta,
+        n_split, part = _dkv_scratch(q, s_kv, h, kvh, 1)
+        err = lib.g2_attention_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(),
+                                       part.data_ptr() if part is not None else None, n_split, *meta,
                                        1, s_q, s_kv, s_kv, h, kvh, d, *strides, scale, stream)
         _raise_on_error(name + "_dkv", err)
         launch_counts[name + "_dkv"] += 1

@@ -402,3 +402,84 @@ def test_int8_kernel_outliers_common_mode_and_extreme_logits(gen):
     assert torch.isfinite(out).all()
     with pytest.raises(RuntimeError):
         fa.flash_segment_attention_int8(q.clone().requires_grad_(True), k, v, info, info)
+
+
+# the backward kernels' tiles: 64 query rows per warpgroup, 128 keys per dkv block, ring of stages
+BWD_TILE_CASES = [
+    # (sample lens, split lens, modes, pad_to, h, kvh, d, dtype)
+    ([200, 120], [80, 120, 50, 70], ["causal", "full", "causal", "full"], 333, 12, 2, 128, torch.bfloat16),
+    ([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"], 384, 6, 2, 96, torch.bfloat16),
+    ([50, 13], [50, 13], ["causal", "full"], 70, 4, 2, 64, torch.bfloat16),
+    ([150, 50], [100, 50, 50], ["full", "causal", "full"], 200, 12, 2, 128, torch.float16),
+    ([77], [30, 47], ["full", "causal"], 77, 3, 3, 96, torch.float16),
+]
+
+
+def _segment_bwd_inputs(gen, case):
+    lens, splits, modes, pad_to, h, kvh, d, dtype = case
+    info = make_token_info(lens, splits, modes, pad_to=pad_to, device="cuda")
+    n = info.seq_len
+    q, k, v, dout = (_rnd(gen, n, heads, d, dtype=dtype) for heads in (h, kvh, kvh, h))
+    meta = info.packed()
+    codes = fa.block_codes(meta, meta)
+    out, lse = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True)
+    return info, (q, k, v, out, lse, dout, meta, meta, codes)
+
+
+@pytest.mark.parametrize("case", BWD_TILE_CASES, ids=["ragged_333", "skip_tiles_g3_d96", "g2_d64", "fp16_d128",
+                                                      "fp16_g1_d96"])
+def test_segment_backward_tiles_repeatable_and_match_plain(gen, case):
+    """Ragged tails, head dims 64 / 96 / 128, odd and even GQA groups, fp16: the kernels match
+    the plain backward, two launches agree bit for bit, and rows that see nothing get zeros."""
+    info, args = _segment_bwd_inputs(gen, case)
+    q, k, v, out, lse, dout = args[:6]
+    got = fa._segment_backward_cuda(*args, None)
+    again = fa._segment_backward_cuda(*args, None)
+    for name, g, w in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(g, w), name
+    want = fa.flash_segment_attention_bwd_reference(q.float(), k.float(), v.float(), out.float(), lse,
+                                                    dout.float(), info, info)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _check_grad(g, w, name)
+    pad = info.doc_id < 0
+    assert all((g[pad] == 0).all() for g in got)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 6])
+def test_dkv_group_split_matches_the_whole_group(gen, n_split, monkeypatch):
+    """Each cut of the 12:2 group into slices of query heads (fp32 partial sums added in slice
+    order by a second kernel) gives the plain backward's dk and dv, bitwise the same twice."""
+    info, args = _segment_bwd_inputs(gen, BWD_TILE_CASES[0])
+    q, k, v, out, lse, dout = args[:6]
+    monkeypatch.setattr(fa, "dkv_head_split", lambda *shape: n_split)
+    _, dk, dv = fa._segment_backward_cuda(*args, None, which=("dkv",))
+    _, dk2, dv2 = fa._segment_backward_cuda(*args, None, which=("dkv",))
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    _, wk, wv = fa.flash_segment_attention_bwd_reference(q.float(), k.float(), v.float(), out.float(), lse,
+                                                         dout.float(), info, info)
+    _check_grad(dk, wk, "dk")
+    _check_grad(dv, wv, "dv")
+
+
+@pytest.mark.parametrize(
+    "b,s,m,h,d,valid_kv,dtype",
+    [
+        (16, 782, 782, 16, 64, None, torch.bfloat16),  # DINOv2-L at the training batch: 782 = 12 x 64 + 14
+        (2, 130, 259, 3, 96, 200, torch.bfloat16),  # the dkv kernel's last block of 128 keys half masked
+        (3, 65, 129, 2, 128, None, torch.float16),
+    ],
+)
+def test_batched_backward_repeatable_at_ragged_shapes(gen, b, s, m, h, d, valid_kv, dtype):
+    q, dout = _rnd(gen, b, s, h, d, dtype=dtype), _rnd(gen, b, s, h, d, dtype=dtype)
+    k, v = _rnd(gen, b, m, h, d, dtype=dtype), _rnd(gen, b, m, h, d, dtype=dtype)
+    out, lse = fa._batched_forward_cuda(q, k, v, valid_kv, None, with_lse=True)
+    got = fa._batched_backward_cuda(q, k, v, out, lse, dout, valid_kv, None)
+    again = fa._batched_backward_cuda(q, k, v, out, lse, dout, valid_kv, None)
+    for name, g, w in zip(("dq", "dk", "dv"), got, again):
+        assert torch.equal(g, w), name
+    want = fa.flash_batched_attention_bwd_reference(q.float(), k.float(), v.float(), out.float(), lse,
+                                                    dout.float(), valid_kv)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        _check_grad(g, w, name)
+    if valid_kv is not None:
+        assert (got[1][:, valid_kv:] == 0).all() and (got[2][:, valid_kv:] == 0).all()

@@ -129,7 +129,7 @@ def test_recon_from_frames_matches_jax_pipeline(models, rng):
     _assert_outputs_match(got, want)
 
 
-def test_non_geo_main_prefill_raises(models, rng):
+def test_non_geo_dominant_prefill_matches_jax(models, rng):
     """A prefill that is not geo-dominant raises nothing: it is sorted into
     [und | geo | padding], runs the SPLIT layers and matches the JAX package."""
     params, model = models
