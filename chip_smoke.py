@@ -7,7 +7,9 @@ Phases (each prints its result; any failure raises and the exit code is 1):
   1. device: the card's name and power limit;
   2. build: nvcc builds the attention kernels from g2vlm_tpu_torch/csrc, one
      process per source, in parallel;
-  3. K1 (batched attention) against its plain version at the recon shapes;
+  3. K1 (batched attention) against its plain version at the recon shapes,
+     two launches bitwise equal, each case beside its bound and the library
+     call;
   4. K2 (segment attention) against its plain (chunked) version at the
      32-view recon prefill, a small mixed case and an extreme-logit case;
   5. recon parity: a full-width, cut-depth model runs recon_from_frames on the
@@ -15,7 +17,8 @@ Phases (each prints its result; any failure raises and the exit code is 1):
   6. the recon slice: G2VLMConfig(visual_und=False) with random bf16 weights, 32
      uint8 views of 294x518, launch counts, shapes, finiteness and timing;
   7. K3 / K6 (the lse forwards): out bitwise equal to K2 / K1, lse against the
-     plain version, at the training shapes;
+     plain version, at the training shapes; K6 also two launches bitwise equal
+     and each case beside its bound and the library call;
   8. K5 / K7 (the dq and dkv backward kernels) against the plain backward at
      the training shapes, a ragged pack and one with whole rows and columns of
      SKIP tiles, with exact zeros for rows and keys that see nothing and two
@@ -151,6 +154,19 @@ def _attention_bound(pairs, heads, d, n_products, rows_q, rows_kv, kv_heads, n_q
     return _bound(n_bytes, flops)
 
 
+def _batched_bound(b, s, m, kb, h, d, valid, lse=False):
+    """Bound of K1 / K6: the two products over the keys that count; q and out once, the K/V rows
+    that count once (frame-0 cross attention reads one batch element of K/V), and lse."""
+    keys = m if valid is None else valid
+    return _attention_bound(b * s * keys, h, d, 2, b * s, kb * keys, h, 2, 2, stat_rows=b * s * h if lse else 0)
+
+
+def _keys_that_count(t, valid):
+    """K or V (B, M, H, D) cut to its first `valid` keys for the library call, which then runs
+    unmasked on its fastest backend; the whole tensor where every key counts."""
+    return t if valid is None else t[:, :valid]
+
+
 def _rel_errors(got, want):
     err = (got.float() - want.float()).abs()
     ref = want.float().abs()
@@ -268,13 +284,14 @@ def _recon_and_train_phases(env):
     args, dev, card, gen, rnd, sdpa = env.args, env.dev, env.card, env.gen, env.rnd, env.sdpa
     entry_for, visible_pairs, gqa_mask_call, mixed = env.entry_for, env.visible_pairs, env.gqa_mask_call, env.mixed
 
-    k1e = entry_for("flash_batched_attention", "g2vlm_tpu/ops/flash_attention.py:1058")
+    batched_src = "g2vlm_tpu_torch/csrc/attention_batched.cu"
+    k1e = entry_for("flash_batched_attention", "g2vlm_tpu/ops/flash_attention.py:1058", batched_src)
     k2e = entry_for("flash_segment_attention", "g2vlm_tpu/ops/flash_attention.py:168")
     k3e = entry_for("flash_segment_attention_lse", "g2vlm_tpu/ops/flash_attention.py:239")
     bwd_src = "g2vlm_tpu_torch/csrc/attention_bwd.cu"
     k5q = entry_for("flash_segment_attention_bwd_dq", "g2vlm_tpu/ops/flash_attention.py:385", bwd_src)
     k5kv = entry_for("flash_segment_attention_bwd_dkv", "g2vlm_tpu/ops/flash_attention.py:435", bwd_src)
-    k6e = entry_for("flash_batched_attention_lse", "g2vlm_tpu/ops/flash_attention.py:1127")
+    k6e = entry_for("flash_batched_attention_lse", "g2vlm_tpu/ops/flash_attention.py:1127", batched_src)
     k7q = entry_for("flash_batched_attention_bwd_dq", "g2vlm_tpu/ops/flash_attention.py:1164", bwd_src)
     k7kv = entry_for("flash_batched_attention_bwd_dkv", "g2vlm_tpu/ops/flash_attention.py:1195", bwd_src)
 
@@ -301,14 +318,20 @@ def _recon_and_train_phases(env):
               f"mean_abs_err {mean:.3e} kernel {ms:.3f} ms plain {plain_ms:.3f} ms ({card})")
         if mx > FWD_MAX_ABS or mean > FWD_MEAN_ABS:
             _fail(f"K1 {tag} disagrees with its plain version (max {mx}, mean {mean})")
+        if not torch.equal(fa.flash_batched_attention(q, k, v, valid_kv=valid),
+                           fa.flash_batched_attention(q, k, v, valid_kv=valid)):
+            _fail(f"K1 {tag}: two launches gave different outputs")
         k1e["max_abs_err"] = max(k1e["max_abs_err"], mx)
+        lib, why = _library_ms(lambda: sdpa(q, _keys_that_count(k, valid), _keys_that_count(v, valid)), 20)
+        bound_ms, by = _batched_bound(b, s, m, kb, h, d, valid)
+        at = dict(shape=f"q({b},{s},{h},{d}) kv({kb},{m},{h},{d}) valid_kv={valid}", ms=ms, plain_ms=plain_ms,
+                  bound_ms=bound_ms, bound_by=by, library_ms=lib)
+        k1e.setdefault("at", {})[tag] = at
         if tag == "dinov2":
-            lib, why = _library_ms(lambda: sdpa(q, k, v), 20)
-            bound_ms, by = _attention_bound(b * s * m, h, d, 2, b * s, b * m, h, 2, 2)
-            k1e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib,
+            k1e.update({key: at[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                        shape=f"({b},{s},{h},{d})")
-            print(f"[K1] {tag}: bound {bound_ms:.4f} ms by {by}; library scaled_dot_product_attention "
-                  f"{lib} ms {why or ''}")
+        print(f"[K1] {tag}: two launches bitwise equal; bound {bound_ms:.4f} ms by {by} ({bound_ms / ms * 100:.1f}%); "
+              f"library scaled_dot_product_attention {lib} ms {why or ''} ({card})")
 
     # ---- 4. K2 -------------------------------------------------------------
     shape_pipe = G2VLMPipeline(None, G2VLMConfig(visual_und=False))
@@ -590,11 +613,21 @@ def _recon_and_train_phases(env):
         lse_err = (lse - plain_lse).abs().max().item()
         if lse_err > LSE_MAX_ABS:
             _fail(f"K6 {tag}: lse off by {lse_err} (limit {LSE_MAX_ABS})")
+        out2, lse2 = fa._batched_forward_cuda(q, k, v, valid, None, with_lse=True)
+        if not (torch.equal(out2, out) and torch.equal(lse2, lse)):
+            _fail(f"K6 {tag}: two launches gave different out or lse")
+        del out2, lse2
         ms6, plain6 = _timed_in_turns(
             lambda: fa._batched_forward_cuda(q, k, v, valid, None, with_lse=True),
             lambda: fa.flash_batched_attention_lse_reference(q.float(), k.float(), v.float(), valid), 20)
-        print(f"[K6] {tag} q{(b, s, h, d)} kv{(kb, m, h, d)} valid_kv={valid}: out == K1 bitwise, lse max_abs_err "
-              f"{lse_err:.3e}, kernel {ms6:.3f} ms plain {plain6:.3f} ms ({card})")
+        lib6, why6 = _library_ms(lambda: sdpa(q, _keys_that_count(k, valid), _keys_that_count(v, valid)), 20)
+        b6, by6 = _batched_bound(b, s, m, kb, h, d, valid, lse=True)
+        k6e.setdefault("at", {})[tag] = dict(shape=f"q({b},{s},{h},{d}) kv({kb},{m},{h},{d}) valid_kv={valid}",
+                                             ms=ms6, plain_ms=plain6, bound_ms=b6, bound_by=by6, library_ms=lib6)
+        print(f"[K6] {tag} q{(b, s, h, d)} kv{(kb, m, h, d)} valid_kv={valid}: out == K1 bitwise, two launches "
+              f"bitwise equal, lse max_abs_err {lse_err:.3e}, kernel {ms6:.3f} ms plain {plain6:.3f} ms; bound "
+              f"{b6:.4f} ms by {by6} ({b6 / ms6 * 100:.1f}%); library scaled_dot_product_attention {lib6} ms "
+              f"{why6 or ''} ({card})")
         k6e["max_abs_err"] = max(k6e["max_abs_err"], lse_err)
         got = fa._batched_backward_cuda(q, k, v, out, lse, dout, valid, None)
         want = fa.flash_batched_attention_bwd_reference(q.float(), k.float(), v.float(), out.float(), lse,
@@ -626,17 +659,15 @@ def _recon_and_train_phases(env):
             ms_both = _time_ms(lambda: run(("dq", "dkv")), 20)
             pairs = b * s * m
             fb, fby = _attention_bound(pairs, h, d, 5, b * s, b * m, h, 4, 4, stat_rows=b * s * h)
-            b6, by6 = _attention_bound(pairs, h, d, 2, b * s, b * m, h, 2, 2, stat_rows=b * s * h)
             bq, byq = _attention_bound(pairs, h, d, 3, b * s, b * m, h, 3, 2, stat_rows=2 * b * s * h)
             bkv, bykv = _attention_bound(pairs, h, d, 4, b * s, b * m, h, 2, 4, stat_rows=2 * b * s * h)
-            lib_fwd, why = _library_ms(lambda: sdpa(q, k, v), 20)
             ql, kl, vl = (t.clone().requires_grad_(True) for t in (q, k, v))
             lib_out = sdpa(ql, kl, vl)
             lib_dout = dout.transpose(1, 2)
             lib_bwd, why_bwd = _library_ms(
                 lambda: torch.autograd.grad(lib_out, (ql, kl, vl), lib_dout, retain_graph=True), 20)
             shape = f"({b},{s},{h},{d})"
-            k6e.update(ms=ms6, plain_ms=plain6, bound_ms=b6, bound_by=by6, library_ms=lib_fwd, shape=shape)
+            k6e.update(ms=ms6, plain_ms=plain6, bound_ms=b6, bound_by=by6, library_ms=lib6, shape=shape)
             both = dict(dq_dk_dv_ms=ms_both, function_bound_ms=fb, function_bound_by=fby,
                         bound_counts=k5q["bound_counts"], plain_and_library_cover="dq+dk+dv")
             k7q.update(ms=ms_dq, plain_ms=plain7, bound_ms=bq, bound_by=byq, library_ms=lib_bwd, shape=shape, **both)
@@ -645,8 +676,8 @@ def _recon_and_train_phases(env):
             print(f"[K7] {tag}: dq kernel {ms_dq:.3f} ms (its bound {bq:.4f} by {byq}), dkv kernel {ms_dkv:.3f} ms "
                   f"(its bound {bkv:.4f} by {bykv}), dq+dk+dv {ms_both:.3f} ms against the function's bound "
                   f"{fb:.4f} ms by {fby} ({fb / ms_both * 100:.1f}%); "
-                  f"plain backward (dq+dk+dv) {plain7:.3f} ms; K6 bound {b6:.4f} ms; "
-                  f"library forward {lib_fwd} ms {why or ''}, library backward (dq+dk+dv) {lib_bwd} ms "
+                  f"plain backward (dq+dk+dv) {plain7:.3f} ms; "
+                  f"library backward (dq+dk+dv) {lib_bwd} ms "
                   f"{why_bwd or ''} ({card})")
             del lib_out, ql, kl, vl
         elif tag == "pi3_self":

@@ -1,40 +1,35 @@
-// Flash attention forward kernels for Hopper (sm_90a), bf16/fp16 in, fp32 accumulate.
-// (The backward kernels are in attention_bwd.cu.)
+// The segment attention forward kernels for Hopper (sm_90a), bf16/fp16 in, fp32
+// accumulate. (The batched forward K1 / K6 is in attention_batched.cu, the
+// backward kernels in attention_bwd.cu.)
 //
-// K1  g2_batched_attention  replaces g2vlm_tpu/ops/flash_attention.py
-//     `_batched_flash_kernel` (via `_batched_fwd` / `flash_batched_attention`):
-//     bidirectional attention inside each batch element, q (B,S,H,D) against
-//     k,v (B,M,H,D), keys >= valid_kv masked. Used by the DINOv2 encoder and
-//     the Pi3 decoders (self attention, and cross attention to frame 0 whose
-//     K/V arrive with batch stride 0).
 // K2  g2_segment_attention  replaces g2vlm_tpu/ops/flash_attention.py
 //     `_flash_kernel` (via `_fwd_pallas` / `flash_segment_attention`): packed
 //     GQA attention, q (Sq,H,D) against k,v (Skv,KVH,D), masked per token pair
 //     by int32 (doc, fn, noise, pos) metadata with the rule of
 //     g2vlm_tpu/ops/masks.py `make_segment_mask`.
-// K3, K6  the same two entry points with a non-null `lse` pointer replace
-//     `_flash_kernel_lse` and `_batched_flash_kernel_lse`: the same forward
-//     plus one fp32 store per row of lse = m + ln(l) in natural units (the
-//     kernel works in exp2 units and converts once), kLseEmpty for a row that
-//     sees no key. The training forward saves it for the backward. A template
-//     flag keeps the store out of the no-grad instantiations.
+// K3  the same entry point with a non-null `lse` pointer replaces
+//     `_flash_kernel_lse`: the same forward plus one fp32 store per row of
+//     lse = m + ln(l) in natural units (the kernel works in exp2 units and
+//     converts once), kLseEmpty for a row that sees no key. The training
+//     forward saves it for the backward. A template flag keeps the store out
+//     of the no-grad instantiations.
 //
-// What bounds them on the H100: at the main-path shapes both are tensor-core
+// What bounds it on the H100: at the main-path shapes it is tensor-core
 // bound. K2 at the 32-view prefill (25,088 tokens, 12 heads, D=128) is
 // 4*S^2*D*H = 3.9 TFLOP per layer against ~0.2 GB of q/k/v/o traffic, far
-// right of the ~295 FLOP/byte ridge; K1 at (32, 782, 16, 64) is ~80 GFLOP for
-// ~0.2 GB. The design keeps the S x S logits out of device memory entirely
-// (an fp32 online softmax in registers), feeds the tensor cores with bf16
-// mma.sync m16n8k16 from ldmatrix'd shared-memory tiles, and folds the
-// softmax scale and log2(e) into one multiply before exp2.
+// right of the ~295 FLOP/byte ridge. The design keeps the S x S logits out of
+// device memory entirely (an fp32 online softmax in registers), feeds the
+// tensor cores with bf16 mma.sync m16n8k16 from ldmatrix'd shared-memory
+// tiles, and folds the softmax scale and log2(e) into one multiply before
+// exp2.
 //
-// Tiling: one block of 4 warps per (batch, head, 64 query rows); each warp
+// Tiling: one block of 4 warps per (head, 64 query rows); each warp
 // owns 16 query rows, holds its Q fragments in registers, and streams 64-row
 // K/V tiles through shared memory with cp.async (K and V in separate groups so
-// that QK^T starts while V lands). K2 reads a per-(q tile, kv tile) code:
+// that QK^T starts while V lands). It reads a per-(q tile, kv tile) code:
 // SKIP tiles are not loaded, FULL tiles skip the per-element mask rule (at the
-// recon prefill nearly every tile is FULL). The ragged tails of q and kv (782, 777,
-// 25,088 rows) are masked in the kernel: out-of-range K/V rows are zero-filled
+// recon prefill nearly every tile is FULL). The ragged tails of q and kv (a
+// pack of 333 rows) are masked in the kernel: out-of-range K/V rows are zero-filled
 // and their logits set to -inf, out-of-range q rows are never stored. A row
 // that sees no key (padding, doc < 0) keeps l == 0 and is written as 0.
 // Offsets are 64-bit throughout.
@@ -42,16 +37,6 @@
 #include "attention_common.cuh"
 
 namespace {
-
-// K1 mask: only the key bound.
-struct KeyBound {
-  int n_kv;
-  __device__ __forceinline__ int tile_code(int /*t*/, int n0) const {
-    return n0 + kBlockN <= n_kv ? kFull : kPartial;
-  }
-  __device__ __forceinline__ void load_kv_meta(int /*n0*/) {}
-  __device__ __forceinline__ bool visible(int /*row*/, int /*col_local*/) const { return true; }
-};
 
 // K2 mask: the segment rule of ops/masks.py on (doc, fn, noise, pos).
 struct SegmentRule {
@@ -243,36 +228,6 @@ __device__ __forceinline__ void flash_block(
   }
 }
 
-struct BatchedArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int s, m, h;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  float scale_log2;
-  float* lse;  // (B, H, S) or null; last, so that the other fields keep their offsets
-};
-
-template <typename T, int D, bool kLse>
-__global__ void __launch_bounds__(kThreads) batched_kernel(BatchedArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int q0 = blockIdx.x * kBlockM;
-  const long long h = blockIdx.y;
-  const long long b = blockIdx.z;
-  const T* q = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + q0 * a.q_ss;
-  const T* k = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* v = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const long long o_ss = static_cast<long long>(a.h) * D;
-  T* o = static_cast<T*>(a.o) + (b * a.s + q0) * o_ss + h * D;
-  KeyBound mask{a.m};
-  float* lse = kLse ? a.lse + (b * a.h + h) * a.s + q0 : nullptr;
-  flash_block<T, D, kLse>(q, a.q_ss, min(kBlockM, a.s - q0), k, a.k_ss, v, a.v_ss, a.m, o, o_ss,
-                          lse, a.scale_log2, mask, reinterpret_cast<T*>(smem_raw));
-}
-
 struct SegmentArgs {
   const void* q;
   const void* k;
@@ -328,22 +283,6 @@ constexpr int smem_bytes(bool with_meta) {
 }
 
 template <typename T, int D, bool kLse>
-cudaError_t launch_batched_as(const BatchedArgs& a, int b, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>(false);
-  cudaError_t err =
-      cudaFuncSetAttribute(batched_kernel<T, D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((a.s + kBlockM - 1) / kBlockM, a.h, b);
-  batched_kernel<T, D, kLse><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_batched(const BatchedArgs& a, int b, cudaStream_t stream) {
-  return a.lse ? launch_batched_as<T, D, true>(a, b, stream) : launch_batched_as<T, D, false>(a, b, stream);
-}
-
-template <typename T, int D, bool kLse>
 cudaError_t launch_segment_as(const SegmentArgs& a, cudaStream_t stream) {
   constexpr int smem = smem_bytes<D>(true);
   cudaError_t err =
@@ -360,16 +299,6 @@ cudaError_t launch_segment(const SegmentArgs& a, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t dispatch_batched(const BatchedArgs& a, int b, int d, cudaStream_t stream) {
-  switch (d) {
-    case 64: return launch_batched<T, 64>(a, b, stream);
-    case 96: return launch_batched<T, 96>(a, b, stream);
-    case 128: return launch_batched<T, 128>(a, b, stream);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T>
 cudaError_t dispatch_segment(const SegmentArgs& a, int d, cudaStream_t stream) {
   switch (d) {
     case 64: return launch_segment<T, 64>(a, stream);
@@ -383,24 +312,6 @@ cudaError_t dispatch_segment(const SegmentArgs& a, int d, cudaStream_t stream) {
 }
 
 }  // namespace
-
-// dtype: 0 = bf16, 1 = fp16. Strides are in elements; the head dim is contiguous.
-// The output is a contiguous (B, S, H, D) tensor; lse is a contiguous fp32
-// (B, H, S) tensor or null. Returns a cudaError_t.
-extern "C" int g2_batched_attention(
-    int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
-    int b, int s, int m_valid, int h, int d,
-    long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh,
-    float scale, void* stream) {
-  BatchedArgs a{q, k, v, o, s, m_valid, h, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-                v_sb, v_ss, v_sh, scale * kLog2e, static_cast<float*>(lse)};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? dispatch_batched<__nv_bfloat16>(a, b, d, st)
-                               : dispatch_batched<__half>(a, b, d, st);
-  return static_cast<int>(err);
-}
 
 // q (Sq, H, D), k/v (Skv, KVH, D); q_meta (Sq, 4) and kv_meta (Skv, 4) int32
 // (doc, fn, noise, pos); codes (ceil(Sq/64), ceil(Skv/64)) int8 tile codes or

@@ -113,8 +113,6 @@ struct BwdArgs {
   float scale, scale_log2;
 };
 
-__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
 // lse in log2 units for the backward: +inf for a row outside the tensor or a
 // row that saw no key, so that P = exp2(s - lse) is 0
 __device__ __forceinline__ float lse_log2(bool in_range, float lse) {
@@ -124,10 +122,6 @@ __device__ __forceinline__ float lse_log2(bool in_range, float lse) {
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool src_ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_ok ? 4 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
 // the mbarriers of the ring: full[s] completes when stage s is loaded (every
@@ -154,33 +148,6 @@ __device__ __forceinline__ void advance(int& stage, int& phase) {
     stage = 0;
     phase ^= 1;
   }
-}
-
-// P (or dS) accumulator of a 64-column tile -> the register A operands of the
-// four k-steps of 16 columns, rounded to T
-template <typename T>
-__device__ __forceinline__ void to_a_operands(uint32_t (&a)[4][4], const float (&x)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[kk][i] = pack2<T>(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
-  }
-}
-
-// x[64 x 64] = A B^T over the D columns of two K-major tiles
-template <typename T, int D>
-__device__ __forceinline__ void product_abt(float (&x)[32], uint32_t tile_a, uint32_t tile_b) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    Wgmma<T, 64>::ss(x, desc_k_major<D, kTileRows>(tile_a, kk), desc_k_major<D, kTileRows>(tile_b, kk), kk > 0);
-  }
-}
-
-// acc[64 x D] += A B, A the four register k-steps of a 64-wide P / dS, B a tile read MN-major
-template <typename T, int D>
-__device__ __forceinline__ void product_ab(float (&acc)[D / 2], const uint32_t (&a)[4][4], uint32_t tile_b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) Wgmma<T, D>::rs(acc, a[kk], desc_mn_major<D, kTileRows>(tile_b, kk));
 }
 
 // stores a warpgroup's 64 x D accumulator times `mult` as rows of T (rows >= `rows` are not written)

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the attention kernels: warpgroup matrix
-// products (`wgmma.mma_async`) with their shared-memory descriptors and the
-// swizzled tile layout they read, `mbarrier`s for a ring of asynchronously
-// filled stages (`cp.async` completing on an mbarrier) and named barriers for
-// warp-specialised blocks.
+// Hopper (sm_90a) building blocks of the attention kernels (attention_bwd.cu,
+// attention_batched.cu): warpgroup matrix products (`wgmma.mma_async`) with
+// their shared-memory descriptors and the swizzled tile layout they read, the
+// two products of a 64-row tile (A B^T from shared memory, A B with A in
+// registers), `mbarrier`s for a ring of asynchronously filled stages
+// (`cp.async` completing on an mbarrier) and named barriers.
 //
 // Tile layout. A tile of R rows by D columns (bf16 / fp16) is stored as D / E
 // column blocks of E = kSw / 2 elements; block cb holds the R rows of kSw
@@ -65,6 +66,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo, uint64_t layout) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
@@ -99,6 +106,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // generic-proxy writes (cp.async, st.shared) before async-proxy reads (wgmma)
@@ -335,5 +348,32 @@ struct Wgmma<__half, 128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
+
+// P (or dS) accumulator of a 64-column tile -> the register A operands of the
+// four k-steps of 16 columns, rounded to T
+template <typename T>
+__device__ __forceinline__ void to_a_operands(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack2<T>(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
+  }
+}
+
+// x[64 x 64] = A B^T over the D columns of two K-major 64-row tiles
+template <typename T, int D>
+__device__ __forceinline__ void product_abt(float (&x)[32], uint32_t tile_a, uint32_t tile_b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    Wgmma<T, 64>::ss(x, desc_k_major<D, 64>(tile_a, kk), desc_k_major<D, 64>(tile_b, kk), kk > 0);
+  }
+}
+
+// acc[64 x D] += A B, A the four register k-steps of a 64-wide P / dS, B a 64-row tile read MN-major
+template <typename T, int D>
+__device__ __forceinline__ void product_ab(float (&acc)[D / 2], const uint32_t (&a)[4][4], uint32_t tile_b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) Wgmma<T, D>::rs(acc, a[kk], desc_mn_major<D, 64>(tile_b, kk));
+}
 
 }  // namespace

@@ -1,14 +1,16 @@
 """The attention kernels of the main paths, their wrappers, plain versions,
 autograd Functions and launch counters.
 
-Forwards (csrc/attention.cu). K1 `flash_batched_attention` replaces
+Forwards. K1 `flash_batched_attention` (csrc/attention_batched.cu) replaces
 g2vlm_tpu/ops/flash_attention.py `_batched_flash_kernel` (called through
 `_batched_fwd`): bidirectional attention inside each batch element, for the
-DINOv2 encoder and the Pi3 decoders. K2 `flash_segment_attention` replaces
-`_flash_kernel` (called through `_fwd_pallas`): packed segment-masked GQA
-attention, for the MoT decoder. K6 and K3 are the same kernels with a per-row
-log-sum-exp output, replacing `_batched_flash_kernel_lse` and
-`_flash_kernel_lse`: the training forwards.
+DINOv2 encoder and the Pi3 decoders; its products run on wgmma from a ring of
+cp.async / mbarrier stages that two or three warpgroups read, on a persistent
+grid (`batched_fwd_grid`). K2 `flash_segment_attention` (csrc/attention.cu)
+replaces `_flash_kernel` (called through `_fwd_pallas`): packed
+segment-masked GQA attention, for the MoT decoder. K6 and K3 are the same
+kernels with a per-row log-sum-exp output, replacing
+`_batched_flash_kernel_lse` and `_flash_kernel_lse`: the training forwards.
 
 K4 `flash_segment_attention(..., pipelined=True)` (csrc/attention_pipe.cu)
 replaces `_flash_kernel_pipe` (the pipe branch of `_fwd_pallas`): K2's and
@@ -40,7 +42,7 @@ at the training pack of 12,800 rows K3 is 1.0, K5's dq kernel 1.5 and its dkv
 kernel 2.0 TFLOP; K1 at a DINOv2-L view batch (32, 782, 16, 64) is 80 GFLOP.
 All keep the logits, P and dS out of device memory (fp32 softmax statistics
 in registers over 64-row tiles fed to bf16 tensor-core products: mma.sync in
-the forwards, wgmma in the backwards), and the segment kernels
+the segment forwards, wgmma in K1 / K6 and the backwards), and the segment kernels
 skip the per-element mask on tiles their codes prove fully visible, and whole
 tiles the codes prove invisible (the .cu headers have the details).
 
@@ -53,6 +55,7 @@ forward, kernel backward); otherwise the plain forward runs.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -70,7 +73,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 # one shared library per source, all built at once by parallel nvcc processes
 _SOURCES = (_CSRC / "attention.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_pipe.cu",
-            _CSRC / "attention_int8.cu")
+            _CSRC / "attention_int8.cu", _CSRC / "attention_batched.cu")
 _HEADERS = (_CSRC / "attention_common.cuh", _CSRC / "hopper_common.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -155,15 +158,19 @@ def build_library() -> Tuple[Tuple[Path, ...], str]:
 
 
 def load_library() -> Tuple[ctypes.CDLL, ...]:
-    """(forward, backward, pipelined forward, int8 forward) libraries, built at
-    first use."""
+    """(segment forward, backward, pipelined forward, int8 forward, batched
+    forward) libraries, built at first use."""
     global _libs
     if _libs is None:
         paths, _ = build_library()
-        fwd, bwd, pipe, int8 = (ctypes.CDLL(str(path)) for path in paths)
+        fwd, bwd, pipe, int8, batched = (ctypes.CDLL(str(path)) for path in paths)
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        fwd.g2_batched_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 9 + [f, p]
-        fwd.g2_batched_attention.restype = i
+        batched.g2_batched_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 9 + [f, p, i]
+        batched.g2_batched_attention.restype = i
+        batched.g2_batched_attention_blocks_per_sm.argtypes = [i, i, i]
+        batched.g2_batched_attention_blocks_per_sm.restype = i
+        batched.g2_batched_attention_rows_per_block.argtypes = [i]
+        batched.g2_batched_attention_rows_per_block.restype = i
         fwd.g2_segment_attention.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i] + [ll] * 6 + [f, p]
         fwd.g2_segment_attention.restype = i
         bwd.g2_attention_bwd_dq.argtypes = [i, i] + [p] * 10 + [i] * 6 + [ll] * 9 + [f, p]
@@ -174,7 +181,7 @@ def load_library() -> Tuple[ctypes.CDLL, ...]:
         pipe.g2_segment_attention_pipe.restype = i
         int8.g2_segment_attention_int8.argtypes = [i] + [p] * 9 + [i] * 6 + [ll] * 6 + [p]
         int8.g2_segment_attention_int8.restype = i
-        _libs = (fwd, bwd, pipe, int8)
+        _libs = (fwd, bwd, pipe, int8, batched)
     return _libs
 
 
@@ -232,6 +239,30 @@ def _dkv_scratch(q: torch.Tensor, n_kv_store: int, h: int, kvh: int, batch: int)
         return 1, None
     part = torch.empty((n_split, 2, batch, n_kv_store, kvh, q.shape[-1]), dtype=torch.float32, device=q.device)
     return n_split, part
+
+
+def batched_fwd_grid(b: int, s: int, h: int, rows_per_block: int, n_sm: int, per_sm: int) -> Tuple[int, int]:
+    """(items, blocks) of a K1 / K6 launch (csrc/attention_batched.cu). An item
+    is one (b, h) and the query rows [i rows_per_block, (i + 1) rows_per_block)
+    of it, 64 for each consumer warpgroup; items are numbered (b, h, query
+    block) in that order. The grid is persistent: as many blocks as fit on the
+    card at once (`per_sm` on each of `n_sm` SMs), no more than there are
+    items, and block i walks items i, i + blocks, ...: neighbouring blocks hold
+    neighbouring query blocks of one (b, h), so they read the same K/V from L2."""
+    items = b * h * -(-s // rows_per_block)
+    return items, min(items, n_sm * per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _batched_launch_shape(dtype: torch.dtype, d: int, with_lse: bool) -> Tuple[int, int]:
+    """(query rows of a block, blocks that fit on one SM at once) of the K1 / K6 kernel, as the
+    library reports them."""
+    lib = load_library()[4]
+    rows = lib.g2_batched_attention_rows_per_block(d)
+    per_sm = lib.g2_batched_attention_blocks_per_sm(_DTYPES[dtype], d, int(with_lse))
+    if rows < 1 or per_sm < 1:
+        raise RuntimeError(f"flash_batched_attention: no block of head dim {d} fits on an SM ({rows}, {per_sm})")
+    return rows, per_sm
 
 
 def _raise_on_error(name: str, err: int) -> None:
@@ -317,12 +348,15 @@ def _batched_forward_cuda(q, k, v, valid_kv, scale, with_lse: bool):
     b, s, h, d = q.shape
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if with_lse else None
-    err = load_library()[0].g2_batched_attention(
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rows, per_sm = _batched_launch_shape(q.dtype, d, with_lse)
+    _, n_blocks = batched_fwd_grid(b, s, h, rows, n_sm, per_sm)
+    err = load_library()[4].g2_batched_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None,
         b, s, m_valid, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        scale, torch.cuda.current_stream(q.device).cuda_stream,
+        scale, torch.cuda.current_stream(q.device).cuda_stream, n_blocks,
     )
     _raise_on_error(name, err)
     launch_counts[name] += 1

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (g2vlm_tpu_torch/csrc/attention.cu forwards
-K1, K2 and their lse forms K3, K6; csrc/attention_bwd.cu backwards K5, K7;
+"""The hand-written CUDA kernels (g2vlm_tpu_torch/csrc/attention_batched.cu the
+batched forward K1 and its lse form K6; csrc/attention.cu the segment forward
+K2 and its lse form K3; csrc/attention_bwd.cu backwards K5, K7;
 csrc/attention_pipe.cu the two-stage forward K4; csrc/attention_int8.cu the
 int8-QK forward K8) against their plain PyTorch versions, on the card in bf16
 (and fp16).
@@ -54,6 +55,7 @@ def _check(got, want):
         (3, 45, 37, 3, 96, 30, False),  # ragged, valid_kv cut
         (2, 17, 130, 2, 128, 129, False),
         (2, 65, 63, 1, 64, None, True),
+        (4, 200, 777, 16, 96, None, True),  # S 200: the last block of a view has warpgroups without rows
     ],
 )
 def test_batched_kernel_matches_plain(gen, b, s, m, h, d, valid_kv, cross):
@@ -66,6 +68,16 @@ def test_batched_kernel_matches_plain(gen, b, s, m, h, d, valid_kv, cross):
     assert fa.launch_counts["flash_batched_attention"] == before + 1
     want = fa.flash_batched_attention_reference(q.float(), k.float(), v.float(), valid_kv=valid_kv)
     _check(got, want)
+    assert torch.equal(got, fa.flash_batched_attention(q, k, v, valid_kv=valid_kv))  # two launches, one result
+
+
+@pytest.mark.parametrize("d,rows", [(64, 128), (96, 192), (128, 128)])
+def test_batched_launch_shape(gen, d, rows):
+    # the rows per block that tests/test_torch_fwd_launch.py walks, as the library reports them
+    for dtype in (torch.bfloat16, torch.float16):
+        for with_lse in (False, True):
+            got_rows, per_sm = fa._batched_launch_shape(dtype, d, with_lse)
+            assert got_rows == rows and per_sm >= 1
 
 
 def _recon_info(n_views):
@@ -172,6 +184,7 @@ def _check_grad(got, want, name):
         (3, 45, 37, 3, 96, 30, False),
         (2, 17, 130, 2, 128, 129, False),
         (2, 65, 63, 1, 64, None, True),
+        (4, 200, 777, 16, 96, None, True),  # S 200: the last block of a view has warpgroups without rows
     ],
 )
 def test_batched_lse_and_backward_kernels_match_plain(gen, b, s, m, h, d, valid_kv, cross):
@@ -188,7 +201,9 @@ def test_batched_lse_and_backward_kernels_match_plain(gen, b, s, m, h, d, valid_
         assert fa.launch_counts[name] == before[name] + 1, name
     with torch.no_grad():
         assert torch.equal(out, fa.flash_batched_attention(q, k, v, valid_kv=valid_kv))  # K6 out == K1 out
-        _, lse = fa._batched_forward_cuda(q, k, v, valid_kv, None, with_lse=True)
+        out2, lse = fa._batched_forward_cuda(q, k, v, valid_kv, None, with_lse=True)
+        out3, lse3 = fa._batched_forward_cuda(q, k, v, valid_kv, None, with_lse=True)
+        assert torch.equal(out2, out) and torch.equal(out3, out) and torch.equal(lse3, lse)  # bitwise repeatable
         qf, kf, vf = q.float(), k.float(), v.float()
         want_out, want_lse = fa.flash_batched_attention_lse_reference(qf, kf, vf, valid_kv)
         assert (lse - want_lse).abs().max().item() < 2e-3
