@@ -11,14 +11,16 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      two launches bitwise equal, each case beside its bound and the library
      call;
   4. K2 (segment attention) against its plain (chunked) version at the
-     32-view recon prefill, a small mixed case and an extreme-logit case;
+     32-view recon prefill, a small mixed case and an extreme-logit case,
+     two launches bitwise equal, each case beside its bound and the library
+     call;
   5. recon parity: a full-width, cut-depth model runs recon_from_frames on the
      card in bf16 (kernels) and on the CPU in fp32 (plain versions);
   6. the recon slice: G2VLMConfig(visual_und=False) with random bf16 weights, 32
      uint8 views of 294x518, launch counts, shapes, finiteness and timing;
   7. K3 / K6 (the lse forwards): out bitwise equal to K2 / K1, lse against the
-     plain version, at the training shapes; K6 also two launches bitwise equal
-     and each case beside its bound and the library call;
+     plain version, at the training shapes, two launches bitwise equal, each
+     case beside its bound and the library call;
   8. K5 / K7 (the dq and dkv backward kernels) against the plain backward at
      the training shapes, a ragged pack and one with whole rows and columns of
      SKIP tiles, with exact zeros for rows and keys that see nothing and two
@@ -34,7 +36,9 @@ Phases (each prints its result; any failure raises and the exit code is 1):
  11. K2 at head dim 80, K4 (the two-stage forward) and K8 (the int8-QK forward)
      against their plain versions at the chat prefill (48,384 rows), one ViT
      chunk (11,664 rows, 16 heads of 80), a small ragged mixed case and, for
-     K8, outlier and extreme-logit inputs; K4 is also held against K2;
+     K8, outlier and extreme-logit inputs; K4 is also held against K2; two
+     launches of K2 and K4 bitwise equal; each case beside its bound and the
+     library call (K2 at head dim 80 also beside the parent's time);
  12. chat parity: a full-width, cut-depth model answers on the card in bf16
      (kernels; default, pipelined and int8 attention) and on the CPU in fp32:
      prefill hidden states and the first decode step's logits;
@@ -72,6 +76,9 @@ FWD_MAX_ABS, FWD_MEAN_ABS = 2e-2, 1e-3  # forwards: outputs are O(1)
 # the mean cannot reach the 1e-3 of the forwards; seen on the H100: max 5.0e-3, mean 2.2e-3 to 2.8e-3
 BWD_MAX_REL, BWD_MEAN_REL = 2e-2, 5e-3
 LSE_MAX_ABS = 2e-3
+# K2 at one ViT chunk (11,664 rows, 16:16 heads of 80) in the mma.sync kernel that attention_segment.cu
+# replaced (PERF.md section 6); printed beside this run's time
+PARENT_K2_D80_MS = 1.604
 TRAIN_VIEWS, TRAIN_HW, TRAIN_TOKENS = 16, (294, 518), 12800
 
 
@@ -167,6 +174,11 @@ def _keys_that_count(t, valid):
     return t if valid is None else t[:, :valid]
 
 
+def _ratio(ms, library_ms):
+    """The kernel's time over the library call's, as text for a result line."""
+    return f"; kernel / library {ms / library_ms:.2f}x" if library_ms else ""
+
+
 def _rel_errors(got, want):
     err = (got.float() - want.float()).abs()
     ref = want.float().abs()
@@ -219,7 +231,7 @@ def main() -> None:
 
     kernels = {}  # name -> the entry of the final JSON line
 
-    def entry_for(kname, replaces, source="g2vlm_tpu_torch/csrc/attention.cu"):
+    def entry_for(kname, replaces, source="g2vlm_tpu_torch/csrc/attention_segment.cu"):
         return kernels.setdefault(kname, {
             "name": kname, "route": "cuda", "source": source, "replaces": replaces, "launches": 0, "max_abs_err": 0.0,
         })
@@ -351,22 +363,25 @@ def _recon_and_train_phases(env):
             lambda: fa.flash_segment_attention_reference(qf, kf, vf, info, info),
             iters=iters,
         )
-        print(f"[K2] {tag} q{(n, h, d)} kv{(n, kvh, d)}: max_abs_err {mx:.3e} mean_abs_err {mean:.3e} "
-              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms ({card})")
         if mx > FWD_MAX_ABS or mean > FWD_MEAN_ABS:
             _fail(f"K2 {tag} disagrees with its plain version (max {mx}, mean {mean})")
+        if not torch.equal(fa.flash_segment_attention(q, k, v, info, info, plan=plan),
+                           fa.flash_segment_attention(q, k, v, info, info, plan=plan)):
+            _fail(f"K2 {tag}: two launches gave different outputs")
         k2e["max_abs_err"] = max(k2e["max_abs_err"], mx)
+        lib, why = _library_ms(gqa_mask_call(q, k, v, info), iters)
+        bound_ms, by = _attention_bound(visible_pairs(info), h, d, 2, n, n, kvh, 2, 2)
+        print(f"[K2] {tag} q{(n, h, d)} kv{(n, kvh, d)}: max_abs_err {mx:.3e} mean_abs_err {mean:.3e}, two launches "
+              f"bitwise equal; kernel {ms:.3f} ms, bound {bound_ms:.4f} ms by {by} ({bound_ms / ms * 100:.1f}%), "
+              f"plain {plain_ms:.3f} ms, library scaled_dot_product_attention (enable_gqa, materialised mask) "
+              f"{lib} ms {why or ''}{_ratio(ms, lib)} ({card})")
         if tag == "recon_prefill_32_views":
             out = fa.flash_segment_attention(q, k, v, info, info)
             if (out[info.doc_id < 0] != 0).any():
                 _fail("K2: padding rows that see no key are not 0")
             del out
-            lib, why = _library_ms(gqa_mask_call(q, k, v, info), 3)
-            bound_ms, by = _attention_bound(visible_pairs(info), h, d, 2, n, n, kvh, 2, 2)
             k2e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib,
                        shape=f"({n},{h}:{kvh},{d})")
-            print(f"[K2] {tag}: bound {bound_ms:.3f} ms by {by}; library scaled_dot_product_attention "
-                  f"(enable_gqa, materialised mask) {lib} ms {why or ''}")
     del q, k, v, qf, kf, vf
     torch.cuda.empty_cache()
 
@@ -533,11 +548,20 @@ def _recon_and_train_phases(env):
         lse_err = (lse - plain_lse).abs().max().item()
         if lse_err > LSE_MAX_ABS or (pad.any() and not (lse[:, pad] == fa.LSE_EMPTY).all()):
             _fail(f"K3 {tag}: lse off by {lse_err} (limit {LSE_MAX_ABS}) or padding rows not LSE_EMPTY")
+        out2, lse2 = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True)
+        if not (torch.equal(out2, out) and torch.equal(lse2, lse)):
+            _fail(f"K3 {tag}: two launches gave different out or lse")
+        del out2, lse2
         ms3, plain3 = _timed_in_turns(
             lambda: fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True),
             lambda: fa.flash_segment_attention_lse_reference(q.float(), k.float(), v.float(), info, info), iters)
-        print(f"[K3] {tag} q{(n, h, d)} kv{(n, kvh, d)}: out == K2 bitwise, lse max_abs_err {lse_err:.3e}, "
-              f"kernel {ms3:.3f} ms plain {plain3:.3f} ms ({card})")
+        pairs = visible_pairs(info)
+        b3, by3 = _attention_bound(pairs, h, d, 2, n, n, kvh, 2, 2, stat_rows=n * h)
+        lib_fwd, why = _library_ms(gqa_mask_call(q, k, v, info), iters)
+        print(f"[K3] {tag} q{(n, h, d)} kv{(n, kvh, d)}: out == K2 bitwise, two launches bitwise equal, lse "
+              f"max_abs_err {lse_err:.3e}, kernel {ms3:.3f} ms, bound {b3:.4f} ms by {by3} ({b3 / ms3 * 100:.1f}%), "
+              f"plain {plain3:.3f} ms, library forward (enable_gqa, materialised mask) {lib_fwd} ms "
+              f"{why or ''}{_ratio(ms3, lib_fwd)} ({card})")
         k3e["max_abs_err"] = max(k3e["max_abs_err"], lse_err)
         # K5: dq, dk, dv against the plain backward on the kernel's own out and lse
         got = fa._segment_backward_cuda(q, k, v, out, lse, dout, meta, meta, codes, None)
@@ -559,12 +583,9 @@ def _recon_and_train_phases(env):
             ms_dq, plain5 = _timed_in_turns(lambda: run(("dq",)), plain_bwd, 3)
             ms_dkv = _time_ms(lambda: run(("dkv",)), iters)
             ms_both = _time_ms(lambda: run(("dq", "dkv")), iters)
-            pairs = visible_pairs(info)
             fb, fby = _attention_bound(pairs, h, d, 5, n, n, kvh, 4, 4, stat_rows=n * h)
-            b3, by3 = _attention_bound(pairs, h, d, 2, n, n, kvh, 2, 2, stat_rows=n * h)
             bq, byq = _attention_bound(pairs, h, d, 3, n, n, kvh, 3, 2, stat_rows=2 * n * h)
             bkv, bykv = _attention_bound(pairs, h, d, 4, n, n, kvh, 2, 4, stat_rows=2 * n * h)
-            lib_fwd, why = _library_ms(gqa_mask_call(q, k, v, info), 3)
             lib_bwd, why_bwd = None, None
             try:
                 mask = make_segment_mask(info, info)
@@ -855,7 +876,7 @@ def _chat_phases(env, recon_ms):
     K1, K2 = "flash_batched_attention", "flash_segment_attention"
     K4, K8 = "flash_segment_attention_pipe", "flash_segment_attention_int8"
     k2e = entry_for(K2, "g2vlm_tpu/ops/flash_attention.py:168")
-    k4e = entry_for(K4, "g2vlm_tpu/ops/flash_attention.py:270", "g2vlm_tpu_torch/csrc/attention_pipe.cu")
+    k4e = entry_for(K4, "g2vlm_tpu/ops/flash_attention.py:270")
     k8e = entry_for(K8, "g2vlm_tpu/ops/flash_attention.py:494", "g2vlm_tpu_torch/csrc/attention_int8.cu")
     gc.collect()
     torch.cuda.empty_cache()
@@ -928,6 +949,8 @@ def _chat_phases(env, recon_ms):
         d42 = (got4.float() - got2.float()).abs().max().item()
         if d42 > 1e-3:
             _fail(f"K4 {tag}: differs from K2 by {d42} (limit 1e-3)")
+        if not (torch.equal(got2, runs["K2"]()) and torch.equal(got4, runs["K4"]())):
+            _fail(f"K2 / K4 {tag}: two launches gave different outputs")
         want8 = plain8()
         mx8, mean8 = check_forward(f"K8 {tag}", got8, want8, pad)
         if not torch.equal(got8, runs["K8"]()):
@@ -944,10 +967,15 @@ def _chat_phases(env, recon_ms):
         shape = f"({n},{h}:{kvh},{d})"
         print(f"[K2/K4/K8] {tag} q{(n, h, d)} kv{(n, kvh, d)}, {pairs / 1e6:.1f} M visible pairs "
               f"(the bounds count these), {tile_pairs / 1e6:.1f} M pairs in the tiles the codes do not skip ({card}):")
-        print(f"    K2 max_abs_err {mx2:.3e} mean {mean2:.3e}, {ms['K2']:.3f} ms | K4 max_abs_err {mx4:.3e} mean "
-              f"{mean4:.3e}, max|K4-K2| {d42:.3e} ({'bitwise equal' if d42 == 0 else 'to rounding'}), "
-              f"{ms['K4']:.3f} ms | bound {bound_ms:.3f} ms by {by} | plain {plain_ms['plain']:.3f} ms | library "
-              f"scaled_dot_product_attention (enable_gqa, materialised mask) {lib} ms {why or ''}")
+        print(f"    K2 max_abs_err {mx2:.3e} mean {mean2:.3e}, {ms['K2']:.3f} ms ({bound_ms / ms['K2'] * 100:.1f}% of "
+              f"the bound{_ratio(ms['K2'], lib)}) | K4 max_abs_err {mx4:.3e} mean {mean4:.3e}, max|K4-K2| {d42:.3e} "
+              f"({'bitwise equal' if d42 == 0 else 'to rounding'}), {ms['K4']:.3f} ms ({bound_ms / ms['K4'] * 100:.1f}% "
+              f"of the bound{_ratio(ms['K4'], lib)}) | K2 and K4 two launches bitwise equal | bound {bound_ms:.3f} ms "
+              f"by {by} | plain {plain_ms['plain']:.3f} ms | library scaled_dot_product_attention (enable_gqa, "
+              f"materialised mask) {lib} ms {why or ''}")
+        if d == 80:
+            print(f"    K2 at head dim 80: {ms['K2']:.3f} ms; the parent's mma.sync kernel took {PARENT_K2_D80_MS} ms "
+                  f"on an H100 80GB HBM3 at 700 W (PERF.md), {ms['K2'] / PARENT_K2_D80_MS * 100:.1f}% of it ({card})")
         print(f"    K8 against its plain version max_abs_err {mx8:.3e} mean {mean8:.3e}; against the unquantised "
               f"plain version max|err|/max|ref| {quant_rel:.3e}; kernel {ms['K8']:.3f} ms, with the quantiser "
               f"{ms['K8+quantiser']:.3f} ms | bound {bound8:.3f} ms by {by8} | plain {plain_ms['plain8']:.3f} ms | "

@@ -5,8 +5,8 @@ its counterpart's name and is held against it by the tests/test_torch_*.py
 parity tests. This package imports torch, never jax, and nothing of
 `g2vlm_tpu`: it keeps its own copies of the config and image modules.
 Attention, forward and backward, runs through hand-written CUDA kernels
-(`ops/flash_attention.py`, `csrc/attention.cu`, `csrc/attention_bwd.cu`) on
-CUDA tensors and through their plain PyTorch versions on CPU tensors.
+(`ops/flash_attention.py`, `csrc/*.cu`) on CUDA tensors and through their
+plain PyTorch versions on CPU tensors.
 """
 
 __version__ = "0.1.0"

@@ -113,38 +113,6 @@ struct FwdArgs {
   float scale_log2;
 };
 
-template <int kStages>
-__device__ __forceinline__ void next_stage(int& stage, int& phase) {
-  if (++stage == kStages) {
-    stage = 0;
-    phase ^= 1;
-  }
-}
-
-// this warp is done with a stage or a Q slot
-__device__ __forceinline__ void release(uint64_t* bar) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
-}
-
-// max (kMax) or sum over the 16 elements of one of the thread's two rows in x (element i is in row
-// (i >> 1) & 1), as a tree: four dependent steps instead of fifteen
-template <bool kMax>
-__device__ __forceinline__ float row_reduce(const float (&x)[32], int row) {
-  float t[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    t[k] = kMax ? fmaxf(x[4 * k + 2 * row], x[4 * k + 2 * row + 1]) : x[4 * k + 2 * row] + x[4 * k + 2 * row + 1];
-  }
-#pragma unroll
-  for (int level = 0; level < 3; ++level) {
-    const int w = 4 >> level;
-#pragma unroll
-    for (int k = 0; k < w; ++k) t[k] = kMax ? fmaxf(t[k], t[k + w]) : t[k] + t[k + w];
-  }
-  return t[0];
-}
-
 // One tile's online softmax in exp2 units. s holds this thread's 32 logits of the
 // warpgroup's 64 x 64 S tile (element i: row (i >> 1) & 1 of the thread's two,
 // column 8 (i >> 2) + 2 (tid % 4) + (i & 1)); columns >= n_cols are keys past M
@@ -197,12 +165,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], int n_cols, float c
   } else {
     softmax_tile<false, false>(s, n_cols, c, m_run, l_run, alpha);
   }
-}
-
-template <int D>
-__device__ __forceinline__ void rescale(float (&acc)[D / 2], const float (&alpha)[2]) {
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 }
 
 template <typename T, int D, bool kLse>

@@ -86,12 +86,6 @@ constexpr int kStages = 4;  // shared-memory stages of the ring
 constexpr int kAhead = kStages - 2;
 constexpr int kReleaseWarps = kBwdThreads / 32;  // one release arrival per warp
 
-// this warp is done with a stage
-__device__ __forceinline__ void release(uint64_t* empty) {
-  __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(empty);
-}
-
 struct BwdArgs {
   const void* q;     // (B, n_q, H, D) through strides
   const void* k;     // (B, >= n_kv, KVH, D) through strides

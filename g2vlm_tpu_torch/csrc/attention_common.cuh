@@ -1,6 +1,7 @@
-// Shared device helpers of the attention kernels (attention.cu: forwards;
-// attention_bwd.cu: backwards): tile sizes, the bf16/fp16 mma.sync wrappers,
-// cp.async, ldmatrix, the zero-filling tile loader and the segment mask rule.
+// Shared device helpers of the attention kernels: tile sizes, the tile codes,
+// the bf16/fp16 mma.sync wrappers, cp.async, ldmatrix and the zero-filling
+// tile loader (attention_int8.cu), the lse constants and the segment mask rule
+// (all of them).
 #pragma once
 
 #include <cuda_bf16.h>

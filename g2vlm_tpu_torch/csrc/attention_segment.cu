@@ -1,0 +1,546 @@
+// The segment-masked GQA attention forward for Hopper (sm_90a), bf16/fp16 in
+// and out, fp32 accumulate.
+//
+// K2  g2_segment_attention (lse null) replaces g2vlm_tpu/ops/flash_attention.py
+//     `_flash_kernel` (:168, called through `_fwd_pallas` :715, pallas_call
+//     :817): packed GQA attention, q (Sq, H, D) against k, v (Skv, KVH, D),
+//     masked per token pair by int32 (doc, fn, noise, pos) metadata with the
+//     rule of ops/masks.py `make_segment_mask`, and per 64 x 64 tile by the
+//     SKIP / PARTIAL / FULL codes of `block_codes`.
+// K3  the same entry point with an lse pointer replaces `_flash_kernel_lse`
+//     (:239): the same out (one template, one flag), plus lse = m + ln(l) in
+//     natural units, fp32 (H, Sq); kLseEmpty for a row that sees no key. The
+//     training forward saves it for K5 (attention_bwd.cu).
+// K4  g2_segment_attention_pipe replaces `_flash_kernel_pipe` (:270, the pipe
+//     branch of `_fwd_pallas`, pallas_call :777): K2's and K3's function in the
+//     two-stage schedule, S of tile t + 1 on the tensor cores while tile t's
+//     softmax and P V run. It is the same template with kPipe set.
+//
+// What bounds it on the H100: tensor-core operations. K2 at the 32-view recon
+// prefill (25,088 rows, 12:2 heads of 128) is 3.8 TFLOP over the visible pairs
+// (3.9 ms at 989 TFLOP/s) on 0.15 GB of q/k/v/o; at the chat prefill (48,384
+// rows) 9.1 TFLOP. Beside the products:
+// - the mask rule: ~10 integer operations a pair on every PARTIAL tile, and at
+//   the sorted chat prefill every walked tile is PARTIAL (2,341 M pairs);
+// - the exponentials, one a pair on the special-function units;
+// - the K/V copies from L2: every block reads all live K/V tiles of its KV head.
+//
+// The design (hopper_common.cuh has the building blocks):
+// - GQA heads share K/V stages, as the TPU kernel packs a group into one step.
+//   A block is kWgs = 3 consumer warpgroups of 64 query rows each. Where the
+//   group G is a multiple of 3, the warpgroups hold 3 query heads of one KV
+//   head on the same 64 token rows: they share every K/V stage, its tile code
+//   and its mask. Otherwise (the ViT's 16:16, G = 1) they hold 3 consecutive
+//   query tiles of one head, as K1's blocks do, and each reads its own code.
+//   The host reckons the grid (`segment_fwd_grid` in ops/flash_attention.py,
+//   from the kWgs that g2_segment_attention_warpgroups reports) and
+//   `block_plan` decodes a block's share of it. One block per item: a block
+//   walks up to 756 tiles at the main path's shapes, so a persistent grid
+//   would save little (PERF.md).
+// - Products on wgmma: S = Q K^T with both operands K-major in swizzled shared
+//   memory; O += P V with P packed to T in registers as the A operand and V
+//   read MN-major from the same stage. Head dim 80 (160-byte rows fit neither
+//   swizzle) is zero-padded to 96 in shared memory: the pad columns of Q and K
+//   are zeroed once and never written again, so they add nothing to S, and
+//   the pad columns of O are not stored.
+// - A ring of kStages K/V stages, filled by 16-byte cp.async completing on an
+//   mbarrier, kAhead tiles ahead of the products, by every thread of the block
+//   (a producer warp would cap the block's registers, as attention_bwd.cu
+//   found). A stage is released on a second mbarrier once every warp is done
+//   with it. SKIP tiles (SKIP for every warpgroup) never enter the ring: the
+//   fill steps over them.
+//   cp.async and not TMA: q/k/v arrive as strided views of the qkv projection,
+//   and the ragged tail (a pack of 333 rows) is zero-filled per thread.
+// - The mask of a PARTIAL tile is built once per block and stage, not once
+//   per head: the fill evaluates the rule for the rows of each PARTIAL query
+//   tile of the block against the tile's 64 keys, one pair a lane, and packs
+//   it with two warp ballots a row into 64 bits next to the stage, on the
+//   stage's mbarrier. A consumer reads four words a tile and selects with one
+//   AND per element. The key metadata comes from device memory (L2) at fill
+//   time, so the stage holds the bits and not the metadata.
+// - Softmax in registers in exp2 units: scale log2(e) folded into one FFMA per
+//   element (for a positive scale), the hardware ex2 (fast_exp2), K2's exact
+//   running maximum, one warp-uniform branch per tile (FULL or PARTIAL) and
+//   branch-free selects inside. A row with nothing visible yet shifts by 0; a
+//   row that sees no key is written as 0 (lse kLseEmpty).
+// - Two schedules of one template. Serial: S, softmax, P V on each tile; the
+//   fill of a later stage runs under S. Pipelined (kPipe): tile t + 1's S and
+//   tile t's P V are issued together, and tile t + 1's exponentials run while
+//   they are in flight. K2 and K3 run the serial form, K4 the pipelined one:
+//   with three warpgroups a block (one an SM: 186 KB of shared memory at D 128)
+//   the serial form holds 156-168 registers (12 bytes spilled at D 128), the
+//   pipelined one spills more at 168, and the serial one measured faster, as
+//   did 4 stages against 3 and 3 warpgroups against 2 (PERF.md).
+//   A warpgroup whose own code is SKIP on a stage that another warpgroup needs
+//   first finishes its pending P V, so that it never holds a stage while the
+//   ring laps it.
+// - No atomics: every output row has one owner, two launches are bitwise equal.
+
+#include "attention_common.cuh"
+#include "hopper_common.cuh"
+
+namespace {
+
+constexpr int kRows = 64;  // rows of every tile: a warpgroup's query rows, a stage's keys
+
+// The block and the ring, the same at every head dim and in both schedules.
+constexpr int kWgs = 3;  // consumer warpgroups
+constexpr int kSegThreads = kWgs * 128;
+constexpr int kSegWarps = kSegThreads / 32;
+constexpr int kStages = 4;
+constexpr int kAhead = kStages - 2;  // copies run kAhead tiles ahead: a warpgroup holds at most two stages
+
+template <int D>
+struct SegSmem {
+  static constexpr int kDs = D == 80 ? 96 : D;  // columns in shared memory
+  static constexpr int kTile = kRows * kDs * 2;
+  static constexpr int kQ = 0;                                    // [kWgs] Q tiles
+  static constexpr int kK = kQ + kWgs * kTile;                    // [kStages] K tiles
+  static constexpr int kV = kK + kStages * kTile;                 // [kStages] V tiles
+  static constexpr int kMaskStage = kWgs * kRows * 8;             // [query tile][row][2] uint32 of a stage
+  static constexpr int kMask = kV + kStages * kTile;              // [kStages] masks
+  static constexpr int kQMeta = kMask + kStages * kMaskStage;     // [kWgs * 64] int4 query metadata
+  static constexpr int kInfo = kQMeta + kWgs * kRows * 16;        // [kStages] int4 (kv tile, code per query tile)
+  static constexpr int kBar = kInfo + kStages * 16;               // full[kStages], empty[kStages]
+  static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;    // + alignment slack
+  static_assert(kBytes <= 232448, "the block's shared memory exceeds the H100's 227 KB");
+};
+
+struct SegmentArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;  // contiguous (Sq, H, D)
+  const int4* q_meta;
+  const int4* kv_meta;
+  const int8_t* codes;  // (ceil(Sq / 64), ceil(Skv / 64))
+  int sq, skv, h, kvh;
+  long long q_ss, q_sh;
+  long long k_ss, k_sh;
+  long long v_ss, v_sh;
+  float scale_log2;
+  float* lse;  // contiguous (H, Sq), or null
+};
+
+// A block's share of the launch, as `segment_fwd_grid` reckons the grid: hb
+// query heads times qb query tiles, hb * qb = kWgs. Warpgroup w holds head
+// head0 + w % hb and query tile qt0 + w / hb.
+struct BlockPlan {
+  int hb, qb, kv_h, head0, qt0;
+};
+
+__device__ __forceinline__ BlockPlan block_plan(const SegmentArgs& a) {
+  const int group = a.h / a.kvh;
+  BlockPlan p;
+  p.hb = group % kWgs == 0 ? kWgs : 1;
+  p.qb = kWgs / p.hb;
+  const int n_hg = group / p.hb;
+  const int n_qtb = cdiv(cdiv(a.sq, kRows), p.qb);
+  int x = blockIdx.x;
+  const int qtb = x % n_qtb;
+  x /= n_qtb;
+  const int hg = x % n_hg;
+  p.kv_h = x / n_hg;
+  p.head0 = p.kv_h * group + hg * p.hb;
+  p.qt0 = qtb * p.qb;
+  return p;
+}
+
+// Copies `rows` valid rows (of 64) of a D-wide row-major global tile into a
+// kDs-column swizzled tile; rows past `rows` are zero-filled, columns past D
+// are not written.
+template <typename T, int D, int kDs>
+__device__ __forceinline__ void load_rows(uint32_t tile, const T* src, long long row_stride, int rows, int tid,
+                                          int nthreads) {
+  constexpr int kChunks = D / 8;
+  for (int i = tid; i < kRows * kChunks; i += nthreads) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const bool ok = r < rows;
+    cp_async16_u32(tile + swizzled_offset<kDs, kRows>(r, c), ok ? src + r * row_stride + c * 8 : src, ok);
+  }
+}
+
+// One tile's online softmax in exp2 units, as attention_batched.cu's, with the
+// mask of a PARTIAL tile as bits: wq[row][half] holds this thread's row's 32
+// visibility bits of keys 32 half .. 32 half + 31, shifted right by 2 (tid % 4),
+// so that element i (row (i >> 1) & 1, key 8 (i >> 2) + 2 (tid % 4) + (i & 1))
+// is bit 8 ((i >> 2) & 3) + (i & 1) of word i >> 4.
+template <bool kMask, bool kPos>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], const uint32_t (&wq)[2][2], float c, float (&m_run)[2],
+                                             float (&l_run)[2], float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (!kPos) s[i] *= c;
+    if (kMask) s[i] = wq[(i >> 1) & 1][i >> 4] & (1u << (8 * ((i >> 2) & 3) + (i & 1))) ? s[i] : -INFINITY;
+  }
+  float m_use[2];
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    float mx = row_reduce<true>(s, row);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_run[row], kPos ? mx * c : mx);  // c > 0: the maximum commutes with it
+    // a row with nothing visible yet shifts by 0, so 2^-inf stays 0, never NaN
+    m_use[row] = m_new == -INFINITY ? 0.f : m_new;
+    alpha[row] = fast_exp2(m_run[row] - m_use[row]);
+    m_run[row] = m_new;
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float m = m_use[(i >> 1) & 1];
+    s[i] = fast_exp2(kPos ? fmaf(s[i], c, -m) : s[i] - m);
+  }
+#pragma unroll
+  for (int row = 0; row < 2; ++row) l_run[row] = l_run[row] * alpha[row] + row_reduce<false>(s, row);
+}
+
+// softmax_tile on a tile of the given code: one warp-uniform branch on the code
+// and on the sign of c, which is one for the whole launch
+__device__ __forceinline__ void softmax_step(float (&s)[32], int code, const uint32_t* mask_rows, float c,
+                                             float (&m_run)[2], float (&l_run)[2], float (&alpha)[2]) {
+  if (code == kPartial) {
+    const int tid = threadIdx.x % 128;
+    const int r0 = (tid >> 5) * 16 + ((tid & 31) >> 2);
+    const int sh = 2 * (tid & 3);
+    uint32_t wq[2][2];
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const uint2 w = *reinterpret_cast<const uint2*>(mask_rows + 2 * (r0 + 8 * row));
+      wq[row][0] = w.x >> sh;
+      wq[row][1] = w.y >> sh;
+    }
+    if (c > 0.f) {
+      softmax_tile<true, true>(s, wq, c, m_run, l_run, alpha);
+    } else {
+      softmax_tile<true, false>(s, wq, c, m_run, l_run, alpha);
+    }
+  } else {
+    const uint32_t none[2][2] = {};
+    if (c > 0.f) {
+      softmax_tile<false, true>(s, none, c, m_run, l_run, alpha);
+    } else {
+      softmax_tile<false, false>(s, none, c, m_run, l_run, alpha);
+    }
+  }
+}
+
+template <typename T, int D, bool kLse, bool kPipe>
+__global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const SegmentArgs a) {
+  using L = SegSmem<D>;
+  constexpr int kDs = L::kDs;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const uint32_t sb = smem_u32(smem);
+  uint32_t* s_mask = reinterpret_cast<uint32_t*>(smem + L::kMask);
+  int4* s_qmeta = reinterpret_cast<int4*>(smem + L::kQMeta);
+  int4* s_info = reinterpret_cast<int4*>(smem + L::kInfo);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + kStages;
+
+  const BlockPlan bp = block_plan(a);
+  const int wg = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  const int n_q_tiles = cdiv(a.sq, kRows);
+  const int n_kv_tiles = cdiv(a.skv, kRows);
+  const int qtl = wg / bp.hb;  // this warpgroup's query tile among the block's
+  const int h = bp.head0 + wg % bp.hb;
+  const int q0 = (bp.qt0 + qtl) * kRows;
+  const int n_rows = max(0, min(kRows, a.sq - q0));
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], kSegThreads + kSegWarps);  // a cp.async arrival per thread, a plain one per warp
+      mbar_init(&empty[st], kSegWarps);                // one release per warp
+    }
+    mbar_init_fence();
+  }
+  // the query metadata of the block's rows; rows past Sq never match anything (doc -2, as the TPU wrapper pads)
+  for (int r = threadIdx.x; r < bp.qb * kRows; r += kSegThreads) {
+    const int row = bp.qt0 * kRows + r;
+    s_qmeta[r] = row < a.sq ? a.q_meta[row] : make_int4(-2, -1, -1, 0);
+  }
+  if constexpr (kDs != D) {  // zero the pad columns of every tile once: the copies never write them
+    constexpr int kPadChunks = (kDs - D) / 8;
+    constexpr int kTiles = kWgs + 2 * kStages;
+    for (int i = threadIdx.x; i < kTiles * kRows * kPadChunks; i += kSegThreads) {
+      const int t = i / (kRows * kPadChunks);
+      const int r = (i / kPadChunks) % kRows;
+      const int c = D / 8 + i % kPadChunks;
+      const int base = t < kWgs ? L::kQ + t * L::kTile : L::kK + (t - kWgs) * L::kTile;  // K and V are contiguous
+      *reinterpret_cast<int4*>(smem + base + swizzled_offset<kDs, kRows>(r, c)) = make_int4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // this warpgroup's Q tile
+  const uint32_t s_q = sb + L::kQ + wg * L::kTile;
+  load_rows<T, D, kDs>(s_q, static_cast<const T*>(a.q) + h * a.q_sh + static_cast<long long>(n_rows > 0 ? q0 : 0) * a.q_ss,
+                       a.q_ss, n_rows, tid, 128);
+  cp_async_commit();
+
+  // The ring: every thread issues its share of each live K / V tile kAhead tiles ahead of the
+  // products, and of the mask of a PARTIAL one; tiles that are SKIP for every query tile of the
+  // block never enter it.
+  const T* kp = static_cast<const T*>(a.k) + bp.kv_h * a.k_sh;
+  const T* vp = static_cast<const T*>(a.v) + bp.kv_h * a.v_sh;
+  auto tile_code = [&](int j, int t) {  // code of the block's query tile j against kv tile t
+    const int qt = bp.qt0 + j;
+    return j < bp.qb && qt < n_q_tiles ? static_cast<int>(a.codes[static_cast<long long>(qt) * n_kv_tiles + t])
+                                       : kSkip;
+  };
+  int ld_t = 0, ld_stage = 0, ld_phase = 0, n_issued = 0;
+  auto issue_next = [&]() {
+    while (ld_t < n_kv_tiles) {
+      const int t = ld_t++;
+      const int c0 = tile_code(0, t), c1 = tile_code(1, t), c2 = tile_code(2, t);
+      if (c0 == kSkip && c1 == kSkip && c2 == kSkip) continue;
+      mbar_wait(&empty[ld_stage], ld_phase ^ 1);
+      const int n0 = t * kRows;
+      const int rows = min(kRows, a.skv - n0);
+      load_rows<T, D, kDs>(sb + L::kK + ld_stage * L::kTile, kp + n0 * a.k_ss, a.k_ss, rows, threadIdx.x,
+                           kSegThreads);
+      load_rows<T, D, kDs>(sb + L::kV + ld_stage * L::kTile, vp + n0 * a.v_ss, a.v_ss, rows, threadIdx.x,
+                           kSegThreads);
+      mbar_arrive_cp_async(&full[ld_stage]);
+      if (c0 == kPartial || c1 == kPartial || c2 == kPartial) {
+        // the mask of each PARTIAL query tile j: bit c of word (j, r, h) is pair (query row j * 64 + r,
+        // key n0 + 32 h + c) visible; a lane evaluates one key of a word, the warp's ballot packs it
+        int4 km0 = make_int4(-1, -1, -1, -1), km1 = km0;
+        if (lane < rows) km0 = a.kv_meta[n0 + lane];
+        if (lane + 32 < rows) km1 = a.kv_meta[n0 + 32 + lane];
+        uint2* mask = reinterpret_cast<uint2*>(s_mask + ld_stage * (L::kMaskStage / 4));
+        for (int j = 0; j < bp.qb; ++j) {
+          if ((j == 0 ? c0 : j == 1 ? c1 : c2) != kPartial) continue;
+#pragma unroll 2
+          for (int r = j * kRows + warp; r < (j + 1) * kRows; r += kSegWarps) {
+            const int4 qm = s_qmeta[r];
+            const uint32_t lo = __ballot_sync(0xffffffffu, seg_visible(qm, km0));
+            const uint32_t hi = __ballot_sync(0xffffffffu, seg_visible(qm, km1));
+            if (lane == 0) mask[r] = make_uint2(lo, hi);
+          }
+        }
+      }
+      if (threadIdx.x == 0) s_info[ld_stage] = make_int4(t, c0, c1, c2);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[ld_stage]);  // after the warp's writes of the mask and the info
+      next_stage<kStages>(ld_stage, ld_phase);
+      ++n_issued;
+      return;
+    }
+  };
+  for (int i = 0; i < kAhead; ++i) issue_next();
+
+  cp_async_wait<0>();  // this thread's Q chunks (the ring's copies are in no group)
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);  // the warpgroup's Q tile is in place
+
+  const float scale_log2 = a.scale_log2;
+  const int g = (tid & 31) >> 2;
+  const int qd = tid & 3;
+  float acc[kDs / 2];
+#pragma unroll
+  for (int i = 0; i < kDs / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's partial sums, added over the quad at the end
+  float alpha[2];
+  float s[32];
+  uint32_t p[4][4];
+  auto my_code = [&](int st) {
+    const int4 info = s_info[st];
+    return n_rows == 0 ? kSkip : qtl == 0 ? info.y : qtl == 1 ? info.z : info.w;
+  };
+  auto mask_rows = [&](int st) { return s_mask + st * (L::kMaskStage / 4) + qtl * kRows * 2; };
+
+  int stage = 0, phase = 0;
+  if (!kPipe) {
+    for (int n_done = 0; n_done < n_issued; ++n_done) {
+      mbar_wait(&full[stage], phase);
+      const int code = my_code(stage);
+      if (code == kSkip) {
+        issue_next();
+      } else {
+        fence_proxy_async();
+        wgmma_fence();
+        product_abt<T, kDs>(s, s_q, sb + L::kK + stage * L::kTile);
+        wgmma_commit();
+        issue_next();  // the fill of a later stage runs under the product
+        wgmma_wait<0>();
+        fence_regs(s);
+        softmax_step(s, code, mask_rows(stage), scale_log2, m_run, l_run, alpha);
+        rescale<kDs>(acc, alpha);
+        to_a_operands<T>(p, s);
+        wgmma_fence();
+        product_ab<T, kDs>(acc, p, sb + L::kV + stage * L::kTile);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
+      release(&empty[stage]);
+      next_stage<kStages>(stage, phase);
+    }
+  } else {
+    int st_p = -1;  // the stage whose P V is pending, with its P in p
+    auto flush = [&]() {
+      wgmma_fence();
+      product_ab<T, kDs>(acc, p, sb + L::kV + st_p * L::kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(&empty[st_p]);
+      st_p = -1;
+    };
+    for (int n_done = 0; n_done < n_issued; ++n_done) {
+      mbar_wait(&full[stage], phase);
+      const int st = stage;
+      next_stage<kStages>(stage, phase);
+      const int code = my_code(st);
+      if (code == kSkip) {  // another warpgroup's tile: finish the pending P V, pass the stage on
+        issue_next();
+        if (st_p >= 0) flush();
+        release(&empty[st]);
+        continue;
+      }
+      fence_proxy_async();
+      if (st_p < 0) {
+        wgmma_fence();
+        product_abt<T, kDs>(s, s_q, sb + L::kK + st * L::kTile);
+        wgmma_commit();
+        issue_next();
+        wgmma_wait<0>();
+        fence_regs(s);
+        softmax_step(s, code, mask_rows(st), scale_log2, m_run, l_run, alpha);
+        rescale<kDs>(acc, alpha);
+        to_a_operands<T>(p, s);
+        st_p = st;
+        continue;
+      }
+      // each wgmma pipeline is straight-line code: ptxas serialises wgmma issued under a branch
+      wgmma_fence();
+      product_abt<T, kDs>(s, s_q, sb + L::kK + st * L::kTile);  // S of this tile
+      wgmma_commit();
+      product_ab<T, kDs>(acc, p, sb + L::kV + st_p * L::kTile);  // O += P V of the pending one
+      wgmma_commit();
+      issue_next();
+      wgmma_wait<1>();  // S is in; P V runs on under its exponentials
+      fence_regs(s);
+      softmax_step(s, code, mask_rows(st), scale_log2, m_run, l_run, alpha);
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) fence_regs(p[kk]);  // P stays live until its product is done
+      release(&empty[st_p]);
+      rescale<kDs>(acc, alpha);
+      to_a_operands<T>(p, s);  // only now: registers of an operand in flight must not be written
+      st_p = st;
+    }
+    if (st_p >= 0) flush();
+  }
+
+  if (n_rows > 0) {
+    const long long o_ss = static_cast<long long>(a.h) * D;
+    T* o = static_cast<T*>(a.o) + static_cast<long long>(q0) * o_ss + h * D;
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      float l = l_run[row];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float inv = l > 0.f ? 1.f / l : 0.f;  // a row that sees no key is written as 0
+      const int rr = (tid >> 5) * 16 + g + row * 8;
+      if (rr < n_rows) {
+        if (kLse && qd == 0) {
+          a.lse[static_cast<long long>(h) * a.sq + q0 + rr] = l > 0.f ? m_run[row] * kLn2 + logf(l) : kLseEmpty;
+        }
+        T* dst = o + rr * o_ss + qd * 2;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(dst + j * 8) =
+              pack2<T>(acc[4 * j + 2 * row] * inv, acc[4 * j + 2 * row + 1] * inv);
+        }
+      }
+    }
+  }
+  cp_async_wait_all();
+}
+
+template <typename T, int D, bool kLse, bool kPipe>
+cudaError_t launch_as(const SegmentArgs& a, int n_blocks, cudaStream_t stream) {
+  constexpr int smem = SegSmem<D>::kBytes;
+  cudaError_t err =
+      cudaFuncSetAttribute(segment_fwd_kernel<T, D, kLse, kPipe>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  segment_fwd_kernel<T, D, kLse, kPipe><<<n_blocks, kSegThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, bool kPipe>
+cudaError_t launch(const SegmentArgs& a, int n_blocks, cudaStream_t stream) {
+  return a.lse ? launch_as<T, D, true, kPipe>(a, n_blocks, stream)
+               : launch_as<T, D, false, kPipe>(a, n_blocks, stream);
+}
+
+template <typename T, bool kPipe>
+cudaError_t dispatch(const SegmentArgs& a, int d, int n_blocks, cudaStream_t stream) {
+  switch (d) {
+    case 64: return launch<T, 64, kPipe>(a, n_blocks, stream);
+    // the Qwen2-VL ViT's head dim, forward only: the lse forward at this width comes with the
+    // ViT's training branch
+    case 80: return a.lse ? cudaErrorInvalidValue : launch_as<T, 80, false, kPipe>(a, n_blocks, stream);
+    case 96: return launch<T, 96, kPipe>(a, n_blocks, stream);
+    case 128: return launch<T, 128, kPipe>(a, n_blocks, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool kPipe>
+int entry(int dtype, const SegmentArgs& a, int d, int n_blocks, void* stream) {
+  if (a.h % a.kvh != 0 || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == 0 ? dispatch<__nv_bfloat16, kPipe>(a, d, n_blocks, st)
+                                     : dispatch<__half, kPipe>(a, d, n_blocks, st));
+}
+
+}  // namespace
+
+// q (Sq, H, D), k/v (Skv, KVH, D); q_meta (Sq, 4) and kv_meta (Skv, 4) int32
+// (doc, fn, noise, pos); codes (ceil(Sq/64), ceil(Skv/64)) int8 tile codes.
+// The output is a contiguous (Sq, H, D) tensor; lse is a contiguous fp32
+// (H, Sq) tensor or null. dtype: 0 = bf16, 1 = fp16. Strides are in elements;
+// the head dim is contiguous. n_blocks is the grid that `segment_fwd_grid`
+// reckons for g2_segment_attention_warpgroups() warpgroups a block. Returns a
+// cudaError_t.
+extern "C" int g2_segment_attention(
+    int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_meta, const void* kv_meta, const void* codes,
+    int sq, int skv, int h, int kvh, int d,
+    long long q_ss, long long q_sh,
+    long long k_ss, long long k_sh,
+    long long v_ss, long long v_sh,
+    float scale, void* stream, int n_blocks) {
+  SegmentArgs a{q, k, v, o, static_cast<const int4*>(q_meta), static_cast<const int4*>(kv_meta),
+                static_cast<const int8_t*>(codes), sq, skv, h, kvh, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh,
+                scale * kLog2e, static_cast<float*>(lse)};
+  return entry<false>(dtype, a, d, n_blocks, stream);
+}
+
+// K4: the same arguments, the pipelined schedule.
+extern "C" int g2_segment_attention_pipe(
+    int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_meta, const void* kv_meta, const void* codes,
+    int sq, int skv, int h, int kvh, int d,
+    long long q_ss, long long q_sh,
+    long long k_ss, long long k_sh,
+    long long v_ss, long long v_sh,
+    float scale, void* stream, int n_blocks) {
+  SegmentArgs a{q, k, v, o, static_cast<const int4*>(q_meta), static_cast<const int4*>(kv_meta),
+                static_cast<const int8_t*>(codes), sq, skv, h, kvh, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh,
+                scale * kLog2e, static_cast<float*>(lse)};
+  return entry<true>(dtype, a, d, n_blocks, stream);
+}
+
+// The consumer warpgroups of a block of either entry, at every head dim.
+extern "C" int g2_segment_attention_warpgroups() { return kWgs; }
+

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks of the attention kernels (attention_bwd.cu,
-// attention_batched.cu): warpgroup matrix products (`wgmma.mma_async`) with
-// their shared-memory descriptors and the swizzled tile layout they read, the
-// two products of a 64-row tile (A B^T from shared memory, A B with A in
-// registers), `mbarrier`s for a ring of asynchronously filled stages
-// (`cp.async` completing on an mbarrier) and named barriers.
+// attention_batched.cu, attention_segment.cu): warpgroup matrix products
+// (`wgmma.mma_async`) with their shared-memory descriptors and the swizzled
+// tile layout they read, the two products of a 64-row tile (A B^T from shared
+// memory, A B with A in registers), `mbarrier`s for a ring of asynchronously
+// filled stages (`cp.async` completing on an mbarrier), named barriers, and
+// the row reductions and rescale of an online softmax over a 64 x 64 tile.
 //
 // Tile layout. A tile of R rows by D columns (bf16 / fp16) is stored as D / E
 // column blocks of E = kSw / 2 elements; block cb holds the R rows of kSw
@@ -374,6 +375,46 @@ template <typename T, int D>
 __device__ __forceinline__ void product_ab(float (&acc)[D / 2], const uint32_t (&a)[4][4], uint32_t tile_b) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) Wgmma<T, D>::rs(acc, a[kk], desc_mn_major<D, 64>(tile_b, kk));
+}
+
+// the ring's next stage, flipping the mbarrier parity after the last
+template <int kStages>
+__device__ __forceinline__ void next_stage(int& stage, int& phase) {
+  if (++stage == kStages) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// this warp is done with a stage (or a Q slot): one arrival per warp on its empty mbarrier
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// max (kMax) or sum over the 16 elements of one of the thread's two rows in a 64 x 64 accumulator x
+// (element i is in row (i >> 1) & 1), as a tree: four dependent steps instead of fifteen
+template <bool kMax>
+__device__ __forceinline__ float row_reduce(const float (&x)[32], int row) {
+  float t[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    t[k] = kMax ? fmaxf(x[4 * k + 2 * row], x[4 * k + 2 * row + 1]) : x[4 * k + 2 * row] + x[4 * k + 2 * row + 1];
+  }
+#pragma unroll
+  for (int level = 0; level < 3; ++level) {
+    const int w = 4 >> level;
+#pragma unroll
+    for (int k = 0; k < w; ++k) t[k] = kMax ? fmaxf(t[k], t[k + w]) : t[k] + t[k + w];
+  }
+  return t[0];
+}
+
+// the output rows of a 64 x D accumulator times the softmax's alpha of their row
+template <int D>
+__device__ __forceinline__ void rescale(float (&acc)[D / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
 }
 
 }  // namespace

@@ -6,17 +6,20 @@ g2vlm_tpu/ops/flash_attention.py `_batched_flash_kernel` (called through
 `_batched_fwd`): bidirectional attention inside each batch element, for the
 DINOv2 encoder and the Pi3 decoders; its products run on wgmma from a ring of
 cp.async / mbarrier stages that two or three warpgroups read, on a persistent
-grid (`batched_fwd_grid`). K2 `flash_segment_attention` (csrc/attention.cu)
-replaces `_flash_kernel` (called through `_fwd_pallas`): packed
-segment-masked GQA attention, for the MoT decoder. K6 and K3 are the same
-kernels with a per-row log-sum-exp output, replacing
-`_batched_flash_kernel_lse` and `_flash_kernel_lse`: the training forwards.
+grid (`batched_fwd_grid`). K2 `flash_segment_attention`
+(csrc/attention_segment.cu) replaces `_flash_kernel` (called through
+`_fwd_pallas`): packed segment-masked GQA attention, for the MoT decoder and
+the Qwen2-VL ViT; its products run on wgmma from a cp.async / mbarrier ring
+whose K/V stages, tile codes and masks the query heads of a GQA group share
+(`segment_fwd_grid`). K6 and K3 are the same kernels with a per-row
+log-sum-exp output, replacing `_batched_flash_kernel_lse` and
+`_flash_kernel_lse`: the training forwards.
 
-K4 `flash_segment_attention(..., pipelined=True)` (csrc/attention_pipe.cu)
-replaces `_flash_kernel_pipe` (the pipe branch of `_fwd_pallas`): K2's and
-K3's function in a two-stage schedule, QK^T of one tile issued before the
-softmax and P.V of the tile before it, with cp.async copies in flight under
-both. K8 `flash_segment_attention_int8` (csrc/attention_int8.cu) replaces
+K4 `flash_segment_attention(..., pipelined=True)` (csrc/attention_segment.cu,
+the same template) replaces `_flash_kernel_pipe` (the pipe branch of
+`_fwd_pallas`): K2's and K3's function in a two-stage schedule, QK^T of one
+tile issued with P.V of the tile before it, the softmax under both. K8
+`flash_segment_attention_int8` (csrc/attention_int8.cu) replaces
 `_flash_kernel_int8` (through `_flash_int8`): K2's function with QK^T as an
 int8 x int8 -> int32 product on per-token scales, the quantized serving mode's
 prefill attention; its quantiser `quantize_qk` is plain tensor code here, as
@@ -41,8 +44,8 @@ QK^T, bf16 for P.V). K2 at the 32-view prefill
 at the training pack of 12,800 rows K3 is 1.0, K5's dq kernel 1.5 and its dkv
 kernel 2.0 TFLOP; K1 at a DINOv2-L view batch (32, 782, 16, 64) is 80 GFLOP.
 All keep the logits, P and dS out of device memory (fp32 softmax statistics
-in registers over 64-row tiles fed to bf16 tensor-core products: mma.sync in
-the segment forwards, wgmma in K1 / K6 and the backwards), and the segment kernels
+in registers over 64-row tiles fed to bf16 tensor-core products: wgmma
+everywhere but K8's mma.sync), and the segment kernels
 skip the per-element mask on tiles their codes prove fully visible, and whole
 tiles the codes prove invisible (the .cu headers have the details).
 
@@ -72,8 +75,8 @@ from .masks import TokenInfo, make_segment_mask
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 # one shared library per source, all built at once by parallel nvcc processes
-_SOURCES = (_CSRC / "attention.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_pipe.cu",
-            _CSRC / "attention_int8.cu", _CSRC / "attention_batched.cu")
+_SOURCES = (_CSRC / "attention_segment.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_int8.cu",
+            _CSRC / "attention_batched.cu")
 _HEADERS = (_CSRC / "attention_common.cuh", _CSRC / "hopper_common.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -83,7 +86,8 @@ NVCC_FLAGS = (
 HEAD_DIMS = (64, 96, 128)
 # the segment forwards without lse (K2, K4, K8) also take the Qwen2-VL ViT's head dim
 FORWARD_HEAD_DIMS = (64, 80, 96, 128)
-TILE = 64  # kBlockM == kBlockN in csrc/attention_common.cuh: the tile of the codes
+TILE = 64  # the tile of the codes: a warpgroup's query rows and a K/V stage's keys in every kernel
+SEGMENT_WARPGROUPS = 3  # consumer warpgroups of a K2 / K3 / K4 block (kWgs of csrc/attention_segment.cu)
 BWD_KEYS_PER_BLOCK = 2 * TILE  # the dkv kernel's block: two warpgroups of 64 keys
 SPLIT_SLACK = 0.1  # dkv_head_split: waves a cut of the GQA group must save, as a share
 BLOCK_SKIP, BLOCK_PARTIAL, BLOCK_FULL = 0, 1, 2
@@ -158,12 +162,12 @@ def build_library() -> Tuple[Tuple[Path, ...], str]:
 
 
 def load_library() -> Tuple[ctypes.CDLL, ...]:
-    """(segment forward, backward, pipelined forward, int8 forward, batched
-    forward) libraries, built at first use."""
+    """(segment forward, backward, int8 forward, batched forward) libraries,
+    built at first use."""
     global _libs
     if _libs is None:
         paths, _ = build_library()
-        fwd, bwd, pipe, int8, batched = (ctypes.CDLL(str(path)) for path in paths)
+        seg, bwd, int8, batched = (ctypes.CDLL(str(path)) for path in paths)
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         batched.g2_batched_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 9 + [f, p, i]
         batched.g2_batched_attention.restype = i
@@ -171,17 +175,20 @@ def load_library() -> Tuple[ctypes.CDLL, ...]:
         batched.g2_batched_attention_blocks_per_sm.restype = i
         batched.g2_batched_attention_rows_per_block.argtypes = [i]
         batched.g2_batched_attention_rows_per_block.restype = i
-        fwd.g2_segment_attention.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i] + [ll] * 6 + [f, p]
-        fwd.g2_segment_attention.restype = i
+        for fn in (seg.g2_segment_attention, seg.g2_segment_attention_pipe):
+            fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i] + [ll] * 6 + [f, p, i]
+            fn.restype = i
+        seg.g2_segment_attention_warpgroups.argtypes = []
+        seg.g2_segment_attention_warpgroups.restype = i
+        if seg.g2_segment_attention_warpgroups() != SEGMENT_WARPGROUPS:
+            raise RuntimeError("attention_segment.cu: its blocks' warpgroups differ from SEGMENT_WARPGROUPS")
         bwd.g2_attention_bwd_dq.argtypes = [i, i] + [p] * 10 + [i] * 6 + [ll] * 9 + [f, p]
         bwd.g2_attention_bwd_dq.restype = i
         bwd.g2_attention_bwd_dkv.argtypes = [i, i] + [p] * 9 + [i] + [p] * 3 + [i] * 7 + [ll] * 9 + [f, p]
         bwd.g2_attention_bwd_dkv.restype = i
-        pipe.g2_segment_attention_pipe.argtypes = fwd.g2_segment_attention.argtypes
-        pipe.g2_segment_attention_pipe.restype = i
         int8.g2_segment_attention_int8.argtypes = [i] + [p] * 9 + [i] * 6 + [ll] * 6 + [p]
         int8.g2_segment_attention_int8.restype = i
-        _libs = (fwd, bwd, pipe, int8, batched)
+        _libs = (seg, bwd, int8, batched)
     return _libs
 
 
@@ -257,7 +264,7 @@ def batched_fwd_grid(b: int, s: int, h: int, rows_per_block: int, n_sm: int, per
 def _batched_launch_shape(dtype: torch.dtype, d: int, with_lse: bool) -> Tuple[int, int]:
     """(query rows of a block, blocks that fit on one SM at once) of the K1 / K6 kernel, as the
     library reports them."""
-    lib = load_library()[4]
+    lib = load_library()[3]
     rows = lib.g2_batched_attention_rows_per_block(d)
     per_sm = lib.g2_batched_attention_blocks_per_sm(_DTYPES[dtype], d, int(with_lse))
     if rows < 1 or per_sm < 1:
@@ -351,7 +358,7 @@ def _batched_forward_cuda(q, k, v, valid_kv, scale, with_lse: bool):
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows, per_sm = _batched_launch_shape(q.dtype, d, with_lse)
     _, n_blocks = batched_fwd_grid(b, s, h, rows, n_sm, per_sm)
-    err = load_library()[4].g2_batched_attention(
+    err = load_library()[3].g2_batched_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None,
         b, s, m_valid, h, d,
@@ -489,6 +496,40 @@ def block_codes(q_meta: torch.Tensor, kv_meta: torch.Tensor, tile: int = TILE) -
     return codes.to(torch.int8).contiguous()
 
 
+def segment_fwd_grid(s_q: int, h: int, kvh: int) -> Tuple[int, int, int]:
+    """(query heads of a block, query tiles of a block, blocks) of a K2 / K3 /
+    K4 launch, whose grid this is (csrc/attention_segment.cu `block_plan`
+    decodes it). A block has SEGMENT_WARPGROUPS consumer warpgroups of TILE
+    query rows. Where the GQA group G = h / kvh is a multiple of them, a block
+    holds that many query heads of one KV head on the same TILE token rows, so
+    that they share its K/V stages, tile codes and masks, as the TPU kernel
+    packs a group into one step; otherwise as many consecutive query tiles of
+    one head. Blocks are numbered (KV head, head group, query tiles), the query
+    tiles fastest."""
+    wgs = SEGMENT_WARPGROUPS
+    group = h // kvh
+    heads = wgs if group % wgs == 0 else 1
+    tiles = wgs // heads
+    n_q_tiles = -(-s_q // TILE)
+    return heads, tiles, -(-n_q_tiles // tiles) * kvh * (group // heads)
+
+
+def segment_fwd_blocks(s_q: int, h: int, kvh: int) -> torch.Tensor:
+    """(blocks, SEGMENT_WARPGROUPS, 2) int64: the (query head, query tile) of
+    each warpgroup of each block of `segment_fwd_grid`, as `block_plan`
+    assigns them; a query tile past the last one holds no rows."""
+    heads, tiles, n_blocks = segment_fwd_grid(s_q, h, kvh)
+    group = h // kvh
+    n_tb = n_blocks // (kvh * (group // heads))  # blocks of one head group
+    x = torch.arange(n_blocks)
+    tb, x = x % n_tb, x // n_tb
+    hg, kv_h = x % (group // heads), x // (group // heads)
+    w = torch.arange(SEGMENT_WARPGROUPS)
+    head = (kv_h * group + hg * heads)[:, None] + w % heads
+    tile = (tb * tiles)[:, None] + w // heads
+    return torch.stack([head, tile], -1)
+
+
 class SegmentPlan(NamedTuple):
     """What the segment kernels read besides q, k and v: the packed (S, 4)
     int32 metadata of both sides and the tile codes."""
@@ -592,14 +633,14 @@ def _segment_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale, with_lse: bool
     s_kv, kvh, _ = k.shape
     out = torch.empty((s_q, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((h, s_q), dtype=torch.float32, device=q.device) if with_lse else None
-    libs = load_library()
-    launch = libs[2].g2_segment_attention_pipe if pipelined else libs[0].g2_segment_attention
+    lib = load_library()[0]
+    launch = lib.g2_segment_attention_pipe if pipelined else lib.g2_segment_attention
     err = launch(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None,
         q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr(), s_q, s_kv, h, kvh, d,
         *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
-        scale, torch.cuda.current_stream(q.device).cuda_stream,
+        scale, torch.cuda.current_stream(q.device).cuda_stream, segment_fwd_grid(s_q, h, kvh)[2],
     )
     _raise_on_error(name, err)
     launch_counts[name] += 1
@@ -815,7 +856,7 @@ def _int8_forward_cuda(q8, qs, k8, ks, v, q_meta, kv_meta, codes):
             raise ValueError(f"{name}: q8/k8 must be contiguous int8 and qs/ks contiguous fp32 of (heads, rows)")
     _check_meta(name, v, s_q, s_kv, q_meta, kv_meta)
     out = torch.empty((s_q, h, d), dtype=v.dtype, device=v.device)
-    err = load_library()[3].g2_segment_attention_int8(
+    err = load_library()[2].g2_segment_attention_int8(
         _DTYPES[v.dtype], q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
         qs.data_ptr(), ks.data_ptr(), q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr(),
         s_q, s_kv, h, kvh, d, dp,

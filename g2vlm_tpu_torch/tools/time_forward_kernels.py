@@ -1,7 +1,7 @@
-"""Times the forward kernels (K1 batched and K6 its lse form, K2 segment
-attention) of two checkouts of this repository against each other on one
-NVIDIA GPU, in turns, so that a change to the kernel sources can be held
-against its parent on the same card:
+"""Times the forward kernels (K1 batched and K6 its lse form; K2 segment
+attention, K3 its lse form and K4 its two-stage schedule) of two checkouts of
+this repository against each other on one NVIDIA GPU, in turns, so that a
+change to the kernel sources can be held against its parent on the same card:
 
     python g2vlm_tpu_torch/tools/time_forward_kernels.py PARENT_ROOT CHANGE_ROOT
 
@@ -10,11 +10,17 @@ Each root is a directory that holds a `g2vlm_tpu_torch` package (for example
 tree is imported in its own subprocess, which builds its kernels and prints
 one JSON line of times; the order is parent, change, change, parent. Shapes:
 K1 at the DINOv2-L and Pi3 recon batches (32, 782, 16, 64) and (32, 777, 16,
-96), K6 at the training batches (16, 782, 16, 64) and (16, 777, 16, 96), K2 at
-the 32-view recon prefill. K2's outputs must be bitwise equal in both trees;
-K1's and K6's are held against each other within chip_smoke.py's forward
-limits (the two trees may round differently), and each tree's two launches
-must agree bitwise.
+96), K6 at the training batches (16, 782, 16, 64) and (16, 777, 16, 96); K2 at
+the 32-view recon prefill (25,088 rows, 12:2 heads of 128), at the 32-view
+chat prefill in the sorted SPLIT layout (48,384 rows) and at one ViT chunk
+(11,664 rows, 16:16 heads of 80); K3 at the 16-view training pack (12,800
+rows); K4 at the chat prefill. The two trees' outputs are held against each
+other within chip_smoke.py's forward limits (the trees may round
+differently) and reported as bitwise equal or not; each tree's two launches
+must agree bitwise. The times are printed either way, and the script exits
+non-zero after them if a check failed (a probe tree that computes something
+else on purpose fails them). The segment kernels are timed with the caller's
+plan, as the main path runs them.
 """
 
 from __future__ import annotations
@@ -32,11 +38,16 @@ FWD_MAX_ABS, FWD_MEAN_ABS = 2e-2, 1e-3
 LSE_MAX_ABS = 2e-3
 
 _WORKER = r"""
-import hashlib, json, sys
+import json, sys
+import numpy as np
 import torch
 sys.path.insert(0, sys.argv[1])
-from g2vlm_tpu_torch.models.g2vlm import SequenceBuilder
+from g2vlm_tpu_torch.config import G2VLMConfig
+from g2vlm_tpu_torch.data.device_preprocess import vit_device_grid
+from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+from g2vlm_tpu_torch.models.g2vlm import SequenceBuilder, split_order
 from g2vlm_tpu_torch.ops import flash_attention as fa
+from g2vlm_tpu_torch.ops.masks import TokenInfo
 
 def time_ms(fn, iters):
     fn()
@@ -51,26 +62,56 @@ def time_ms(fn, iters):
 gen = torch.Generator(device="cuda").manual_seed(0)
 rnd = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(torch.bfloat16)
 out, saved, bitwise = {}, {}, True
+
+def measure(tag, run, iters):
+    global bitwise
+    first, second = run(), run()
+    first, second = (first, second) if isinstance(first, tuple) else ((first,), (second,))
+    bitwise &= all(torch.equal(x, y) for x, y in zip(first, second))
+    saved[tag] = [x.cpu() for x in first]
+    del first, second
+    out[tag] = [time_ms(run, iters) for _ in range(3)]
+
 for tag, b, s, h, d, lse in (("k1_dinov2_32x782x16x64", 32, 782, 16, 64, False),
                              ("k1_pi3_32x777x16x96", 32, 777, 16, 96, False),
                              ("k6_dinov2_16x782x16x64", 16, 782, 16, 64, True),
                              ("k6_pi3_16x777x16x96", 16, 777, 16, 96, True)):
     q, k, v = rnd(b, s, h, d), rnd(b, s, h, d), rnd(b, s, h, d)
-    run = lambda: fa._batched_forward_cuda(q, k, v, None, None, with_lse=lse)
-    first, second = run(), run()
-    bitwise &= all(x is None or torch.equal(x, y) for x, y in zip(first, second))
-    saved[tag] = [x.cpu() for x in first if x is not None]
-    out[tag] = [time_ms(run, 50) for _ in range(3)]
-sb = SequenceBuilder(11, 12)
-sb.add_text([7, 1, 2, 3, 4])
-sb.add_dino_images(32, 21, 37)
-info = sb.build(pad_to=-(-sb.curr // 256) * 256).token_info("cuda")
-n = info.seq_len
-q, k, v = rnd(n, 12, 128), rnd(n, 2, 128), rnd(n, 2, 128)
-out["k2_outputs_sha256"] = hashlib.sha256(
-    fa.flash_segment_attention(q, k, v, info, info).float().cpu().numpy().tobytes()).hexdigest()
-out["k2_prefill_25088x12:2x128"] = [time_ms(lambda: fa.flash_segment_attention(q, k, v, info, info), 5)
-                                    for _ in range(3)]
+    measure(tag, lambda: tuple(x for x in fa._batched_forward_cuda(q, k, v, None, None, with_lse=lse)
+                               if x is not None), 50)
+
+def packed_info(n_views, text, pad_to):
+    sb = SequenceBuilder(11, 12)
+    for t in text:
+        sb.add_text(t)
+    sb.add_dino_images(n_views, 21, 37)
+    return sb.build(pad_to=pad_to(sb.curr)).token_info("cuda")
+
+recon = packed_info(32, [[7, 1, 2, 3, 4]], lambda n: -(-n // 256) * 256)
+train = packed_info(16, [list(range(100, 107)), list(range(200, 224))], lambda n: 12800)
+grid = vit_device_grid()
+pre = G2VLMPipeline(None, G2VLMConfig()).build_chat_prefill(32, 21, 37, [grid] * 32,
+    "The red point and the blue point mark two positions. Which one is closer to the camera?")
+perm = torch.as_tensor(split_order(pre)[0], device="cuda")
+chat = TokenInfo(*(f[perm] for f in pre.token_info("cuda")))
+seg = torch.arange(4, device="cuda", dtype=torch.int32).repeat_interleave(int(np.prod(grid)))
+vit = TokenInfo(seg, seg, torch.full_like(seg, -1), torch.arange(len(seg), device="cuda", dtype=torch.int32))
+for tag, info, h, kvh, d, kind, iters in (
+        ("k2_recon_prefill_25088x12:2x128", recon, 12, 2, 128, "k2", 5),
+        ("k2_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k2", 3),
+        ("k4_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k4", 3),
+        ("k2_vit_chunk_11664x16:16x80", vit, 16, 16, 80, "k2", 10),
+        ("k3_train_pack_12800x12:2x128", train, 12, 2, 128, "k3", 10)):
+    n = info.seq_len
+    q, k, v = rnd(n, h, d), rnd(n, kvh, d), rnd(n, kvh, d)
+    plan = fa.segment_plan(info, info)
+    if kind == "k3":
+        run = lambda: fa._segment_forward_cuda(q, k, v, *plan, None, with_lse=True)
+    else:
+        run = lambda: fa.flash_segment_attention(q, k, v, info, info, pipelined=kind == "k4", plan=plan)
+    measure(tag, run, iters)
+    del q, k, v
+    torch.cuda.empty_cache()
 out["bitwise_repeatable"] = bitwise
 if len(sys.argv) > 2:
     torch.save(saved, sys.argv[2])
@@ -87,7 +128,7 @@ def main() -> None:
     scratch = Path(__file__).resolve().parent.parent / "_build" / "time_forward"
     scratch.mkdir(parents=True, exist_ok=True)
     saved = {"parent": scratch / "parent.pt", "change": scratch / "change.pt"}
-    runs = []
+    runs, failures = [], []
     try:
         for label, root in (("parent", parent), ("change", change), ("change", change), ("parent", parent)):
             cmd = [sys.executable, "-c", _WORKER, root]
@@ -100,23 +141,20 @@ def main() -> None:
             runs.append((label, result))
             print(f"[{label}] {json.dumps(result)} ({card})", flush=True)
         if not all(r["bitwise_repeatable"] for _, r in runs):
-            raise SystemExit("a tree's two launches gave different results")
-        if len({r["k2_outputs_sha256"] for _, r in runs}) != 1:
-            raise SystemExit("the two trees' K2 outputs differ")
-        print("K2: the outputs of both trees are bitwise equal")
+            failures.append("a tree's two launches gave different results")
         want, got = torch.load(saved["parent"]), torch.load(saved["change"])
         for tag in want:
             for name, g, w in zip(("out", "lse"), got[tag], want[tag]):
                 err = (g.float() - w.float()).abs()
-                print(f"{tag} {name}: change against parent max_abs_err {err.max().item():.3e} "
-                      f"mean_abs_err {err.mean().item():.3e}")
+                print(f"{tag} {name}: change against parent {'bitwise equal' if torch.equal(g, w) else 'differs'}, "
+                      f"max_abs_err {err.max().item():.3e} mean_abs_err {err.mean().item():.3e}")
                 limits = (FWD_MAX_ABS, FWD_MEAN_ABS) if name == "out" else (LSE_MAX_ABS, LSE_MAX_ABS)
                 if err.max().item() > limits[0] or err.mean().item() > limits[1]:
-                    raise SystemExit(f"{tag} {name}: the trees disagree (limits {limits})")
+                    failures.append(f"{tag} {name}: the trees disagree (limits {limits})")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     for key in runs[0][1]:
-        if key in ("k2_outputs_sha256", "bitwise_repeatable"):
+        if key == "bitwise_repeatable":
             continue
         med = {}
         for label in ("parent", "change"):
@@ -124,7 +162,8 @@ def main() -> None:
             med[label] = xs[len(xs) // 2]
         print(f"{key}: parent {med['parent']:.4f} ms, change {med['change']:.4f} ms "
               f"({(med['change'] / med['parent'] - 1) * 100:+.1f}%) ({card})")
-
+    if failures:  # the times above stand, but the two trees do not compute the same
+        raise SystemExit("; ".join(failures))
 
 if __name__ == "__main__":
     main()

@@ -100,7 +100,7 @@ def train_forward(
     the MoT to the SPLIT expert mode (contiguous single-expert matmuls
     instead of MIXED's two experts on every row)."""
     if batch.vit_patches is not None and batch.vit_patches.shape[0] > 0:
-        raise NotImplementedError("the ViT branch of train_forward waits for the Qwen2-VL ViT (ROADMAP A.7)")
+        raise NotImplementedError("the ViT branch of train_forward is not ported yet (ROADMAP A.8)")
     lm = model.language_model
     s = batch.doc_id.shape[0]
     dev = batch.doc_id.device

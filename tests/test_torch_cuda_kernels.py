@@ -1,9 +1,9 @@
 """The hand-written CUDA kernels (g2vlm_tpu_torch/csrc/attention_batched.cu the
-batched forward K1 and its lse form K6; csrc/attention.cu the segment forward
-K2 and its lse form K3; csrc/attention_bwd.cu backwards K5, K7;
-csrc/attention_pipe.cu the two-stage forward K4; csrc/attention_int8.cu the
-int8-QK forward K8) against their plain PyTorch versions, on the card in bf16
-(and fp16).
+batched forward K1 and its lse form K6; csrc/attention_segment.cu the segment
+forward K2, its lse form K3 and its two-stage schedule K4;
+csrc/attention_bwd.cu backwards K5, K7; csrc/attention_int8.cu the int8-QK
+forward K8) against their plain PyTorch versions, on the card in bf16 (and
+fp16).
 
 Needs an NVIDIA GPU with nvcc; imports no jax. Run it on the card with
 
@@ -498,3 +498,54 @@ def test_batched_backward_repeatable_at_ragged_shapes(gen, b, s, m, h, d, valid_
         _check_grad(g, w, name)
     if valid_kv is not None:
         assert (got[1][:, valid_kv:] == 0).all() and (got[2][:, valid_kv:] == 0).all()
+
+
+# the segment forwards' packs: a ragged one (333 rows: no multiple of the 64-row tiles) and one
+# whose codes hold SKIP (its last two tiles are padding: whole rows and columns of SKIP tiles),
+# PARTIAL and FULL; both end in padding rows that see no key
+SEGMENT_PACKS = {
+    "ragged_333": lambda: make_token_info([200, 120], [80, 120, 50, 70], ["causal", "full", "causal", "full"],
+                                          pad_to=333, device="cuda"),
+    "skip_partial_full": lambda: make_token_info([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"],
+                                                 pad_to=384, device="cuda"),
+}
+# (h, kvh): a 12:2 group shared by 2 or 3 warpgroups, an odd group, and G = 1 (consecutive query tiles)
+SEGMENT_HEADS = {"12:2": (12, 2), "6:2": (6, 2), "4:4": (4, 4)}
+
+
+@pytest.mark.parametrize("heads", list(SEGMENT_HEADS.values()), ids=list(SEGMENT_HEADS))
+@pytest.mark.parametrize("pack", list(SEGMENT_PACKS), ids=list(SEGMENT_PACKS))
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_segment_forwards_match_plain_and_repeat(gen, d, pack, heads):
+    """K2, K3 and K4 against their plain versions at every head dim, on a ragged pack and on one
+    with SKIP, PARTIAL and FULL tiles: two launches bitwise equal, K3's out bitwise K2's, K4
+    within 1e-3 of K2, and rows that see no key written as 0 with lse LSE_EMPTY."""
+    info = SEGMENT_PACKS[pack]()
+    codes = fa.block_codes(info.packed(), info.packed())
+    if pack == "skip_partial_full":
+        assert set(codes.unique().tolist()) == {fa.BLOCK_SKIP, fa.BLOCK_PARTIAL, fa.BLOCK_FULL}
+    h, kvh = heads
+    n = info.seq_len
+    q, k, v = _rnd(gen, n, h, d), _rnd(gen, n, kvh, d), _rnd(gen, n, kvh, d)
+    pad = info.doc_id < 0
+    assert pad.any()
+    want = fa.flash_segment_attention_reference(q.float(), k.float(), v.float(), info, info)
+    out = fa.flash_segment_attention(q, k, v, info, info)
+    assert torch.equal(out, fa.flash_segment_attention(q, k, v, info, info))
+    _check(out, want)
+    assert (out[pad] == 0).all()
+    pipe = fa.flash_segment_attention(q, k, v, info, info, pipelined=True)
+    assert torch.equal(pipe, fa.flash_segment_attention(q, k, v, info, info, pipelined=True))
+    _check(pipe, want)
+    assert (pipe.float() - out.float()).abs().max().item() <= 1e-3 and (pipe[pad] == 0).all()
+    if d != 80:  # the lse forwards, serial (K3) and pipelined (K4 with lse)
+        meta = info.packed()
+        _, want_lse = fa.flash_segment_attention_lse_reference(q.float(), k.float(), v.float(), info, info)
+        for pipelined, base in ((False, out), (True, pipe)):
+            out3, lse = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True, pipelined=pipelined)
+            out4, lse4 = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True,
+                                                  pipelined=pipelined)
+            assert torch.equal(out3, base) and torch.equal(out4, out3) and torch.equal(lse4, lse)
+            assert (lse - want_lse).abs().max().item() < 2e-3
+            assert (lse[:, pad] == fa.LSE_EMPTY).all()
+

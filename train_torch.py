@@ -28,7 +28,7 @@ _NOT_PORTED = {
     "tp": "multi-GPU meshes (ROADMAP A.9)",
     "sequence_parallel": "parallel/sequence.py (ROADMAP A.9)",
     "train_conf": "the conf decoder and the SegFormer sky mask (ROADMAP A.10)",
-    "max_vit_patches": "the Qwen2-VL ViT branch of the forward (ROADMAP A.7)",
+    "max_vit_patches": "the ViT branch of train_forward (ROADMAP A.8)",
 }
 
 
