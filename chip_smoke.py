@@ -28,7 +28,9 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      5 products it needs);
   9. train parity: one forward + backward of the cut-depth full-width model on
      the card (fp32 masters, bf16 compute, kernels) against the CPU (fp32,
-     plain versions): loss and gradient norms;
+     plain versions): loss, gradient norms and launches, with per-layer
+     checkpoints, with groups of two layers checkpointed (remat_group=2) and
+     with the Pi3 heads one view at a time (head_view_chunk=1);
  10. the training slice: the recon-stage step of train_torch.py at full width
      and depth (16 views of 294x518 in a 12,800-token pack, SPLIT layout, und
      expert frozen, factored Adam with a bf16 first moment, EMA, per-layer
@@ -37,11 +39,14 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      against their plain versions at the chat prefill (48,384 rows), one ViT
      chunk (11,664 rows, 16 heads of 80), a small ragged mixed case and, for
      K8, outlier and extreme-logit inputs; K4 is also held against K2; two
-     launches of K2 and K4 bitwise equal; each case beside its bound and the
-     library call (K2 at head dim 80 also beside the parent's time);
+     launches of K2, K4 and K8 bitwise equal; each case beside its bound and
+     the library call (K2 at head dim 80 and K8 also beside the parent's
+     times, K8 beside K2);
  12. chat parity: a full-width, cut-depth model answers on the card in bf16
-     (kernels; default, pipelined and int8 attention) and on the CPU in fp32:
-     prefill hidden states and the first decode step's logits;
+     (kernels; default, pipelined and int8 attention; the int8 KV cache, the
+     host preprocess, and generate_batched on two prompts of different
+     lengths) and on the CPU in fp32: prefill hidden states, the first decode
+     step's logits, ids in the vocabulary, launch counts;
  13. the chat slice: G2VLMConfig() with random bf16 weights, 32 uint8 views of
      294x518, chat(device_preprocess=True) for 32 new tokens: launch counts,
      finite logits, ids in the vocabulary and repeatable, chat_continue, the
@@ -79,6 +84,10 @@ LSE_MAX_ABS = 2e-3
 # K2 at one ViT chunk (11,664 rows, 16:16 heads of 80) in the mma.sync kernel that attention_segment.cu
 # replaced (PERF.md section 6); printed beside this run's time
 PARENT_K2_D80_MS = 1.604
+# K8 in the mma.sync kernel that the kInt8 form of attention_segment.cu replaced, at the chat prefill
+# and one ViT chunk (PERF.md section 6), and the int8 chat call's TTFT before it; printed beside this run's
+PARENT_K8_MS = {"chat_prefill_32_views": 91.014, "vit_chunk_4_images": 1.774}
+PARENT_INT8_TTFT_MS = 4591.3
 TRAIN_VIEWS, TRAIN_HW, TRAIN_TOKENS = 16, (294, 518), 12800
 
 
@@ -177,6 +186,23 @@ def _keys_that_count(t, valid):
 def _ratio(ms, library_ms):
     """The kernel's time over the library call's, as text for a result line."""
     return f"; kernel / library {ms / library_ms:.2f}x" if library_ms else ""
+
+
+def _step_launches(c, chunks=1, remat_group=1, dino_remat_group=1):
+    """Launches of one training step, derived from the config: every layer's lse forward runs
+    twice (the forward, and its recomputation under per-layer checkpointing), each backward
+    kernel once; the Pi3 decoders run once per view chunk. Groups of g > 1 layers checkpointed
+    around the per-layer checkpoints run g - 1 more forwards a group: the group's recomputation
+    stops once the last layer's input is back, and that layer's own checkpoint recomputes it."""
+    def lse(layers, group):
+        return 2 * layers + (layers // group * (group - 1) if group > 1 else 0)
+
+    pi3 = c.pi3.depth * (2 + 2 * c.use_global_points) * chunks
+    batched, segment = c.dino.num_hidden_layers + pi3, c.llm.num_hidden_layers
+    return {"flash_segment_attention_lse": lse(segment, remat_group), "flash_segment_attention_bwd_dq": segment,
+            "flash_segment_attention_bwd_dkv": segment,
+            "flash_batched_attention_lse": lse(c.dino.num_hidden_layers, dino_remat_group) + 2 * pi3,
+            "flash_batched_attention_bwd_dq": batched, "flash_batched_attention_bwd_dkv": batched}
 
 
 def _rel_errors(got, want):
@@ -722,16 +748,6 @@ def _recon_and_train_phases(env):
         sq["all"] = sum(sq.values())
         return {g: val ** 0.5 for g, val in sq.items()}
 
-    def step_launches(c, chunks=1):
-        """Launches of one training step, derived from the config: every layer's lse forward
-        runs twice (the forward, and its recomputation under per-layer checkpointing), each
-        backward kernel once; the Pi3 decoders run once per view chunk."""
-        pi3 = c.pi3.depth * (2 + 2 * c.use_global_points) * chunks
-        batched, segment = c.dino.num_hidden_layers + pi3, c.llm.num_hidden_layers
-        return {"flash_segment_attention_lse": 2 * segment, "flash_segment_attention_bwd_dq": segment,
-                "flash_segment_attention_bwd_dkv": segment, "flash_batched_attention_lse": 2 * batched,
-                "flash_batched_attention_bwd_dq": batched, "flash_batched_attention_bwd_dkv": batched}
-
     cut_batch, cut_geo_start = train_torch.full_size_batch(cut, 2, TRAIN_HW, 1792, 1, "cpu")
     cpu_model.train()
     trainer.apply_freeze(cpu_model, freeze_und=True)
@@ -744,25 +760,38 @@ def _recon_and_train_phases(env):
     gpu_model = build_model(cut, device=dev, dtype=torch.float32, seed=None).train()
     gpu_model.load_state_dict(cpu_model.state_dict())
     trainer.apply_freeze(gpu_model, freeze_und=True)
-    fa.reset_launch_counts()
-    got_loss, _ = trainer.train_forward(gpu_model, cut_batch.map(lambda x: x[0].to(dev)), cut,
-                                        compute_dtype=torch.bfloat16, geo_start=cut_geo_start)
-    got_loss.backward()
-    torch.cuda.synchronize()
-    launches = {k: v for k, v in fa.launch_counts.items() if v}
-    if launches != step_launches(cut):
-        _fail(f"train parity: launches {launches}, expected {step_launches(cut)}")
-    rel = abs(got_loss.item() - want_loss.item()) / abs(want_loss.item())
-    print(f"[train-parity] loss card {got_loss.item():.5f} cpu {want_loss.item():.5f} rel {rel:.3e} (budget 3e-2); "
-          f"cpu fp32 forward+backward {cpu_s:.1f} s; launches {launches}")
-    if not rel <= 3e-2:
-        _fail(f"train parity: loss off by {rel} (budget 3e-2)")
-    got_norms = grad_norms(gpu_model)
-    for g, w in want_norms.items():
-        r = abs(got_norms[g] - w) / w
-        print(f"[train-parity] grad norm {g}: card {got_norms[g]:.4e} cpu {w:.4e} rel {r:.3e} (budget 1e-1)")
-        if not r <= 1e-1:
-            _fail(f"train parity: grad norm of {g} off by {r} (budget 1e-1)")
+    n_views = cut_batch.dino_images.shape[1]
+    # the step as train_torch.py runs it, then with groups of two layers checkpointed around the
+    # per-layer checkpoints, and with the Pi3 heads run one view at a time: neither changes the
+    # function (tests/test_torch_trainer.py holds them to 1e-6 and 1e-4 of it on the CPU), so all
+    # three are held against the one CPU run
+    for tag, kw, want_launches in (
+        ("per-layer checkpoints", {}, _step_launches(cut)),
+        ("remat_group=2", dict(remat_group=2, dino_remat_group=2),
+         _step_launches(cut, remat_group=2, dino_remat_group=2)),
+        ("head_view_chunk=1", dict(head_view_chunk=1), _step_launches(cut, chunks=n_views)),
+    ):
+        gpu_model.zero_grad(set_to_none=True)
+        fa.reset_launch_counts()
+        got_loss, _ = trainer.train_forward(gpu_model, cut_batch.map(lambda x: x[0].to(dev)), cut,
+                                            compute_dtype=torch.bfloat16, geo_start=cut_geo_start, **kw)
+        got_loss.backward()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in fa.launch_counts.items() if v}
+        if launches != want_launches:
+            _fail(f"train parity {tag}: launches {launches}, expected {want_launches}")
+        rel = abs(got_loss.item() - want_loss.item()) / abs(want_loss.item())
+        print(f"[train-parity] {tag}: loss card {got_loss.item():.5f} cpu {want_loss.item():.5f} rel {rel:.3e} "
+              f"(budget 3e-2); cpu fp32 forward+backward {cpu_s:.1f} s; launches {launches}")
+        if not rel <= 3e-2:
+            _fail(f"train parity {tag}: loss off by {rel} (budget 3e-2)")
+        got_norms = grad_norms(gpu_model)
+        for g, w in want_norms.items():
+            r = abs(got_norms[g] - w) / w
+            print(f"[train-parity] {tag}: grad norm {g}: card {got_norms[g]:.4e} cpu {w:.4e} rel {r:.3e} "
+                  f"(budget 1e-1)")
+            if not r <= 1e-1:
+                _fail(f"train parity {tag}: grad norm of {g} off by {r} (budget 1e-1)")
     del cpu_model, gpu_model, got_loss, want_loss
     torch.cuda.empty_cache()
 
@@ -786,7 +815,7 @@ def _recon_and_train_phases(env):
     probe = frozen_names[:: max(1, len(frozen_names) // 8)]  # a sample of the frozen leaves, copied
     before = {n_: named[n_].detach().clone() for n_ in probe}
     moved_probe = {n_: p.detach().clone() for n_, p in named.items() if p.requires_grad and p.numel() < 5_000_000}
-    want_launches = step_launches(cfg)
+    want_launches = _step_launches(cfg)
     losses, norms, times = [], [], []
     for step in range(n_steps):
         fa.reset_launch_counts()
@@ -877,7 +906,7 @@ def _chat_phases(env, recon_ms):
     K4, K8 = "flash_segment_attention_pipe", "flash_segment_attention_int8"
     k2e = entry_for(K2, "g2vlm_tpu/ops/flash_attention.py:168")
     k4e = entry_for(K4, "g2vlm_tpu/ops/flash_attention.py:270")
-    k8e = entry_for(K8, "g2vlm_tpu/ops/flash_attention.py:494", "g2vlm_tpu_torch/csrc/attention_int8.cu")
+    k8e = entry_for(K8, "g2vlm_tpu/ops/flash_attention.py:494")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -953,8 +982,10 @@ def _chat_phases(env, recon_ms):
             _fail(f"K2 / K4 {tag}: two launches gave different outputs")
         want8 = plain8()
         mx8, mean8 = check_forward(f"K8 {tag}", got8, want8, pad)
-        if not torch.equal(got8, runs["K8"]()):
-            _fail(f"K8 {tag}: the wrapper and the kernel on the wrapper's own quantised operands differ")
+        first8 = runs["K8"]()
+        if not (torch.equal(got8, first8) and torch.equal(first8, runs["K8"]())):
+            _fail(f"K8 {tag}: two launches on the wrapper's own quantised operands gave different outputs")
+        del first8
         quant_rel = ((got8.float() - want.float()).abs().max() / want.float().abs().max()).item()
         del want8, got2, got4, got8
         ms = _round_robin_ms(runs, iters)
@@ -976,10 +1007,14 @@ def _chat_phases(env, recon_ms):
         if d == 80:
             print(f"    K2 at head dim 80: {ms['K2']:.3f} ms; the parent's mma.sync kernel took {PARENT_K2_D80_MS} ms "
                   f"on an H100 80GB HBM3 at 700 W (PERF.md), {ms['K2'] / PARENT_K2_D80_MS * 100:.1f}% of it ({card})")
-        print(f"    K8 against its plain version max_abs_err {mx8:.3e} mean {mean8:.3e}; against the unquantised "
-              f"plain version max|err|/max|ref| {quant_rel:.3e}; kernel {ms['K8']:.3f} ms, with the quantiser "
-              f"{ms['K8+quantiser']:.3f} ms | bound {bound8:.3f} ms by {by8} | plain {plain_ms['plain8']:.3f} ms | "
-              f"library: none")
+        print(f"    K8 against its plain version max_abs_err {mx8:.3e} mean {mean8:.3e}, two launches bitwise equal; "
+              f"against the unquantised plain version max|err|/max|ref| {quant_rel:.3e}; kernel {ms['K8']:.3f} ms "
+              f"({bound8 / ms['K8'] * 100:.1f}% of its bound {bound8:.3f} ms by {by8}; {ms['K8'] / ms['K2']:.2f}x K2's "
+              f"{ms['K2']:.3f} ms here), with the quantiser {ms['K8+quantiser']:.3f} ms | plain "
+              f"{plain_ms['plain8']:.3f} ms | library: none")
+        if tag in PARENT_K8_MS:
+            print(f"    K8 here: {ms['K8']:.3f} ms; the parent's mma.sync kernel took {PARENT_K8_MS[tag]} ms on an H100 "
+                  f"80GB HBM3 at 700 W (PERF.md), {ms['K8'] / PARENT_K8_MS[tag] * 100:.1f}% of it ({card})")
         print(f"    the plan (packed metadata and tile codes), made once per forward and not per launch: "
               f"{ms['plan']:.3f} ms")
         k2e["max_abs_err"] = max(k2e["max_abs_err"], mx2)
@@ -1015,6 +1050,8 @@ def _chat_phases(env, recon_ms):
         q8, qs, k8, ks = fa.quantize_qk(q, k, info.packed(), **kw)
         mx, _ = check_forward(f"K8 outliers {tag}", got, fa._int8_attention_plain(q8, qs, k8, ks, v.float(), info, info),
                               info.doc_id < 0)
+        if not torch.equal(got, fa.flash_segment_attention_int8(q, k, v, info, info, **kw)):
+            _fail(f"K8 outliers {tag}: two launches gave different outputs")
         k8e["max_abs_err"] = max(k8e["max_abs_err"], mx)
         rels[tag] = ((got.float() - want).abs().max() / want.abs().max()).item()
     v0 = torch.randn(d, generator=gen, device=dev)
@@ -1023,6 +1060,8 @@ def _chat_phases(env, recon_ms):
     q2[7] = (60.0 * v0).to(torch.bfloat16)
     k2[3] = (60.0 * v0).to(torch.bfloat16)
     extreme = fa.flash_segment_attention_int8(q2, k2, v, info, info)
+    if not torch.equal(extreme, fa.flash_segment_attention_int8(q2, k2, v, info, info)):
+        _fail("K8 extreme logits: two launches gave different outputs")
     torch.cuda.synchronize()
     print(f"[K8] outlier channel + common-mode keys: against the unquantised plain version max|err|/max|ref| "
           f"{rels['hadamard+kmean']:.3e} with the Hadamard rotation and the K mean, {rels['neither']:.3e} with "
@@ -1042,12 +1081,14 @@ def _chat_phases(env, recon_ms):
     token_ids = dict(bos_token_id=1, eos_token_id=2, start_of_image=3, end_of_image=4)
     frames8 = list(np.random.default_rng(1).integers(0, 256, (8, 294, 518, 3), dtype=np.uint8))
 
-    def first_step(pipe, frames, n_new=8):
+    def first_step(pipe, frames, n_new=8, device_preprocess=True, quantized=False):
         """Prefill hidden states of the real rows, the first decode step's logits (both on the
-        CPU) and the first `n_new` greedy ids."""
-        prefill, hidden, kv, _, _ = pipe.chat_prefill(frames, QUESTION, device_preprocess=True)
+        CPU) and the first `n_new` greedy ids; the prefill as `chat(device_preprocess=...)` and
+        the cache as `chat(quantized_kv=...)` make them."""
+        prefill, hidden, kv, _, _ = pipe.chat_prefill(frames, QUESTION, device_preprocess=device_preprocess)
         dt, lm_ = pipe.model.dtype, pipe.model.language_model
-        cache = decoding.build_cache(kv, prefill.seq_len, cut.llm, len(prefill.doc_id) + 128, dtype=dt)
+        cache = decoding.build_cache(kv, prefill.seq_len, cut.llm, len(prefill.doc_id) + 128, dtype=dt,
+                                     quantized=quantized)
         pos_ = int(prefill.next_rope_pos)
         logits, _ = decoding.decode_step(lm_, cache, pipe._start_token(), pos_, cut.llm, compute_dtype=dt)
         first = int(logits.argmax())
@@ -1055,6 +1096,36 @@ def _chat_phases(env, recon_ms):
                                        compute_dtype=dt)
         real = torch.as_tensor(prefill.doc_id >= 0)
         return hidden.float().cpu()[real], logits.float().cpu(), [first] + toks.tolist()
+
+    def batched_first_step(pipe, frames, prompts, n_new=8):
+        """generate_batched on one sequence a prompt: the prompts' prefills (of different lengths)
+        and their caches of one capacity, stacked with stack_caches. Returns the prefill hidden
+        states of the real rows of each, the batched first step's logits (B, V) (on the CPU), the
+        greedy ids of the batched loop (B lists), the prefills' launches, the decode's launches
+        and the prefill lengths."""
+        dt, lm_, dev_ = pipe.model.dtype, pipe.model.language_model, pipe.model.device
+        fa.reset_launch_counts()
+        pres = [pipe.chat_prefill(frames, p, device_preprocess=True) for p in prompts]
+        prefill_launches = {k_: v_ for k_, v_ in fa.launch_counts.items() if v_}
+        cap = max(len(pre.doc_id) for pre, *_ in pres) + 128
+        caches = decoding.stack_caches([decoding.build_cache(kv, pre.seq_len, cut.llm, cap, dtype=dt)
+                                        for pre, _, kv, _, _ in pres])
+        start = torch.full((len(prompts),), pipe._start_token(), dtype=torch.int64, device=dev_)
+        pos_ = torch.as_tensor([int(pre.next_rope_pos) for pre, *_ in pres], dtype=torch.int64, device=dev_)
+        fa.reset_launch_counts()
+        with torch.inference_mode():
+            logits = decoding._decode_step(lm_, caches, start, pos_, cut.llm, dt, decoding._rope_inv_freq(cut.llm, dev_))
+        first = logits.argmax(-1)
+        toks, _, _ = decoding.generate_batched(lm_, caches, first, pos_ + 1, -1, cut.llm, max_new_tokens=n_new - 1,
+                                               compute_dtype=dt)
+        decode_launches = {k_: v_ for k_, v_ in fa.launch_counts.items() if v_}
+        hidden = [h.float().cpu()[torch.as_tensor(pre.doc_id >= 0)] for pre, h, *_ in pres]
+        ids = torch.cat([first[:, None], toks], 1).tolist()
+        return hidden, logits.float().cpu(), ids, prefill_launches, decode_launches, [pre.seq_len for pre, *_ in pres]
+
+    def check_ids(tag, ids):
+        if not ids or not all(0 <= t < cut.llm.vocab_size for t in ids):
+            _fail(f"chat parity {tag}: ids outside the vocabulary of {cut.llm.vocab_size}: {ids}")
 
     def distances(got, want):
         out = []
@@ -1068,6 +1139,11 @@ def _chat_phases(env, recon_ms):
     t0 = time.perf_counter()
     cpu_pipe = G2VLMPipeline(cpu_model, cut, new_token_ids=token_ids)
     want = first_step(cpu_pipe, frames8[:2])
+    # the paths that only these gates run on the card: the int8 KV cache, the host preprocess
+    # (PIL resize on the CPU, then one upload), and two sequences in one batched decode loop
+    want_paths = {"quantized_kv": first_step(cpu_pipe, frames8[:2], quantized=True),
+                  "host_preprocess": first_step(cpu_pipe, frames8[:2], device_preprocess=False)}
+    want_batched = batched_first_step(cpu_pipe, frames8[:2], [QUESTION, FOLLOW_UP])
     cpu_s = time.perf_counter() - t0
     gpu_model = build_model(cut, device=dev, dtype=torch.bfloat16, seed=None)
     gpu_model.load_state_dict(cpu_model.state_dict())
@@ -1092,6 +1168,49 @@ def _chat_phases(env, recon_ms):
               f"{same} of {len(want[2])} greedy ids equal; launches {launches}")
         if "int8" not in tag and (rel_h > 3e-2 or rel_l > 3e-2):
             _fail(f"chat parity {tag}: hidden {rel_h}, logits {rel_l} (budget 3e-2)")
+
+    # the int8 KV cache and the host preprocess: through the entry point (launches, ids), and the
+    # prefill hidden states and first-step logits against the CPU's of the same path
+    pipe = G2VLMPipeline(gpu_model, cut, new_token_ids=token_ids)
+    for tag, kw in (("quantized_kv", dict(quantized_kv=True, device_preprocess=True)),
+                    ("host_preprocess", dict(device_preprocess=False))):
+        want_launches = {K1: n_dino, K2: n_vit + n_llm}
+        fa.reset_launch_counts()
+        _, info = pipe.chat(frames8[:2], QUESTION, max_new_tokens=8, return_info=True, **kw)
+        launches = {k_: v_ for k_, v_ in fa.launch_counts.items() if v_}
+        check_ids(f"{tag} chat()", info["token_ids"])
+        fa.reset_launch_counts()
+        got = first_step(pipe, frames8[:2], device_preprocess=kw["device_preprocess"],
+                         quantized=kw.get("quantized_kv", False))
+        step_launches = {k_: v_ for k_, v_ in fa.launch_counts.items() if v_}
+        if launches != want_launches or step_launches != want_launches:
+            _fail(f"chat parity {tag}: launches {launches} (chat) / {step_launches}, expected {want_launches}")
+        check_ids(tag, got[2])
+        rel_h, rel_l = distances(got, want_paths[tag])
+        same = sum(a == b for a, b in zip(got[2], want_paths[tag][2]))
+        print(f"[chat-parity] {tag}, 2 views: prefill hidden max|gpu-cpu|/max|cpu| {rel_h:.3e}, first-step logits "
+              f"{rel_l:.3e} (budget 3e-2); {same} of {len(got[2])} greedy ids equal the CPU's; chat() ids "
+              f"{info['token_ids']} in the vocabulary; launches {launches} per call")
+        if rel_h > 3e-2 or rel_l > 3e-2:
+            _fail(f"chat parity {tag}: hidden {rel_h}, logits {rel_l} (budget 3e-2)")
+
+    # generate_batched: two sequences of different lengths in one decode loop
+    hidden_b, logits_b, ids_b, pre_launches, dec_launches, lens = batched_first_step(
+        pipe, frames8[:2], [QUESTION, FOLLOW_UP])
+    if pre_launches != {K1: 2 * n_dino, K2: 2 * (n_vit + n_llm)} or dec_launches:
+        _fail(f"chat parity generate_batched: prefill launches {pre_launches}, decode launches {dec_launches}")
+    if len(set(lens)) != 2:
+        _fail(f"chat parity generate_batched: the prompts' prefills have one length {lens}")
+    rel_hb = max(distances((a, logits_b), (b, want_batched[1]))[0] for a, b in zip(hidden_b, want_batched[0]))
+    rel_lb = distances((hidden_b[0], logits_b), (want_batched[0][0], want_batched[1]))[1]
+    for i, row in enumerate(ids_b):
+        check_ids(f"generate_batched sequence {i}", row)
+    same = [sum(a == b for a, b in zip(g, w)) for g, w in zip(ids_b, want_batched[2])]
+    print(f"[chat-parity] generate_batched, 2 sequences of {lens} prefill rows: prefill hidden {rel_hb:.3e}, batched "
+          f"first-step logits {rel_lb:.3e} (budget 3e-2); greedy ids equal the CPU's {same} of {len(ids_b[0])}, all in "
+          f"the vocabulary; launches: prefills {pre_launches}, decode loop none")
+    if rel_hb > 3e-2 or rel_lb > 3e-2:
+        _fail(f"chat parity generate_batched: hidden {rel_hb}, logits {rel_lb} (budget 3e-2)")
     # eight views: the prefill's ~12,200 rows are above the rule too; int8 against the default kernels
     base = first_step(G2VLMPipeline(gpu_model, cut, new_token_ids=token_ids), frames8)
     fa.reset_launch_counts()
@@ -1227,8 +1346,10 @@ def _chat_phases(env, recon_ms):
             if counts != {K1: n_k1_chat, kname: n_seg}:
                 _fail(f"chat slice {tag}: launches {counts}")
             paths_run["chat_call_" + ("int8" if kname == K8 else "pipe")] = counts
+            # the int8 call's TTFT with the mma.sync K8 (PERF.md, H100 80GB HBM3 at 700 W)
+            before = f"; with the parent's K8 {PARENT_INT8_TTFT_MS}" if kname == K8 else ""
             print(f"[chat] {tag}, one warm call: TTFT {info['t_prefill_s'] * 1e3:.1f} ms (default "
-                  f"{chat_ms['t_prefill_s']:.1f}) = upload + towers {info['t_upload_s'] * 1e3:.1f} + prefill forward "
+                  f"{chat_ms['t_prefill_s']:.1f}{before}) = upload + towers {info['t_upload_s'] * 1e3:.1f} + prefill forward "
                   f"{info['t_forward_s'] * 1e3:.1f} + cache build {info['t_cache_s'] * 1e3:.1f}; decode "
                   f"{info['t_decode_s'] * 1e3:.1f} ms; launches {counts}; ids {info['token_ids'][:8]}... ({card})")
         other.recon_from_frames(frames_arr)

@@ -78,7 +78,7 @@ namespace {
 constexpr int kWgThreads = 128;
 constexpr int kConsumerWgs = 2;
 constexpr int kBwdThreads = kConsumerWgs * kWgThreads;
-constexpr int kTileRows = 64;  // rows of every operand tile, == kBlockM == kBlockN
+constexpr int kTileRows = 64;  // rows of every operand tile, the tile of the codes
 constexpr int kStages = 4;  // shared-memory stages of the ring
 // copies run kAhead tiles ahead of the products, so that one warpgroup may
 // trail the other by a tile before the ring holds either back (measured on

@@ -15,8 +15,22 @@
 //     branch of `_fwd_pallas`, pallas_call :777): K2's and K3's function in the
 //     two-stage schedule, S of tile t + 1 on the tensor cores while tile t's
 //     softmax and P V run. It is the same template with kPipe set.
+// K8  g2_segment_attention_int8 replaces `_flash_kernel_int8` (:494, launched
+//     by `_flash_int8` :582, pallas_call :658): K2's function with S = Q K^T an
+//     int8 x int8 -> int32 product on per-token scales, the quantized serving
+//     mode's prefill attention. The same template with kInt8 set, serial. The
+//     quantiser is plain tensor code outside the kernel (ops/flash_attention.py
+//     `quantize_qk`, as the JAX package keeps it outside its kernel): q8
+//     (Sq, H, DP) and k8 (Skv, KVH, DP) int8 with DP = D rounded up to 32 and
+//     zeros past D, qs (H, Sq) fp32 folded with scale log2(e), ks (KVH, Skv)
+//     fp32. S in log2 units is float(s32) * qs[row] * ks[col], row scale first,
+//     as the plain version; from there on it is K2. The TPU kernel
+//     exponentiates without a shift and clamps at 2^100; this one keeps K2's
+//     exact running maximum (the same function wherever the clamp is not hit,
+//     and finite beyond it, which the un-normed ViT logits need).
 //
-// What bounds it on the H100: tensor-core operations. K2 at the 32-view recon
+// What bounds it on the H100: tensor-core operations (K8: QK^T at the int8
+// rate, twice the bf16 one, and half the operand bytes). K2 at the 32-view recon
 // prefill (25,088 rows, 12:2 heads of 128) is 3.8 TFLOP over the visible pairs
 // (3.9 ms at 989 TFLOP/s) on 0.15 GB of q/k/v/o; at the chat prefill (48,384
 // rows) 9.1 TFLOP. Beside the products:
@@ -43,6 +57,15 @@
 //   swizzle) is zero-padded to 96 in shared memory: the pad columns of Q and K
 //   are zeroed once and never written again, so they add nothing to S, and
 //   the pad columns of O are not stored.
+// - K8's S is an s8 wgmma (m64n64k32, DP / 32 k-steps) on int8 Q and K tiles
+//   of 64 rows of 128 bytes, laid out as a 64-column bf16 tile (128-byte
+//   swizzle): an int8 k-step is 32 bytes of a row, as a bf16 one. DP 96 (the
+//   ViT's 80, which the quantiser pads) writes 96 bytes of each row and reads
+//   3 k-steps, so the last 32 bytes are never read; DP 64 reads 2. A stage
+//   holds the int8 K tile (8 KB), the T V tile and the tile's 64 key scales
+//   (4-byte cp.async, zero past Skv); Q sits as int8, 8 KB a warpgroup. The
+//   s32 accumulator has the fp32 one's ownership, so the scales apply in
+//   registers before K2's softmax (with the scale already in qs).
 // - A ring of kStages K/V stages, filled by 16-byte cp.async completing on an
 //   mbarrier, kAhead tiles ahead of the products, by every thread of the block
 //   (a producer warp would cap the block's registers, as attention_bwd.cu
@@ -70,11 +93,14 @@
 //   with three warpgroups a block (one an SM: 186 KB of shared memory at D 128)
 //   the serial form holds 156-168 registers (12 bytes spilled at D 128), the
 //   pipelined one spills more at 168, and the serial one measured faster, as
-//   did 4 stages against 3 and 3 warpgroups against 2 (PERF.md).
+//   did 4 stages against 3 and 3 warpgroups against 2 (PERF.md). K8 runs the
+//   serial form (131 KB at D 128).
 //   A warpgroup whose own code is SKIP on a stage that another warpgroup needs
 //   first finishes its pending P V, so that it never holds a stage while the
 //   ring laps it.
 // - No atomics: every output row has one owner, two launches are bitwise equal.
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
@@ -87,19 +113,22 @@ constexpr int kRows = 64;  // rows of every tile: a warpgroup's query rows, a st
 constexpr int kWgs = 3;  // consumer warpgroups
 constexpr int kSegThreads = kWgs * 128;
 constexpr int kSegWarps = kSegThreads / 32;
-constexpr int kStages = 4;
-constexpr int kAhead = kStages - 2;  // copies run kAhead tiles ahead: a warpgroup holds at most two stages
 
-template <int D>
+template <int D, bool kInt8>
 struct SegSmem {
-  static constexpr int kDs = D == 80 ? 96 : D;  // columns in shared memory
-  static constexpr int kTile = kRows * kDs * 2;
+  static constexpr int kStages = 4;
+  static constexpr int kAhead = kStages - 2;  // copies run kAhead tiles ahead: a warpgroup holds at most two stages
+  static constexpr int kDs = D == 80 ? 96 : D;  // columns of a T tile in shared memory
+  static constexpr int kDp = (D + 31) / 32 * 32;  // bytes of a q8 / k8 row (K8)
+  static constexpr int kTile = kRows * kDs * 2;  // a T tile
+  static constexpr int kQkTile = kInt8 ? kRows * 128 : kTile;    // a Q or K tile: int8 rows of 128 bytes (K8)
   static constexpr int kQ = 0;                                    // [kWgs] Q tiles
-  static constexpr int kK = kQ + kWgs * kTile;                    // [kStages] K tiles
-  static constexpr int kV = kK + kStages * kTile;                 // [kStages] V tiles
+  static constexpr int kK = kQ + kWgs * kQkTile;                  // [kStages] K tiles
+  static constexpr int kV = kK + kStages * kQkTile;               // [kStages] V tiles
   static constexpr int kMaskStage = kWgs * kRows * 8;             // [query tile][row][2] uint32 of a stage
   static constexpr int kMask = kV + kStages * kTile;              // [kStages] masks
-  static constexpr int kQMeta = kMask + kStages * kMaskStage;     // [kWgs * 64] int4 query metadata
+  static constexpr int kKs = kMask + kStages * kMaskStage;        // [kStages][64] fp32 key scales (K8)
+  static constexpr int kQMeta = kKs + (kInt8 ? kStages * kRows * 4 : 0);  // [kWgs * 64] int4 query metadata
   static constexpr int kInfo = kQMeta + kWgs * kRows * 16;        // [kStages] int4 (kv tile, code per query tile)
   static constexpr int kBar = kInfo + kStages * 16;               // full[kStages], empty[kStages]
   static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;    // + alignment slack
@@ -118,8 +147,10 @@ struct SegmentArgs {
   long long q_ss, q_sh;
   long long k_ss, k_sh;
   long long v_ss, v_sh;
-  float scale_log2;
+  float scale_log2;  // K8: 1 (the scale is in qs)
   float* lse;  // contiguous (H, Sq), or null
+  const float* qs = nullptr;  // K8: (H, Sq) query scales, folded with scale log2(e)
+  const float* ks = nullptr;  // K8: (KVH, Skv) key scales
 };
 
 // A block's share of the launch, as `segment_fwd_grid` reckons the grid: hb
@@ -148,16 +179,40 @@ __device__ __forceinline__ BlockPlan block_plan(const SegmentArgs& a) {
 
 // Copies `rows` valid rows (of 64) of a D-wide row-major global tile into a
 // kDs-column swizzled tile; rows past `rows` are zero-filled, columns past D
-// are not written.
+// are not written. With T = int8_t (K8) a row is D bytes and the tile has the
+// layout of a 64-column bf16 one (rows of 128 bytes).
 template <typename T, int D, int kDs>
 __device__ __forceinline__ void load_rows(uint32_t tile, const T* src, long long row_stride, int rows, int tid,
                                           int nthreads) {
-  constexpr int kChunks = D / 8;
+  constexpr int kPerChunk = 16 / sizeof(T);
+  constexpr int kChunks = D / kPerChunk;
+  constexpr int kCols = sizeof(T) == 1 ? 64 : kDs;  // the bf16 tile whose layout this one has
   for (int i = tid; i < kRows * kChunks; i += nthreads) {
     const int r = i / kChunks;
     const int c = i % kChunks;
     const bool ok = r < rows;
-    cp_async16_u32(tile + swizzled_offset<kDs, kRows>(r, c), ok ? src + r * row_stride + c * 8 : src, ok);
+    cp_async16_u32(tile + swizzled_offset<kCols, kRows>(r, c), ok ? src + r * row_stride + c * kPerChunk : src, ok);
+  }
+}
+
+// x[64 x 64] = A B^T of two int8 tiles (load_rows<int8_t, DP, ..>), s32, over DP / 32 k-steps
+template <int DP>
+__device__ __forceinline__ void product_abt_s8(int32_t (&x)[32], uint32_t tile_a, uint32_t tile_b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 32; ++kk) {
+    wgmma_s8_ss(x, desc_k_major<64, 64>(tile_a, kk), desc_k_major<64, 64>(tile_b, kk), kk > 0);
+  }
+}
+
+// S in log2 units from the s32 product: float(s) * qs[row] * ks[col], the row scale first (K8)
+__device__ __forceinline__ void dequantise(float (&s)[32], const int32_t (&x)[32], const float (&qs)[2],
+                                           const float* ks) {
+  const int qd = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 kc = *reinterpret_cast<const float2*>(ks + 8 * j + 2 * qd);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[4 * j + e] = __int2float_rn(x[4 * j + e]) * qs[e >> 1] * (e & 1 ? kc.y : kc.x);
   }
 }
 
@@ -225,10 +280,12 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], int code, const uin
   }
 }
 
-template <typename T, int D, bool kLse, bool kPipe>
+template <typename T, int D, bool kLse, bool kPipe, bool kInt8>
 __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const SegmentArgs a) {
-  using L = SegSmem<D>;
+  using L = SegSmem<D, kInt8>;
+  using QK = std::conditional_t<kInt8, int8_t, T>;  // the type of q and k
   constexpr int kDs = L::kDs;
+  constexpr int kDqk = kInt8 ? L::kDp : D;  // elements of a q / k row
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const uint32_t sb = smem_u32(smem);
@@ -236,7 +293,7 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
   int4* s_qmeta = reinterpret_cast<int4*>(smem + L::kQMeta);
   int4* s_info = reinterpret_cast<int4*>(smem + L::kInfo);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
-  uint64_t* empty = full + kStages;
+  uint64_t* empty = full + L::kStages;
 
   const BlockPlan bp = block_plan(a);
   const int wg = threadIdx.x / 128;
@@ -251,7 +308,7 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
   const int n_rows = max(0, min(kRows, a.sq - q0));
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < kStages; ++st) {
+    for (int st = 0; st < L::kStages; ++st) {
       mbar_init(&full[st], kSegThreads + kSegWarps);  // a cp.async arrival per thread, a plain one per warp
       mbar_init(&empty[st], kSegWarps);                // one release per warp
     }
@@ -262,31 +319,35 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
     const int row = bp.qt0 * kRows + r;
     s_qmeta[r] = row < a.sq ? a.q_meta[row] : make_int4(-2, -1, -1, 0);
   }
-  if constexpr (kDs != D) {  // zero the pad columns of every tile once: the copies never write them
+  if constexpr (kDs != D) {  // zero the pad columns of every T tile once: the copies never write them
     constexpr int kPadChunks = (kDs - D) / 8;
-    constexpr int kTiles = kWgs + 2 * kStages;
+    // Q, K and V tiles are contiguous; K8's int8 Q and K arrive padded and read only DP / 32 k-steps
+    constexpr int kTiles = kInt8 ? L::kStages : kWgs + 2 * L::kStages;
+    constexpr int kFirst = kInt8 ? L::kV : L::kQ;
     for (int i = threadIdx.x; i < kTiles * kRows * kPadChunks; i += kSegThreads) {
       const int t = i / (kRows * kPadChunks);
       const int r = (i / kPadChunks) % kRows;
       const int c = D / 8 + i % kPadChunks;
-      const int base = t < kWgs ? L::kQ + t * L::kTile : L::kK + (t - kWgs) * L::kTile;  // K and V are contiguous
-      *reinterpret_cast<int4*>(smem + base + swizzled_offset<kDs, kRows>(r, c)) = make_int4(0, 0, 0, 0);
+      *reinterpret_cast<int4*>(smem + kFirst + t * L::kTile + swizzled_offset<kDs, kRows>(r, c)) =
+          make_int4(0, 0, 0, 0);
     }
     fence_proxy_async();
   }
   __syncthreads();
 
   // this warpgroup's Q tile
-  const uint32_t s_q = sb + L::kQ + wg * L::kTile;
-  load_rows<T, D, kDs>(s_q, static_cast<const T*>(a.q) + h * a.q_sh + static_cast<long long>(n_rows > 0 ? q0 : 0) * a.q_ss,
-                       a.q_ss, n_rows, tid, 128);
+  const uint32_t s_q = sb + L::kQ + wg * L::kQkTile;
+  load_rows<QK, kDqk, kDs>(s_q, static_cast<const QK*>(a.q) + h * a.q_sh +
+                                    static_cast<long long>(n_rows > 0 ? q0 : 0) * a.q_ss,
+                           a.q_ss, n_rows, tid, 128);
   cp_async_commit();
 
   // The ring: every thread issues its share of each live K / V tile kAhead tiles ahead of the
   // products, and of the mask of a PARTIAL one; tiles that are SKIP for every query tile of the
   // block never enter it.
-  const T* kp = static_cast<const T*>(a.k) + bp.kv_h * a.k_sh;
+  const QK* kp = static_cast<const QK*>(a.k) + bp.kv_h * a.k_sh;
   const T* vp = static_cast<const T*>(a.v) + bp.kv_h * a.v_sh;
+  const float* ksp = kInt8 ? a.ks + static_cast<long long>(bp.kv_h) * a.skv : nullptr;
   auto tile_code = [&](int j, int t) {  // code of the block's query tile j against kv tile t
     const int qt = bp.qt0 + j;
     return j < bp.qb && qt < n_q_tiles ? static_cast<int>(a.codes[static_cast<long long>(qt) * n_kv_tiles + t])
@@ -301,10 +362,16 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
       mbar_wait(&empty[ld_stage], ld_phase ^ 1);
       const int n0 = t * kRows;
       const int rows = min(kRows, a.skv - n0);
-      load_rows<T, D, kDs>(sb + L::kK + ld_stage * L::kTile, kp + n0 * a.k_ss, a.k_ss, rows, threadIdx.x,
-                           kSegThreads);
+      load_rows<QK, kDqk, kDs>(sb + L::kK + ld_stage * L::kQkTile, kp + n0 * a.k_ss, a.k_ss, rows, threadIdx.x,
+                               kSegThreads);
       load_rows<T, D, kDs>(sb + L::kV + ld_stage * L::kTile, vp + n0 * a.v_ss, a.v_ss, rows, threadIdx.x,
                            kSegThreads);
+      if constexpr (kInt8) {  // the tile's key scales; keys past Skv read as 0
+        if (threadIdx.x < kRows) {
+          const bool ok = static_cast<int>(threadIdx.x) < rows;
+          cp_async4_u32(sb + L::kKs + (ld_stage * kRows + threadIdx.x) * 4, ok ? ksp + n0 + threadIdx.x : ksp, ok);
+        }
+      }
       mbar_arrive_cp_async(&full[ld_stage]);
       if (c0 == kPartial || c1 == kPartial || c2 == kPartial) {
         // the mask of each PARTIAL query tile j: bit c of word (j, r, h) is pair (query row j * 64 + r,
@@ -327,12 +394,12 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
       if (threadIdx.x == 0) s_info[ld_stage] = make_int4(t, c0, c1, c2);
       __syncwarp();
       if (lane == 0) mbar_arrive(&full[ld_stage]);  // after the warp's writes of the mask and the info
-      next_stage<kStages>(ld_stage, ld_phase);
+      next_stage<L::kStages>(ld_stage, ld_phase);
       ++n_issued;
       return;
     }
   };
-  for (int i = 0; i < kAhead; ++i) issue_next();
+  for (int i = 0; i < L::kAhead; ++i) issue_next();
 
   cp_async_wait<0>();  // this thread's Q chunks (the ring's copies are in no group)
   fence_proxy_async();
@@ -348,7 +415,32 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
   float l_run[2] = {0.f, 0.f};  // this thread's partial sums, added over the quad at the end
   float alpha[2];
   float s[32];
+  int32_t si[kInt8 ? 32 : 1];  // K8's s32 S
+  float qs[2] = {0.f, 0.f};    // K8's scales of this thread's two query rows
   uint32_t p[4][4];
+  if constexpr (kInt8) {
+#pragma unroll
+    for (int row = 0; row < 2; ++row) {
+      const int rr = (tid >> 5) * 16 + g + row * 8;
+      if (rr < n_rows) qs[row] = a.qs[static_cast<long long>(h) * a.sq + q0 + rr];
+    }
+  }
+  // S = Q K^T of a stage, issued (not committed); then, once it has arrived, in float registers
+  auto issue_s = [&](int st) {
+    if constexpr (kInt8) {
+      product_abt_s8<L::kDp>(si, s_q, sb + L::kK + st * L::kQkTile);
+    } else {
+      product_abt<T, kDs>(s, s_q, sb + L::kK + st * L::kQkTile);
+    }
+  };
+  auto s_arrived = [&](int st) {
+    if constexpr (kInt8) {
+      fence_regs(si);
+      dequantise(s, si, qs, reinterpret_cast<const float*>(smem + L::kKs) + st * kRows);
+    } else {
+      fence_regs(s);
+    }
+  };
   auto my_code = [&](int st) {
     const int4 info = s_info[st];
     return n_rows == 0 ? kSkip : qtl == 0 ? info.y : qtl == 1 ? info.z : info.w;
@@ -365,11 +457,11 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
       } else {
         fence_proxy_async();
         wgmma_fence();
-        product_abt<T, kDs>(s, s_q, sb + L::kK + stage * L::kTile);
+        issue_s(stage);
         wgmma_commit();
         issue_next();  // the fill of a later stage runs under the product
         wgmma_wait<0>();
-        fence_regs(s);
+        s_arrived(stage);
         softmax_step(s, code, mask_rows(stage), scale_log2, m_run, l_run, alpha);
         rescale<kDs>(acc, alpha);
         to_a_operands<T>(p, s);
@@ -380,7 +472,7 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
         fence_regs(acc);
       }
       release(&empty[stage]);
-      next_stage<kStages>(stage, phase);
+      next_stage<L::kStages>(stage, phase);
     }
   } else {
     int st_p = -1;  // the stage whose P V is pending, with its P in p
@@ -396,7 +488,7 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
     for (int n_done = 0; n_done < n_issued; ++n_done) {
       mbar_wait(&full[stage], phase);
       const int st = stage;
-      next_stage<kStages>(stage, phase);
+      next_stage<L::kStages>(stage, phase);
       const int code = my_code(st);
       if (code == kSkip) {  // another warpgroup's tile: finish the pending P V, pass the stage on
         issue_next();
@@ -407,11 +499,11 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
       fence_proxy_async();
       if (st_p < 0) {
         wgmma_fence();
-        product_abt<T, kDs>(s, s_q, sb + L::kK + st * L::kTile);
+        issue_s(st);
         wgmma_commit();
         issue_next();
         wgmma_wait<0>();
-        fence_regs(s);
+        s_arrived(st);
         softmax_step(s, code, mask_rows(st), scale_log2, m_run, l_run, alpha);
         rescale<kDs>(acc, alpha);
         to_a_operands<T>(p, s);
@@ -420,13 +512,13 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
       }
       // each wgmma pipeline is straight-line code: ptxas serialises wgmma issued under a branch
       wgmma_fence();
-      product_abt<T, kDs>(s, s_q, sb + L::kK + st * L::kTile);  // S of this tile
+      issue_s(st);  // S of this tile
       wgmma_commit();
       product_ab<T, kDs>(acc, p, sb + L::kV + st_p * L::kTile);  // O += P V of the pending one
       wgmma_commit();
       issue_next();
       wgmma_wait<1>();  // S is in; P V runs on under its exponentials
-      fence_regs(s);
+      s_arrived(st);
       softmax_step(s, code, mask_rows(st), scale_log2, m_run, l_run, alpha);
       wgmma_wait<0>();
       fence_regs(acc);
@@ -466,13 +558,13 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
   cp_async_wait_all();
 }
 
-template <typename T, int D, bool kLse, bool kPipe>
+template <typename T, int D, bool kLse, bool kPipe, bool kInt8 = false>
 cudaError_t launch_as(const SegmentArgs& a, int n_blocks, cudaStream_t stream) {
-  constexpr int smem = SegSmem<D>::kBytes;
-  cudaError_t err =
-      cudaFuncSetAttribute(segment_fwd_kernel<T, D, kLse, kPipe>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = SegSmem<D, kInt8>::kBytes;
+  auto kernel = segment_fwd_kernel<T, D, kLse, kPipe, kInt8>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  segment_fwd_kernel<T, D, kLse, kPipe><<<n_blocks, kSegThreads, smem, stream>>>(a);
+  kernel<<<n_blocks, kSegThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -491,6 +583,18 @@ cudaError_t dispatch(const SegmentArgs& a, int d, int n_blocks, cudaStream_t str
     case 80: return a.lse ? cudaErrorInvalidValue : launch_as<T, 80, false, kPipe>(a, n_blocks, stream);
     case 96: return launch<T, 96, kPipe>(a, n_blocks, stream);
     case 128: return launch<T, 128, kPipe>(a, n_blocks, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K8: serial, no lse
+template <typename T>
+cudaError_t dispatch_int8(const SegmentArgs& a, int d, int n_blocks, cudaStream_t stream) {
+  switch (d) {
+    case 64: return launch_as<T, 64, false, false, true>(a, n_blocks, stream);
+    case 80: return launch_as<T, 80, false, false, true>(a, n_blocks, stream);
+    case 96: return launch_as<T, 96, false, false, true>(a, n_blocks, stream);
+    case 128: return launch_as<T, 128, false, false, true>(a, n_blocks, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -541,6 +645,30 @@ extern "C" int g2_segment_attention_pipe(
   return entry<true>(dtype, a, d, n_blocks, stream);
 }
 
-// The consumer warpgroups of a block of either entry, at every head dim.
-extern "C" int g2_segment_attention_warpgroups() { return kWgs; }
+// K8. dtype (of v and the output): 0 = bf16, 1 = fp16. q8 (Sq, H, DP) and k8
+// (Skv, KVH, DP) int8 with DP = d rounded up to 32 and zero channels past d;
+// qs (H, Sq) and ks (KVH, Skv) contiguous fp32, qs folded with the softmax
+// scale times log2(e); v (Skv, KVH, d). Strides are in elements (bytes for
+// q8 / k8); the head dim is contiguous and rows are 16-byte aligned. The
+// metadata, tile codes and n_blocks are K2's. The output is a contiguous
+// (Sq, H, d) tensor. Returns a cudaError_t.
+extern "C" int g2_segment_attention_int8(
+    int dtype, const void* q8, const void* k8, const void* v, void* o,
+    const void* qs, const void* ks,
+    const void* q_meta, const void* kv_meta, const void* codes,
+    int sq, int skv, int h, int kvh, int d, int dp,
+    long long q_ss, long long q_sh,
+    long long k_ss, long long k_sh,
+    long long v_ss, long long v_sh,
+    void* stream, int n_blocks) {
+  if (h % kvh != 0 || n_blocks < 1 || dp != (d + 31) / 32 * 32) return static_cast<int>(cudaErrorInvalidValue);
+  SegmentArgs a{q8, k8, v, o, static_cast<const int4*>(q_meta), static_cast<const int4*>(kv_meta),
+                static_cast<const int8_t*>(codes), sq, skv, h, kvh, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh,
+                1.f, nullptr, static_cast<const float*>(qs), static_cast<const float*>(ks)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == 0 ? dispatch_int8<__nv_bfloat16>(a, d, n_blocks, st)
+                                     : dispatch_int8<__half>(a, d, n_blocks, st));
+}
 
+// The consumer warpgroups of a block of every entry, at every head dim.
+extern "C" int g2_segment_attention_warpgroups() { return kWgs; }

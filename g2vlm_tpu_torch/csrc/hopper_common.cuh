@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks of the attention kernels (attention_bwd.cu,
 // attention_batched.cu, attention_segment.cu): warpgroup matrix products
-// (`wgmma.mma_async`) with their shared-memory descriptors and the swizzled
-// tile layout they read, the two products of a 64-row tile (A B^T from shared
-// memory, A B with A in registers), `mbarrier`s for a ring of asynchronously
-// filled stages (`cp.async` completing on an mbarrier), named barriers, and
-// the row reductions and rescale of an online softmax over a 64 x 64 tile.
+// (`wgmma.mma_async`, bf16 / fp16 and s8) with their shared-memory
+// descriptors and the swizzled tile layout they read, the two products of a
+// 64-row tile (A B^T from shared memory, A B with A in registers), `mbarrier`s
+// for a ring of asynchronously filled stages (`cp.async` completing on an
+// mbarrier), named barriers, and the row reductions and rescale of an online
+// softmax over a 64 x 64 tile.
 //
 // Tile layout. A tile of R rows by D columns (bf16 / fp16) is stored as D / E
 // column blocks of E = kSw / 2 elements; block cb holds the R rows of kSw
@@ -115,6 +116,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // generic-proxy writes (cp.async, st.shared) before async-proxy reads (wgmma)
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
 
@@ -167,6 +174,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
 // 16-byte cp.async to a shared address; src_ok false zero-fills the 16 bytes
 __device__ __forceinline__ void cp_async16_u32(uint32_t dst, const void* src, bool src_ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_ok ? 16 : 0)
+               : "memory");
+}
+
+// 4-byte cp.async (through L1) to a shared address; src_ok false zero-fills the 4 bytes
+__device__ __forceinline__ void cp_async4_u32(uint32_t dst, const void* src, bool src_ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_ok ? 4 : 0)
                : "memory");
 }
 
@@ -349,6 +362,24 @@ struct Wgmma<__half, 128> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };
+
+// wgmma.mma_async m64n64k32 s8 x s8 -> s32: d[64 x 64] (+)= A[64 x 32] B[64 x 32]^T, A and B K-major in
+// shared memory, the only layout that 8-bit operands take. A k-step of 32 int8 is 32 bytes of a row, as
+// one of 16 bf16: an int8 tile of 64-byte or 128-byte rows has the byte layout, swizzle and descriptors
+// of a bf16 tile of 32 or 64 columns. The s32 accumulator has the fp32 ones' thread ownership.
+__device__ __forceinline__ void wgmma_s8_ss(int32_t (&d)[32], uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
 
 // P (or dS) accumulator of a 64-column tile -> the register A operands of the
 // four k-steps of 16 columns, rounded to T

@@ -19,12 +19,13 @@ K4 `flash_segment_attention(..., pipelined=True)` (csrc/attention_segment.cu,
 the same template) replaces `_flash_kernel_pipe` (the pipe branch of
 `_fwd_pallas`): K2's and K3's function in a two-stage schedule, QK^T of one
 tile issued with P.V of the tile before it, the softmax under both. K8
-`flash_segment_attention_int8` (csrc/attention_int8.cu) replaces
-`_flash_kernel_int8` (through `_flash_int8`): K2's function with QK^T as an
-int8 x int8 -> int32 product on per-token scales, the quantized serving mode's
-prefill attention; its quantiser `quantize_qk` is plain tensor code here, as
-the JAX package keeps it outside its kernel. K2, K4 and K8 also take the
-Qwen2-VL ViT's head dim 80 (forward only).
+`flash_segment_attention_int8` (csrc/attention_segment.cu, the same template
+again, serial) replaces `_flash_kernel_int8` (through `_flash_int8`): K2's
+function with QK^T as an s8 wgmma (int8 x int8 -> int32) on per-token scales,
+the quantized serving mode's prefill attention, on K2's grid, ring and masks;
+its quantiser `quantize_qk` is plain tensor code here, as the JAX package
+keeps it outside its kernel. K2, K4 and K8 also take the Qwen2-VL ViT's head
+dim 80 (forward only).
 
 Backwards (csrc/attention_bwd.cu). K7 replaces `_batched_bwd_dq_kernel` and
 `_batched_bwd_dkv_kernel` (through `_batched_vjp_bwd`), K5 replaces
@@ -44,10 +45,10 @@ QK^T, bf16 for P.V). K2 at the 32-view prefill
 at the training pack of 12,800 rows K3 is 1.0, K5's dq kernel 1.5 and its dkv
 kernel 2.0 TFLOP; K1 at a DINOv2-L view batch (32, 782, 16, 64) is 80 GFLOP.
 All keep the logits, P and dS out of device memory (fp32 softmax statistics
-in registers over 64-row tiles fed to bf16 tensor-core products: wgmma
-everywhere but K8's mma.sync), and the segment kernels
-skip the per-element mask on tiles their codes prove fully visible, and whole
-tiles the codes prove invisible (the .cu headers have the details).
+in registers over 64-row tiles fed to wgmma tensor-core products), and the
+segment kernels skip the per-element mask on tiles their codes prove fully
+visible, and whole tiles the codes prove invisible (the .cu headers have the
+details).
 
 Dispatch: a CUDA tensor launches the kernel or the wrapper raises; a CPU
 tensor takes the plain version beside the kernel. Nothing falls back. An
@@ -75,8 +76,7 @@ from .masks import TokenInfo, make_segment_mask
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 # one shared library per source, all built at once by parallel nvcc processes
-_SOURCES = (_CSRC / "attention_segment.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_int8.cu",
-            _CSRC / "attention_batched.cu")
+_SOURCES = (_CSRC / "attention_segment.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_batched.cu")
 _HEADERS = (_CSRC / "attention_common.cuh", _CSRC / "hopper_common.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -87,7 +87,7 @@ HEAD_DIMS = (64, 96, 128)
 # the segment forwards without lse (K2, K4, K8) also take the Qwen2-VL ViT's head dim
 FORWARD_HEAD_DIMS = (64, 80, 96, 128)
 TILE = 64  # the tile of the codes: a warpgroup's query rows and a K/V stage's keys in every kernel
-SEGMENT_WARPGROUPS = 3  # consumer warpgroups of a K2 / K3 / K4 block (kWgs of csrc/attention_segment.cu)
+SEGMENT_WARPGROUPS = 3  # consumer warpgroups of a K2 / K3 / K4 / K8 block (kWgs of csrc/attention_segment.cu)
 BWD_KEYS_PER_BLOCK = 2 * TILE  # the dkv kernel's block: two warpgroups of 64 keys
 SPLIT_SLACK = 0.1  # dkv_head_split: waves a cut of the GQA group must save, as a share
 BLOCK_SKIP, BLOCK_PARTIAL, BLOCK_FULL = 0, 1, 2
@@ -162,12 +162,12 @@ def build_library() -> Tuple[Tuple[Path, ...], str]:
 
 
 def load_library() -> Tuple[ctypes.CDLL, ...]:
-    """(segment forward, backward, int8 forward, batched forward) libraries,
-    built at first use."""
+    """(segment forward, backward, batched forward) libraries, built at first
+    use."""
     global _libs
     if _libs is None:
         paths, _ = build_library()
-        seg, bwd, int8, batched = (ctypes.CDLL(str(path)) for path in paths)
+        seg, bwd, batched = (ctypes.CDLL(str(path)) for path in paths)
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         batched.g2_batched_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 9 + [f, p, i]
         batched.g2_batched_attention.restype = i
@@ -186,9 +186,9 @@ def load_library() -> Tuple[ctypes.CDLL, ...]:
         bwd.g2_attention_bwd_dq.restype = i
         bwd.g2_attention_bwd_dkv.argtypes = [i, i] + [p] * 9 + [i] + [p] * 3 + [i] * 7 + [ll] * 9 + [f, p]
         bwd.g2_attention_bwd_dkv.restype = i
-        int8.g2_segment_attention_int8.argtypes = [i] + [p] * 9 + [i] * 6 + [ll] * 6 + [p]
-        int8.g2_segment_attention_int8.restype = i
-        _libs = (seg, bwd, int8, batched)
+        seg.g2_segment_attention_int8.argtypes = [i] + [p] * 9 + [i] * 6 + [ll] * 6 + [p, i]
+        seg.g2_segment_attention_int8.restype = i
+        _libs = (seg, bwd, batched)
     return _libs
 
 
@@ -264,7 +264,7 @@ def batched_fwd_grid(b: int, s: int, h: int, rows_per_block: int, n_sm: int, per
 def _batched_launch_shape(dtype: torch.dtype, d: int, with_lse: bool) -> Tuple[int, int]:
     """(query rows of a block, blocks that fit on one SM at once) of the K1 / K6 kernel, as the
     library reports them."""
-    lib = load_library()[3]
+    lib = load_library()[2]
     rows = lib.g2_batched_attention_rows_per_block(d)
     per_sm = lib.g2_batched_attention_blocks_per_sm(_DTYPES[dtype], d, int(with_lse))
     if rows < 1 or per_sm < 1:
@@ -358,7 +358,7 @@ def _batched_forward_cuda(q, k, v, valid_kv, scale, with_lse: bool):
     n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows, per_sm = _batched_launch_shape(q.dtype, d, with_lse)
     _, n_blocks = batched_fwd_grid(b, s, h, rows, n_sm, per_sm)
-    err = load_library()[3].g2_batched_attention(
+    err = load_library()[2].g2_batched_attention(
         _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if with_lse else None,
         b, s, m_valid, h, d,
@@ -498,7 +498,7 @@ def block_codes(q_meta: torch.Tensor, kv_meta: torch.Tensor, tile: int = TILE) -
 
 def segment_fwd_grid(s_q: int, h: int, kvh: int) -> Tuple[int, int, int]:
     """(query heads of a block, query tiles of a block, blocks) of a K2 / K3 /
-    K4 launch, whose grid this is (csrc/attention_segment.cu `block_plan`
+    K4 / K8 launch, whose grid this is (csrc/attention_segment.cu `block_plan`
     decodes it). A block has SEGMENT_WARPGROUPS consumer warpgroups of TILE
     query rows. Where the GQA group G = h / kvh is a multiple of them, a block
     holds that many query heads of one KV head on the same TILE token rows, so
@@ -840,11 +840,12 @@ def flash_segment_attention_int8_reference(
     return _int8_attention_plain(q8, qs, k8, ks, v, q_info, kv_info)
 
 
-def _int8_forward_cuda(q8, qs, k8, ks, v, q_meta, kv_meta, codes):
-    """Launches K8 on quantised inputs; returns out (S_q, H, D) in v's type."""
+def _int8_launch_grid(q8, qs, k8, ks, v, q_meta, kv_meta, codes) -> int:
+    """The checks `_int8_forward_cuda` makes before it launches K8, on any
+    device: shapes, dtypes, contiguity and alignment of the quantised operands,
+    the (heads, rows) scales, the metadata and the tile codes. Returns the
+    launch's grid, `segment_fwd_grid`'s (K2's)."""
     name = "flash_segment_attention_int8"
-    if v.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {v.device}")
     s_q, h, dp = q8.shape
     s_kv, kvh, d = v.shape
     if k8.shape != (s_kv, kvh, dp) or dp != -(-d // 32) * 32 or h % kvh:
@@ -854,14 +855,31 @@ def _int8_forward_cuda(q8, qs, k8, ks, v, q_meta, kv_meta, codes):
         want = torch.int8 if shape is None else torch.float32
         if t.dtype != want or t.device != v.device or not t.is_contiguous() or (shape and t.shape != shape):
             raise ValueError(f"{name}: q8/k8 must be contiguous int8 and qs/ks contiguous fp32 of (heads, rows)")
+    if q8.data_ptr() % 16 or k8.data_ptr() % 16:
+        raise ValueError(f"{name}: q8 and k8 must start 16-byte aligned")
     _check_meta(name, v, s_q, s_kv, q_meta, kv_meta)
+    n_tiles = (-(-s_q // TILE), -(-s_kv // TILE))
+    if (codes.shape != n_tiles or codes.dtype != torch.int8 or not codes.is_contiguous()
+            or codes.device != v.device):
+        raise ValueError(f"{name}: tile codes of shape {tuple(codes.shape)} do not fit the sequence")
+    return segment_fwd_grid(s_q, h, kvh)[2]
+
+
+def _int8_forward_cuda(q8, qs, k8, ks, v, q_meta, kv_meta, codes):
+    """Launches K8 on quantised inputs; returns out (S_q, H, D) in v's type."""
+    name = "flash_segment_attention_int8"
+    if v.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {v.device}")
+    n_blocks = _int8_launch_grid(q8, qs, k8, ks, v, q_meta, kv_meta, codes)
+    s_q, h, dp = q8.shape
+    s_kv, kvh, d = v.shape
     out = torch.empty((s_q, h, d), dtype=v.dtype, device=v.device)
-    err = load_library()[2].g2_segment_attention_int8(
+    err = load_library()[0].g2_segment_attention_int8(
         _DTYPES[v.dtype], q8.data_ptr(), k8.data_ptr(), v.data_ptr(), out.data_ptr(),
         qs.data_ptr(), ks.data_ptr(), q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr(),
         s_q, s_kv, h, kvh, d, dp,
         *q8.stride()[:2], *k8.stride()[:2], *v.stride()[:2],
-        torch.cuda.current_stream(v.device).cuda_stream,
+        torch.cuda.current_stream(v.device).cuda_stream, n_blocks,
     )
     _raise_on_error(name, err)
     launch_counts[name] += 1

@@ -1,5 +1,6 @@
 """Times the forward kernels (K1 batched and K6 its lse form; K2 segment
-attention, K3 its lse form and K4 its two-stage schedule) of two checkouts of
+attention, K3 its lse form, K4 its two-stage schedule and K8 its int8-QK form)
+of two checkouts of
 this repository against each other on one NVIDIA GPU, in turns, so that a
 change to the kernel sources can be held against its parent on the same card:
 
@@ -14,7 +15,9 @@ K1 at the DINOv2-L and Pi3 recon batches (32, 782, 16, 64) and (32, 777, 16,
 the 32-view recon prefill (25,088 rows, 12:2 heads of 128), at the 32-view
 chat prefill in the sorted SPLIT layout (48,384 rows) and at one ViT chunk
 (11,664 rows, 16:16 heads of 80); K3 at the 16-view training pack (12,800
-rows); K4 at the chat prefill. The two trees' outputs are held against each
+rows); K4 at the chat prefill; K8 at the chat prefill and the ViT chunk, on
+the quantised operands and with the quantiser (`quantize_qk`) in the time
+("k8q"). The two trees' outputs are held against each
 other within chip_smoke.py's forward limits (the trees may round
 differently) and reported as bitwise equal or not; each tree's two launches
 must agree bitwise. The times are printed either way, and the script exits
@@ -101,12 +104,21 @@ for tag, info, h, kvh, d, kind, iters in (
         ("k2_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k2", 3),
         ("k4_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k4", 3),
         ("k2_vit_chunk_11664x16:16x80", vit, 16, 16, 80, "k2", 10),
-        ("k3_train_pack_12800x12:2x128", train, 12, 2, 128, "k3", 10)):
+        ("k3_train_pack_12800x12:2x128", train, 12, 2, 128, "k3", 10),
+        ("k8_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k8", 3),
+        ("k8q_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k8q", 3),
+        ("k8_vit_chunk_11664x16:16x80", vit, 16, 16, 80, "k8", 10),
+        ("k8q_vit_chunk_11664x16:16x80", vit, 16, 16, 80, "k8q", 10)):
     n = info.seq_len
     q, k, v = rnd(n, h, d), rnd(n, kvh, d), rnd(n, kvh, d)
     plan = fa.segment_plan(info, info)
     if kind == "k3":
         run = lambda: fa._segment_forward_cuda(q, k, v, *plan, None, with_lse=True)
+    elif kind == "k8":
+        q8, qs, k8, ks = fa.quantize_qk(q, k, plan.kv_meta)
+        run = lambda: fa._int8_forward_cuda(q8, qs, k8, ks, v, *plan)
+    elif kind == "k8q":
+        run = lambda: fa.flash_segment_attention_int8(q, k, v, info, info, plan=plan)
     else:
         run = lambda: fa.flash_segment_attention(q, k, v, info, info, pipelined=kind == "k4", plan=plan)
     measure(tag, run, iters)

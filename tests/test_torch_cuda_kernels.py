@@ -1,9 +1,8 @@
 """The hand-written CUDA kernels (g2vlm_tpu_torch/csrc/attention_batched.cu the
 batched forward K1 and its lse form K6; csrc/attention_segment.cu the segment
-forward K2, its lse form K3 and its two-stage schedule K4;
-csrc/attention_bwd.cu backwards K5, K7; csrc/attention_int8.cu the int8-QK
-forward K8) against their plain PyTorch versions, on the card in bf16 (and
-fp16).
+forward K2, its lse form K3, its two-stage schedule K4 and its int8-QK form
+K8; csrc/attention_bwd.cu backwards K5, K7) against their plain PyTorch
+versions, on the card in bf16 (and fp16).
 
 Needs an NVIDIA GPU with nvcc; imports no jax. Run it on the card with
 
@@ -549,3 +548,32 @@ def test_segment_forwards_match_plain_and_repeat(gen, d, pack, heads):
             assert (lse - want_lse).abs().max().item() < 2e-3
             assert (lse[:, pad] == fa.LSE_EMPTY).all()
 
+
+
+# K8's head layouts: the chat prefill's 12:2 (3 heads of a group a block), an odd 6:2, and the ViT's
+# 16:16 (3 consecutive query tiles of one head a block)
+INT8_HEADS = {"12:2": (12, 2), "6:2": (6, 2), "16:16": (16, 16)}
+
+
+@pytest.mark.parametrize("had,kmean", [(True, True), (False, False)], ids=["had_kmean", "neither"])
+@pytest.mark.parametrize("heads", list(INT8_HEADS.values()), ids=list(INT8_HEADS))
+@pytest.mark.parametrize("pack", list(SEGMENT_PACKS), ids=list(SEGMENT_PACKS))
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_int8_forward_matches_plain_and_repeats(gen, d, pack, heads, had, kmean):
+    """K8 (the s8 wgmma S on K2's ring) against its plain version at every head dim, on the ragged
+    pack and the SKIP / PARTIAL / FULL pack, with both quantiser settings: two launches bitwise
+    equal, and rows that see no key written as 0."""
+    info = SEGMENT_PACKS[pack]()
+    h, kvh = heads
+    n = info.seq_len
+    q, k, v = _rnd(gen, n, h, d), _rnd(gen, n, kvh, d), _rnd(gen, n, kvh, d)
+    plan = fa.segment_plan(info, info)
+    q8, qs, k8, ks = fa.quantize_qk(q, k, plan.kv_meta, None, had, kmean)
+    before = fa.launch_counts["flash_segment_attention_int8"]
+    got = fa._int8_forward_cuda(q8, qs, k8, ks, v, *plan)
+    assert fa.launch_counts["flash_segment_attention_int8"] == before + 1
+    assert torch.equal(got, fa._int8_forward_cuda(q8, qs, k8, ks, v, *plan))
+    assert torch.equal(got, fa.flash_segment_attention_int8(q, k, v, info, info, hadamard=had, kmean=kmean))
+    _check(got, fa._int8_attention_plain(q8, qs, k8, ks, v.float(), info, info))
+    pad = info.doc_id < 0
+    assert pad.any() and (got[pad] == 0).all()

@@ -1,4 +1,4 @@
-"""The host side of the segment forwards' launch (K2 / K3 / K4,
+"""The host side of the segment forwards' launch (K2 / K3 / K4 / K8,
 csrc/attention_segment.cu): the grid that `segment_fwd_grid` reckons and the
 wrapper launches, the warpgroups that `segment_fwd_blocks` gives each block
 (the kernel's `block_plan`), and the K/V tiles that enter a block's ring: every
@@ -16,15 +16,17 @@ from g2vlm_tpu_torch.models.g2vlm import split_order
 from g2vlm_tpu_torch.ops import flash_attention as fa
 from g2vlm_tpu_torch.ops.masks import TokenInfo, make_segment_mask, make_token_info
 
-# (s_q, h, kvh): K2 at the recon and chat prefills, K3 at the training pack, K2 at a ViT chunk, and two
-# ragged small calls
+# (s_q, h, kvh): K2 at the recon and chat prefills, K3 at the training pack, K2 (and K8 with
+# attn_impl="int8") at the chat prefill and a ViT chunk, and ragged small calls
 SHAPES = {
     "recon_prefill": (25088, 12, 2),
     "chat_prefill": (48384, 12, 2),
     "train_pack": (12800, 12, 2),
     "vit_chunk": (11664, 16, 16),
     "ragged_333": (333, 4, 2),
+    "ragged_333_6:2": (333, 6, 2),
     "ragged_65": (65, 2, 1),
+    "ragged_65_16:16": (65, 16, 16),
 }
 WGS = fa.SEGMENT_WARPGROUPS  # heads of a group where it is a multiple of them, else consecutive query tiles
 # the packs of tests/test_torch_ops.py::test_block_codes_match_jax
@@ -91,13 +93,23 @@ def _chat_layout():
     return TokenInfo(*(f[perm] for f in pre.token_info("cpu")))
 
 
+def _vit_layout():
+    """A ViT chunk's layout: each image a segment of full attention (doc = fn = image id), padding after;
+    its query tiles straddle two images."""
+    seg = torch.cat([torch.arange(3, dtype=torch.int32).repeat_interleave(100),
+                     torch.full((20,), -1, dtype=torch.int32)])
+    return TokenInfo(seg, seg, torch.full_like(seg, -1), torch.arange(len(seg), dtype=torch.int32))
+
+
 INFOS = {f"codes_case{i}": (lambda c=c: make_token_info(c["sample_lens"], c["split_lens"], c["modes"],
                                                          pad_to=c.get("pad_to")))
          for i, c in enumerate(CODE_CASES)}
 INFOS["sorted_chat_tiny"] = _chat_layout
+INFOS["vit_images"] = _vit_layout
 
 
-@pytest.mark.parametrize("heads", [(12, 2), (6, 2), (4, 2), (3, 3)], ids=["12:2", "6:2", "4:2", "3:3"])
+@pytest.mark.parametrize("heads", [(12, 2), (6, 2), (4, 2), (3, 3), (16, 16)],
+                         ids=["12:2", "6:2", "4:2", "3:3", "16:16"])
 @pytest.mark.parametrize("info_name", list(INFOS))
 def test_a_tile_leaves_the_ring_only_when_every_warpgroup_skips_it(info_name, heads):
     info = INFOS[info_name]()
