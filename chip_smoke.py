@@ -52,7 +52,20 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      finite logits, ids in the vocabulary and repeatable, chat_continue, the
      decode loop eager and as a CUDA graph, TTFT by stage, tokens/s, memory;
  14. the same call, and the 32-view recon call, with attn_impl="int8" (K8) and
-     with attn_pipe=True (K4).
+     with attn_pipe=True (K4);
+ 15. the recon entry path from files on disk: (a) a full-width checkpoint cut in
+     depth (2 DINOv2, 2 decoder and 2 ViT layers, vocab 5,120; the Pi3 heads at
+     their full depth, which the reference's config files cannot cut) written by
+     this script, audited by `python -m g2vlm_tpu_torch.weights --audit`, loaded
+     by `load_checkpoint` bitwise equal, and `G2VLMPipeline.recon` on 8 PNG
+     views bitwise equal on the loaded and the original model, with K1 / K2
+     launch counts; (b) `infer_recon_torch.py` on 32 PNG views of 294x518 at
+     full size (a PLY whose header, size and vertex count agree with what the
+     script reports), then `pipe.recon` on those paths in process, timed
+     whole and in synchronised spans: host `load_views`, host normalisation,
+     upload, forward, copies to numpy; (c) `eval_points_torch.py` and
+     `eval_camera_torch.py` on a synthetic scene at full size, both at once
+     (exit 0, finite scores).
 Every kernel is also timed beside the one PyTorch library call that computes
 the same function (a yardstick only; the port never calls it). The last line is
 {"ok": true, "device": {...}}; before it, the card's line and one JSON line
@@ -62,11 +75,16 @@ that lists the kernels with their launches, errors, times and bounds.
 from __future__ import annotations
 
 import argparse
+import ast
 import dataclasses
 import json
+import os
+import shutil
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -290,6 +308,7 @@ def main() -> None:
     paths_run = {}
     paths_run["recon_call"], paths_run["train_step"], recon_ms = _recon_and_train_phases(env)
     paths_run.update(_chat_phases(env, recon_ms))
+    paths_run["recon_entry"] = _recon_entry_phase(env)
 
     for kname, e in kernels.items():
         for path, counts in paths_run.items():
@@ -1369,6 +1388,241 @@ def _chat_phases(env, recon_ms):
     del model, pipe, other
     torch.cuda.empty_cache()
     return paths_run
+
+
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _write_safetensors(path: str, state_dict) -> None:
+    """A `.safetensors` file in a few lines of this script's own (the card's
+    machine has no safetensors package): an 8-byte little-endian header
+    length, a JSON header padded to 8 bytes, then each tensor's raw bytes."""
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    header, tensors, offset = {}, [], 0
+    for key, t in state_dict.items():
+        t = t.detach().contiguous().cpu()
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        tensors.append(t)
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for t in tensors:
+            f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+
+
+def _write_views(folder: str, n: int, seed: int):
+    """n random 294x518 RGB PNGs in `folder`; returns their paths."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(folder, exist_ok=True)
+    frames = np.random.default_rng(seed).integers(0, 256, (n, 294, 518, 3), dtype=np.uint8)
+    paths = []
+    for i, frame in enumerate(frames):
+        paths.append(os.path.join(folder, f"view_{i:02d}.png"))
+        Image.fromarray(frame).save(paths[-1])
+    return paths
+
+
+def _run_tools(*commands, timeout=600):
+    """Run root scripts or modules of the port as subprocesses from the
+    repository root, all at once; returns [(seconds, stdout)] in order. Fails
+    on a non-zero exit; a process still running at the timeout is killed."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *args], cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for args in commands]
+    results = []
+    try:
+        for args, proc in zip(commands, procs):
+            stdout, stderr = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            if proc.returncode != 0:
+                _fail(f"{' '.join(args[:2])} exited {proc.returncode}: {stderr[-2000:]}")
+            results.append((time.perf_counter() - t0, stdout))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return results
+
+
+def _read_ply_header(path: str):
+    """(vertex count, header bytes, bytes per vertex) of a binary PLY."""
+    with open(path, "rb") as f:
+        raw = f.read(4096)
+    end = raw.index(b"end_header\n") + len(b"end_header\n")
+    lines = raw[:end].decode().splitlines()
+    n = int(next(line for line in lines if line.startswith("element vertex")).split()[-1])
+    per = 4 * sum(line.startswith("property float") for line in lines) + sum(
+        line.startswith("property uchar") for line in lines)
+    return n, end, per
+
+
+def _recon_entry_phase(env):
+    """Phase 15. Returns the kernels' launches of one full-size `pipe.recon`
+    call on 32 image paths (the recon entry path)."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.data.images import load_views, resnet_normalize
+    from g2vlm_tpu_torch.data.synthetic import make_tiny_scene_jsonl
+    from g2vlm_tpu_torch.inference.pipeline import RECON_PROMPT, G2VLMPipeline
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.weights import build_model, load_checkpoint
+
+    dev, card = env.dev, env.card
+    K1, K2 = "flash_batched_attention", "flash_segment_attention"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="g2vlm_smoke_")
+
+    def recon_launches(cfg):
+        return {K1: cfg.dino.num_hidden_layers + cfg.pi3.depth * (2 + 2 * cfg.use_global_points),
+                K2: cfg.llm.num_hidden_layers}
+
+    def counted_recon(pipe, paths):
+        fa.reset_launch_counts()
+        out = pipe.recon(paths)
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in fa.launch_counts.items() if v}
+
+    # ---- 15a. checkpoint round trip at full width, cut depth ------------------------------
+    full = G2VLMConfig()
+    cut = dataclasses.replace(
+        full,
+        llm=dataclasses.replace(full.llm, num_hidden_layers=2, vocab_size=5120),
+        dino=dataclasses.replace(full.dino, num_hidden_layers=2),
+        vit=dataclasses.replace(full.vit, depth=2),
+    )
+    token_ids = dict(bos_token_id=1, eos_token_id=2, start_of_image=3, end_of_image=4)
+    model = build_model(cut, device=dev, dtype=torch.bfloat16, seed=0)
+    sd = model.state_dict()
+    ckpt = os.path.join(work, "ckpt")
+    os.makedirs(ckpt)
+    t0 = time.perf_counter()
+    _write_safetensors(os.path.join(ckpt, "model.safetensors"), sd)
+    for name, sub in (("text_config.json", cut.llm), ("vit_config.json", cut.vit), ("dino_config.json", cut.dino)):
+        with open(os.path.join(ckpt, name), "w") as f:
+            json.dump(dataclasses.asdict(sub), f)
+    t_write = time.perf_counter() - t0
+    n_bytes = os.path.getsize(os.path.join(ckpt, "model.safetensors"))
+    [(t_audit, audit)] = _run_tools(["-m", "g2vlm_tpu_torch.weights", "--audit", ckpt])
+    if "AUDIT: PASS" not in audit:
+        _fail(f"--audit of the written checkpoint did not pass: {audit[-2000:]}")
+    t0 = time.perf_counter()
+    loaded, loaded_cfg = load_checkpoint(ckpt, device="cuda")
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    got = loaded.state_dict()
+    if set(got) != set(sd) or not all(torch.equal(got[k], v) for k, v in sd.items()):
+        _fail("load_checkpoint: the loaded tensors are not bitwise the written ones")
+    if json.dumps(dataclasses.asdict(loaded_cfg)) != json.dumps(dataclasses.asdict(cut)):
+        _fail("load_checkpoint: the config read back differs from the one written")
+    print(f"[entry] checkpoint of {len(sd)} tensors, {n_bytes / 2**30:.3f} GiB bf16: written in {t_write:.2f} s, "
+          f"--audit (a subprocess, PASS) {t_audit:.2f} s, load_checkpoint onto the card {t_load:.2f} s; "
+          f"every tensor bitwise equal ({card})")
+    paths8 = _write_views(os.path.join(work, "views8"), 8, seed=4)
+    outs = []
+    for tag, m, c in (("original", model, cut), ("loaded", loaded, loaded_cfg)):
+        out, counts = counted_recon(G2VLMPipeline(m, c, new_token_ids=token_ids), paths8)
+        if counts != recon_launches(c):
+            _fail(f"recon entry ({tag} model): launches {counts}, expected {recon_launches(c)}")
+        if not all(np.isfinite(v).all() for v in out.values()):
+            _fail(f"recon entry ({tag} model): non-finite outputs")
+        outs.append(out)
+    if outs[0].keys() != outs[1].keys() or not all(np.array_equal(outs[0][k], outs[1][k]) for k in outs[0]):
+        _fail("recon entry: the loaded model's outputs are not bitwise the original's")
+    print(f"[entry] pipe.recon on 8 PNG paths: loaded and original models bitwise equal, finite, launches "
+          f"{recon_launches(cut)} per call")
+    del model, loaded, sd, got, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 15b. infer_recon_torch.py at full size, then pipe.recon timed ----------------------
+    n_views = 32
+    folder = os.path.join(work, "views32")
+    paths = _write_views(folder, n_views, seed=5)
+    ply = os.path.join(work, "recon.ply")
+    [(t_cli, stdout)] = _run_tools(["infer_recon_torch.py", "--image_folder", folder, "--save_path", ply])
+    stats = ast.literal_eval(stdout.strip().splitlines()[-1].split(": ", 1)[1])
+    n_vertex, header_bytes, per = _read_ply_header(ply)
+    if not n_vertex == stats["written"] == n_views * 294 * 518 - stats["invalid"]:
+        _fail(f"infer_recon_torch.py: header {n_vertex} vertices, reported {stats}")
+    if os.path.getsize(ply) != header_bytes + n_vertex * per:
+        _fail(f"infer_recon_torch.py: {ply} holds {os.path.getsize(ply)} bytes, the header says "
+              f"{header_bytes + n_vertex * per}")
+    print(f"[entry] infer_recon_torch.py, {n_views} PNG views of 294x518, random bf16 weights: exit 0 in {t_cli:.1f} s "
+          f"wall (interpreter, model init, kernels loaded from the build, PIL, recon, PLY); {n_vertex} vertices "
+          f"({stats['invalid']} invalid), {os.path.getsize(ply) / 2**20:.1f} MiB, header and size consistent ({card})")
+    os.unlink(ply)
+
+    cfg = G2VLMConfig(visual_und=False)
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)  # phase 6's model
+    pipe = G2VLMPipeline(model, cfg)
+    pipe.recon(paths)  # warm
+    out, launches = counted_recon(pipe, paths)
+    if launches != recon_launches(cfg) or out["points"].shape != (n_views, 294, 518, 3):
+        _fail(f"recon entry, full size: launches {launches}, points {out['points'].shape}")
+    if not all(np.isfinite(v).all() for v in out.values()):
+        _fail("recon entry, full size: non-finite outputs")
+    whole = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pipe.recon(paths)
+        whole.append((time.perf_counter() - t0) * 1e3)
+    # the steps of `recon`, one by one, each closed by a synchronisation
+    names = ("load_views (PIL decode + LANCZOS, host)", "resnet_normalize (host)", "fp32 upload",
+             "forward (device)", "outputs to numpy")
+    spans = {name: [] for name in names}
+    for _ in range(3):
+        t = [time.perf_counter()]
+        views = load_views(paths)
+        t.append(time.perf_counter())
+        normed_host = resnet_normalize(views)
+        t.append(time.perf_counter())
+        normed = torch.as_tensor(normed_host, dtype=torch.float32).to(dev)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        with torch.inference_mode():
+            res = pipe._recon(normed, RECON_PROMPT)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        {k: v.float().cpu().numpy() for k, v in res.items()}
+        t.append(time.perf_counter())
+        for name, a, b in zip(names, t, t[1:]):
+            spans[name].append((b - a) * 1e3)
+    med = statistics.median
+    split = " + ".join(f"{name} {med(v):.1f}" for name, v in spans.items())
+    print(f"[entry] pipe.recon on {n_views} PNG paths of 294x518, bf16: {med(whole):.1f} ms per call (median of "
+          f"{[round(t, 1) for t in whole]}); spans (medians of 3, ms): {split} = "
+          f"{sum(med(v) for v in spans.values()):.1f}; launches {launches} ({card})")
+    del model, pipe, out, views, normed, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 15c. the evaluation tools at full size ---------------------------------------------
+    os.makedirs(os.path.join(work, "scene"))
+    scene = make_tiny_scene_jsonl(os.path.join(work, "scene"))
+    tools = ("eval_points_torch.py", "eval_camera_torch.py")
+    for tool, (t_tool, stdout) in zip(tools, _run_tools(*([tool, "--jsonl", scene] for tool in tools))):
+        scores = {line.split(":")[0]: float(line.split(":")[1]) for line in stdout.splitlines()
+                  if line.startswith(("AUC@", "local-abs-rel", "world-rmse"))}
+        if len(scores) != (5 if "camera" in tool else 2) or not all(np.isfinite(v) for v in scores.values()):
+            _fail(f"{tool}: scores {scores} from {stdout[-1000:]}")
+        print(f"[entry] {tool} --jsonl (synthetic scene, 4 views, full size, random bf16 weights; both tools at "
+              f"once): exit 0 after {t_tool:.1f} s, scores {scores} (random weights: not a quality number) ({card})")
+    shutil.rmtree(work)
+    print(f"[entry] phase 15 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
 
 
 if __name__ == "__main__":

@@ -13,8 +13,15 @@ SPECIAL_TOKENS = ["<|im_start|>", "<|im_end|>", "<|vision_start|>", "<|vision_en
 def load_tokenizer(path: str) -> Tuple[object, Dict[str, int], int]:
     """-> (tokenizer, new_token_ids, num_added). new_token_ids has
     bos_token_id (<|im_start|>), eos_token_id (<|im_end|>), start_of_image
-    (<|vision_start|>) and end_of_image (<|vision_end|>)."""
-    from transformers import Qwen2Tokenizer
+    (<|vision_start|>) and end_of_image (<|vision_end|>). Needs the
+    `transformers` package, and raises ImportError naming it where it is
+    missing: a run with vocabulary files never falls back to the
+    tokenizer-less ids, which would change every prompt."""
+    try:
+        from transformers import Qwen2Tokenizer
+    except ImportError as e:
+        raise ImportError(f"load_tokenizer needs the `transformers` package (its Qwen2 BPE) to read the "
+                          f"vocabulary in {path}: {e}") from e
 
     tokenizer = Qwen2Tokenizer.from_pretrained(path)
     existing = set()

@@ -1,6 +1,8 @@
 """Inference pipelines (port of g2vlm_tpu/inference/pipeline.py).
 
-Recon: `recon_from_frames` takes decoded uint8 frames, moves them to the
+Recon: `recon` takes image paths, PIL images or arrays, decodes and resizes
+them on the host (PIL, LANCZOS) and returns numpy outputs with the [0, 1]
+views. `recon_from_frames` takes decoded uint8 frames, moves them to the
 model's device once, preprocesses them there and runs the packed prefill and
 the heads, returning the outputs on the device.
 
@@ -130,6 +132,16 @@ class G2VLMPipeline:
         p = self.cfg.dino_patch_size
         prefill = self.build_recon_prefill(n, h // p, w // p, prompt)
         return recon_forward(self.model, prefill, normed.to(self.model.dtype), self.cfg, **self._attn)
+
+    def recon(self, images: Sequence, prompt: str = RECON_PROMPT, new_width: int = 518) -> Dict[str, np.ndarray]:
+        """Image paths / PIL images / HWC uint8 arrays -> dict(points,
+        local_points, camera_poses, global_points) as fp32 numpy, plus
+        "images": the (N, 3, H, W) [0, 1] views. Decoding and the LANCZOS
+        resize run on the host (`load_views`), the model on its device."""
+        views = load_views(images, new_width=new_width)
+        out = {k: v.float().cpu().numpy() for k, v in self.recon_from_views(views, prompt=prompt).items()}
+        out["images"] = views
+        return out
 
     @torch.inference_mode()
     def recon_from_views(self, views: np.ndarray, prompt: str = RECON_PROMPT) -> Dict[str, torch.Tensor]:
@@ -384,3 +396,4 @@ class G2VLMPipeline:
         if out and out[-1] == eos:
             out = out[:-1]
         return self._decode_text(out), new_session
+

@@ -1,5 +1,14 @@
-"""Weights for the port: the JAX parameter tree -> the port's state dict,
-and a seeded random init built directly on the target device.
+"""Weights for the port: the checkpoint ingest (a reference checkpoint
+directory -> a model on the device, strict both ways), the JAX parameter tree
+-> the port's state dict, and a seeded random init built directly on the
+target device.
+
+The port's parameter names are the reference checkpoint's keys, so the set
+of keys the model consumes is `model.state_dict()` itself; the JAX package
+reads the same set through its mapper (`g2vlm_tpu/models/g2vlm.py`
+`params_from_torch`). `load_safetensors` reads the format itself (an 8-byte
+little-endian header length, a JSON header, then raw bytes), so the port
+does not need the `safetensors` package.
 
 `state_dict_from_jax` is the exact inverse of g2vlm_tpu's
 `models/g2vlm.py:params_from_torch`: it unstacks the leading layer axis and
@@ -11,7 +20,10 @@ the port's parameter names; the training tests compare them that way.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import json
+import os
+import struct
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -211,3 +223,194 @@ def build_model(
     if seed is not None:
         init_random_(model, torch.Generator(device=device).manual_seed(seed))
     return model
+
+
+# ---------------------------------------------------------------------------
+# checkpoint ingest
+# ---------------------------------------------------------------------------
+
+# safetensors dtype -> (little-endian numpy dtype of the stored bytes, torch dtype); numpy has no
+# bfloat16, so BF16 is read as uint16 and reinterpreted
+_SAFETENSORS_DTYPES = {
+    "F32": ("<f4", torch.float32),
+    "F16": ("<f2", torch.float16),
+    "BF16": ("<u2", torch.bfloat16),
+    "I64": ("<i8", torch.int64),
+    "I32": ("<i4", torch.int32),
+}
+
+
+def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Read a `.safetensors` file -> {key: host tensor}. The file is
+    memory-mapped (copy-on-write), so the tensors share its pages and a later
+    copy onto the card is the only copy. Raises ValueError on a header that is cut
+    short, whose entries overlap or run past the end of the file, or whose
+    sizes disagree with their shapes, and on a dtype outside F32, F16, BF16,
+    I64 and I32."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as f:
+        head = f.read(8)
+        if len(head) < 8:
+            raise ValueError(f"{path}: {size} bytes, too short for a safetensors header")
+        (n_header,) = struct.unpack("<Q", head)
+        if n_header > size - 8:
+            raise ValueError(f"{path}: header of {n_header} bytes runs past the end of the file ({size} bytes)")
+        header = json.loads(f.read(n_header))
+    header.pop("__metadata__", None)
+    data_start, data_len = 8 + n_header, size - 8 - n_header
+    spans = []
+    for key, e in header.items():
+        if e.get("dtype") not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: {key} has dtype {e.get('dtype')!r}; the port reads "
+                             f"{sorted(_SAFETENSORS_DTYPES)}")
+        begin, end = e["data_offsets"]
+        itemsize = np.dtype(_SAFETENSORS_DTYPES[e["dtype"]][0]).itemsize
+        if not 0 <= begin <= end <= data_len:
+            raise ValueError(f"{path}: {key} spans bytes [{begin}, {end}) outside the {data_len} data bytes")
+        if end - begin != int(np.prod(e["shape"], dtype=np.int64)) * itemsize:
+            raise ValueError(f"{path}: {key} holds {end - begin} bytes, not those of shape {e['shape']} "
+                             f"in {e['dtype']}")
+        spans.append((begin, end, key))
+    spans.sort()
+    for (_, end0, k0), (begin1, _, k1) in zip(spans, spans[1:]):
+        if begin1 < end0:
+            raise ValueError(f"{path}: {k0} and {k1} overlap")
+    # np.memmap refuses an empty map; a file of empty tensors holds no data bytes
+    data = np.zeros(0, np.uint8)
+    if data_len:
+        data = np.memmap(path, np.uint8, mode="c", offset=data_start, shape=(data_len,))
+    out = {}
+    for begin, end, key in spans:
+        e = header[key]
+        np_dtype, dtype = _SAFETENSORS_DTYPES[e["dtype"]]
+        arr = data[begin:end].view(np_dtype)
+        if arr.ctypes.data % arr.itemsize:
+            arr = arr.copy()  # an entry off its dtype's alignment
+        t = torch.from_numpy(arr)
+        if dtype is torch.bfloat16:
+            t = t.view(torch.bfloat16)
+        t = t.reshape(e["shape"])
+        out[key] = t
+    return out
+
+
+def _ignorable(key: str, cfg: G2VLMConfig) -> bool:
+    """Checkpoint keys that no module of the port consumes, legitimately: the
+    BatchNorm step counters, and the frozen sky segmenter under the loss
+    module unless the config trains the conf head (then it is consumed)."""
+    if key.endswith("num_batches_tracked"):
+        return True
+    if not cfg.train_conf_pi3 and key.startswith("Pi3Loss."):
+        return True
+    return False
+
+
+def model_keys(cfg: G2VLMConfig) -> List[str]:
+    """The keys a model of `cfg` consumes, in its order: its state-dict keys,
+    read from a model built on the meta device (no memory)."""
+    with torch.device("meta"):
+        return list(G2VLM(cfg).state_dict())
+
+
+def audit_keys(state_dict: Mapping, cfg: G2VLMConfig) -> Dict[str, List[str]]:
+    """Exact two-way key diff between a checkpoint's state dict and what a
+    model of `cfg` consumes: {"unknown": checkpoint keys no module consumes
+    (sorted), "missing": keys the model needs and the checkpoint lacks}; both
+    empty on a clean checkpoint. "missing" lists every such key, in the
+    model's order; the JAX package's mapper stops at the first one it reads,
+    so the two lists are equal where one key is missing."""
+    return _diff_keys(state_dict, model_keys(cfg), cfg)
+
+
+def _diff_keys(state_dict: Mapping, want: List[str], cfg: G2VLMConfig) -> Dict[str, List[str]]:
+    """audit_keys against the key list `want` of a model of `cfg`."""
+    wanted = set(want)
+    return {
+        "unknown": sorted(k for k in state_dict if k not in wanted and not _ignorable(k, cfg)),
+        "missing": [k for k in want if k not in state_dict],
+    }
+
+
+def load_checkpoint(
+    checkpoint_dir: str,
+    strict: bool = True,
+    device="cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[G2VLM, G2VLMConfig]:
+    """Read a reference checkpoint directory (text_config.json /
+    vit_config.json / dino_config.json + model.safetensors) into a model built
+    on `device` in `dtype` (each tensor is cast on its one copy into the
+    model). A key the model needs and the file lacks raises KeyError with its
+    name; with `strict`, so does a file key that no module consumes (up to 20
+    listed), so a renamed key can never load garbage silently. The default
+    device is the card, and without one this raises, as `build_model` does."""
+    cfg = G2VLMConfig.from_checkpoint_dir(checkpoint_dir)
+    model = build_model(cfg, device=device, dtype=dtype, seed=None)
+    sd = load_safetensors(os.path.join(checkpoint_dir, "model.safetensors"))
+    want = list(model.state_dict())
+    diff = _diff_keys(sd, want, cfg)
+    if diff["missing"]:
+        raise KeyError(diff["missing"][0])
+    if strict and diff["unknown"]:
+        raise KeyError(f"checkpoint has {len(diff['unknown'])} keys no module consumed "
+                       f"(renamed/extra?): {diff['unknown'][:20]}")
+    model.load_state_dict({k: sd[k] for k in want}, strict=True)
+    return model, cfg
+
+
+def module_checksums(model) -> Dict[str, Dict]:
+    """Per-top-level-module fingerprints of a model or of a state dict in its
+    key space: {module: {leaves (tensors), params (elements), value_sum (fp64
+    sum of the values)}}, to compare a load against another implementation's
+    load of the same checkpoint without shipping the weights."""
+    tensors = model.state_dict() if isinstance(model, nn.Module) else model
+    out: Dict[str, Dict] = {}
+    for key, t in tensors.items():
+        info = out.setdefault(key.split(".", 1)[0], {"leaves": 0, "params": 0, "value_sum": 0.0})
+        info["leaves"] += 1
+        info["params"] += t.numel()
+        info["value_sum"] += float(t.sum(dtype=torch.float64))
+    return out
+
+
+def _audit_cli(checkpoint_dir: str) -> int:
+    """`python -m g2vlm_tpu_torch.weights --audit <ckpt_dir>`: the exact
+    two-way key diff (checkpoint keys no module consumes; keys the model needs
+    and the checkpoint lacks), then per-module checksums of what the model
+    consumes. Host only: the tensors stay memory-mapped. Exit code 0 only on
+    a clean two-way match."""
+    cfg = G2VLMConfig.from_checkpoint_dir(checkpoint_dir)
+    sd = load_safetensors(os.path.join(checkpoint_dir, "model.safetensors"))
+    print(f"checkpoint: {len(sd)} tensors, {sum(v.numel() for v in sd.values()) / 1e9:.3f}B params")
+    want = model_keys(cfg)
+    diff = _diff_keys(sd, want, cfg)
+    for kind in ("missing", "unknown"):
+        ks = diff[kind]
+        label = "model needs, checkpoint lacks" if kind == "missing" else "checkpoint has, no module consumed"
+        print(f"{kind} ({label}): {len(ks)}")
+        for k in ks[:50]:
+            print(f"  {k}")
+        if len(ks) > 50:
+            print(f"  ... and {len(ks) - 50} more")
+    if diff["missing"]:
+        print("AUDIT: FAIL (cannot build the model: missing keys above)")
+        return 1
+    print("per-module checksums (count / value sum):")
+    for mod, info in sorted(module_checksums({k: sd[k] for k in want}).items()):
+        print(f"  {mod:22s} {info['params']:>13,d}  sum={info['value_sum']:+.6e}")
+    if diff["unknown"]:
+        print("AUDIT: FAIL (unconsumed checkpoint keys above)")
+        return 1
+    print("AUDIT: PASS (exact two-way key match)")
+    return 0
+
+
+if __name__ == "__main__":
+    import argparse
+    import sys
+
+    ap = argparse.ArgumentParser(
+        description="Strict two-way audit of a reference checkpoint dir (text/vit/dino_config.json + "
+                    "model.safetensors)")
+    ap.add_argument("--audit", metavar="CKPT_DIR", required=True)
+    sys.exit(_audit_cli(ap.parse_args().audit))

@@ -6,12 +6,12 @@ Usage:
   python infer_chat_torch.py --image a.jpg b.jpg --question "Which point is closer?"
   python infer_chat_torch.py --tiny --device cpu --synthetic 2      # CPU smoke, no image file
 
-Without a checkpoint the weights are random (from --seed) and the text is the
-generated token ids. Runs on the card unless --device cpu is given.
+With --model_path the weights and the vocabulary come from the checkpoint
+directory; without it the weights are random (from --seed) and the text is
+the generated token ids. Runs on the card unless --device cpu is given.
 """
 
 import argparse
-import dataclasses
 
 
 def parse_args(argv=None):
@@ -24,7 +24,8 @@ def parse_args(argv=None):
         "--question", type=str,
         default="The red point and blue point in the image mark two positions. Which one is closer to the camera?",
     )
-    ap.add_argument("--model_path", type=str, default=None, help="not ported yet: needs the checkpoint ingest")
+    ap.add_argument("--model_path", type=str, default=None,
+                    help="checkpoint dir: text/vit/dino_config.json, model.safetensors and the vocabulary files")
     ap.add_argument("--max_length", type=int, default=100)
     ap.add_argument("--do_sample", action="store_true")
     ap.add_argument("--temperature", type=float, default=1.0)
@@ -40,36 +41,26 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def build_pipeline(args):
+    """The pipeline of a parsed command line: the checkpoint and its
+    vocabulary with --model_path, else random weights from --seed."""
+    import torch
+
+    from g2vlm_tpu_torch.cli import pipeline_for_cli
+
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    return pipeline_for_cli(args.model_path, tiny=args.tiny, device=args.device, dtype=dtype, seed=args.seed,
+                            attn_impl="int8" if args.attn_int8 else "auto", attn_pipe=args.attn_pipe)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.model_path:
-        raise NotImplementedError("--model_path: the checkpoint ingest and the tokenizer files are not ported yet")
     if args.video:
         raise NotImplementedError("--video: the video frame sampler is not ported yet")
 
     import numpy as np
-    import torch
 
-    from g2vlm_tpu_torch.config import G2VLMConfig, tiny_test_config
-    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
-    from g2vlm_tpu_torch.weights import build_model
-
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda (the default) needs an NVIDIA GPU; pass --device cpu for the CPU")
-    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    print("no --model_path: using random weights (smoke mode)")
-    new_token_ids = None
-    if args.tiny:
-        # the tokenizer-less prompt ids reach 5,100 and the default special ids 151,653: widen the
-        # tiny vocabulary and take small special ids (an id past the table raises here)
-        tiny = tiny_test_config()
-        cfg = dataclasses.replace(tiny, llm=dataclasses.replace(tiny.llm, vocab_size=5120))
-        new_token_ids = dict(bos_token_id=7, eos_token_id=8, start_of_image=11, end_of_image=12)
-    else:
-        cfg = G2VLMConfig()
-    model = build_model(cfg, device=args.device, dtype=dtype, seed=args.seed)
-    pipe = G2VLMPipeline(model, cfg, new_token_ids=new_token_ids,
-                         attn_impl="int8" if args.attn_int8 else "auto", attn_pipe=args.attn_pipe)
+    pipe = build_pipeline(args)
     if args.synthetic:
         rng = np.random.default_rng(args.seed)
         inputs = list(rng.integers(0, 256, (args.synthetic, 294, 518, 3), dtype=np.uint8))

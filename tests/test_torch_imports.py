@@ -1,5 +1,6 @@
-"""The port imports nothing of JAX and nothing of the JAX package, and its
-own copy of the configs equals the JAX package's field for field."""
+"""The port imports nothing of JAX, nothing of the JAX package and not the
+`safetensors` package, and its own copy of the configs equals the JAX
+package's field for field."""
 
 import dataclasses
 import pkgutil
@@ -16,6 +17,11 @@ import g2vlm_tpu_torch.config as tcfg
 import g2vlm_tpu_torch.data.images as timages
 
 REPO = Path(__file__).resolve().parent.parent
+# the root scripts of the port
+_SCRIPTS = ("chip_smoke", "train_torch", "infer_chat_torch", "infer_recon_torch", "eval_points_torch",
+            "eval_camera_torch")
+# packages the card's machine lacks or the port must not load: the port reads safetensors itself
+_BANNED = ("jax", "jaxlib", "optax", "g2vlm_tpu", "safetensors")
 
 
 def _port_modules():
@@ -25,15 +31,16 @@ def _port_modules():
 def test_every_port_module_and_script_imports_without_jax():
     """In a fresh interpreter: import every module under g2vlm_tpu_torch and
     the root scripts (import only), then look at sys.modules."""
-    modules = _port_modules() + ["chip_smoke", "train_torch", "infer_chat_torch"]
+    modules = _port_modules() + list(_SCRIPTS)
     assert "g2vlm_tpu_torch.train.trainer" in modules and "g2vlm_tpu_torch.config" in modules
-    for name in ("models.qwen_vit", "inference.decoding", "data.vit_preprocess", "data.tokenizer"):
+    for name in ("cli", "models.qwen_vit", "inference.decoding", "data.vit_preprocess", "data.tokenizer", "utils.ply",
+                 "utils.metrics", "utils.rotation", "utils.alignment", "data.synthetic", "data.recon_dataset"):
         assert "g2vlm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'g2vlm_tpu'))\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {_BANNED!r})\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -42,15 +49,14 @@ def test_every_port_module_and_script_imports_without_jax():
 
 
 def test_no_port_source_names_the_jax_package_in_an_import():
-    sources = list((REPO / "g2vlm_tpu_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "train_torch.py", REPO / "infer_chat_torch.py"]
-    assert len(sources) > 25
+    sources = list((REPO / "g2vlm_tpu_torch").rglob("*.py")) + [REPO / f"{name}.py" for name in _SCRIPTS]
+    assert len(sources) > 30
     for path in sources:
         for line in path.read_text().splitlines():
             words = line.strip().split()
             if words[:1] in (["import"], ["from"]):
                 root = words[1].split(".")[0]
-                assert root not in ("jax", "jaxlib", "optax", "g2vlm_tpu"), f"{path.name}: {line.strip()}"
+                assert root not in _BANNED, f"{path.name}: {line.strip()}"
 
 
 @pytest.mark.parametrize(

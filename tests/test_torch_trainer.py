@@ -303,8 +303,63 @@ def test_train_torch_entry_point_runs_on_the_cpu():
     assert "step 1 " in proc.stderr and "done" in proc.stderr
 
 
+def test_train_torch_model_path_matches_in_memory(tmp_path):
+    """--model_path: the fp32 masters come from the checkpoint (and the
+    vocabulary from its files); with the weights of the in-memory run's
+    seeded init, step 0 logs the same metrics."""
+    from torch_checkpoint import write_checkpoint
+
+    with_vit = port_tiny_test_config()  # what the checkpoint's config files describe
+    sd = build_model(with_vit, device="cpu", seed=0).state_dict()
+    in_memory = build_model(CFG, device="cpu", seed=0).state_dict()
+    assert all(torch.equal(sd[k], v) for k, v in in_memory.items())  # the ViT draws come last
+    ck = write_checkpoint(tmp_path / "ckpt", sd, with_vit, vocab=True)
+    step0 = []
+    for extra in ([], ["--model_path", str(ck)]):
+        proc = subprocess.run(
+            [sys.executable, "train_torch.py", "--tiny", "--synthetic", "--steps", "1", "--device", "cpu",
+             "--log_every", "1", *extra], cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        line = next(line for line in proc.stderr.splitlines() if "step 0 " in line)
+        step0.append([w for w in line[line.index("step 0 "):].split() if not w.endswith("ms/step")])
+    assert "loss=" in " ".join(step0[0]) and step0[0] == step0[1]
+
+
+def _step0_metrics(stderr):
+    line = next(line for line in stderr.splitlines() if "step 0 " in line)
+    words = line[line.index("step 0 ") + len("step 0 "):].split()
+    return {k: float(v) for k, v in (w.split("=") for w in words if "=" in w)}
+
+
+def test_train_torch_model_path_matches_jax_train_py(tmp_path):
+    """`train_torch.py --model_path` against `train.py --model_path` on one
+    checkpoint directory (perturbed weights, the checkpoint's config with the
+    ViT tower, the bpe_fixture vocabulary): both trainers draw the same
+    synthetic pack from the seed, and every step-0 metric agrees within 1e-4
+    of its magnitude plus the 1e-4 of the printed rounding."""
+    import os
+
+    from torch_checkpoint import random_state_dict, write_checkpoint
+
+    ck = write_checkpoint(tmp_path / "ckpt", random_state_dict(), vocab=True)
+    common = ["--tiny", "--synthetic", "--steps", "1", "--log_every", "1", "--model_path", str(ck)]
+    runs = {}
+    for script, extra, env in (
+        ("train.py", ["--checkpoint_dir", str(tmp_path / "out")], dict(os.environ, JAX_PLATFORMS="cpu")),
+        ("train_torch.py", ["--device", "cpu"], None),
+    ):
+        proc = subprocess.run([sys.executable, script, *common, *extra], cwd=REPO, capture_output=True, text=True,
+                              timeout=300, env=env)
+        assert proc.returncode == 0, (script, proc.stderr[-2000:])
+        runs[script] = _step0_metrics(proc.stderr)
+    want, got = runs["train.py"], runs["train_torch.py"]
+    assert {"loss", "ce", "dl", "grad_norm", "local_pts_loss"} <= set(want) and set(got) == set(want)
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-4 * abs(v) + 1e-4, (k, got[k], v)
+
+
 @pytest.mark.parametrize("flags", [["--data_config", "x.yaml"], ["--resume"], ["--dp", "2"], ["--train_conf"],
-                                   ["--model_path", "ckpt"], ["--max_vit_patches", "64"], []])
+                                   ["--bootstrap_moe"], ["--max_vit_patches", "64"], []])
 def test_train_torch_flags_that_wait_for_a_module_raise(flags):
     sys.path.insert(0, str(REPO))
     try:

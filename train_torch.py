@@ -10,9 +10,13 @@ The recon stage at full width on one H100 (16 views of 294x518 in a
   python train_torch.py --synthetic --views 16 --hw 294 518 --tokens 12800 \\
       --split_layout --freeze_und --factored_v --mu_dtype bfloat16 --steps 10
 
+From a reference checkpoint directory (fp32 masters from its weights, the
+vocabulary from its tokenizer files):
+  python train_torch.py --synthetic --model_path /path/to/G2VLM-2B-MoT --steps 10
+
 Runs on `cuda` unless `--device cpu` is given, and raises when `cuda` is
-asked for and absent. Real datasets, checkpoints, resuming and multi-GPU
-meshes are not ported yet: their flags raise NotImplementedError.
+asked for and absent. Real datasets, resuming and multi-GPU meshes are not
+ported yet: their flags raise NotImplementedError.
 """
 
 import argparse
@@ -22,7 +26,7 @@ import itertools
 # flags of train.py that wait for modules of the port, with the ROADMAP item
 _NOT_PORTED = {
     "data_config": "the packer and the datasets (ROADMAP A.8: train/dataloader.py, data/packing.py)",
-    "model_path": "checkpoint ingest (ROADMAP A.10: weights.py safetensors ingest)",
+    "bootstrap_moe": "weights.init_moe_from_dense and the dense / moe layer modules (ROADMAP A.10b)",
     "resume": "train/checkpoint.py (ROADMAP A.8)",
     "dp": "multi-GPU meshes (ROADMAP A.9)",
     "tp": "multi-GPU meshes (ROADMAP A.9)",
@@ -64,9 +68,11 @@ def parse_args(argv=None):
     ap.add_argument("--tokens", type=int, default=12800, help="full-size synthetic pack: padded length")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--model_path", type=str, default=None,
+                    help="checkpoint dir: text/vit/dino_config.json, model.safetensors and the vocabulary files")
     # accepted for train.py's command lines; each raises until its module is ported
     ap.add_argument("--data_config", type=str, default=None)
-    ap.add_argument("--model_path", type=str, default=None)
+    ap.add_argument("--bootstrap_moe", action="store_true")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
@@ -182,15 +188,25 @@ def main(argv=None):
     from g2vlm_tpu_torch.config import G2VLMConfig, tiny_test_config
     from g2vlm_tpu_torch.train import trainer
     from g2vlm_tpu_torch.train.logging import StepTimer, create_logger, format_metrics, maybe_profile
-    from g2vlm_tpu_torch.weights import build_model
+    from g2vlm_tpu_torch.weights import build_model, load_checkpoint
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs an NVIDIA GPU; pass --device cpu for the CPU")
     device = torch.device(args.device)
     logger = create_logger()
-    cfg = tiny_test_config(visual_und=False) if args.tiny else G2VLMConfig(visual_und=False)
+    if args.model_path:
+        from g2vlm_tpu_torch.data.tokenizer import load_tokenizer
 
-    model = build_model(cfg, device=device, dtype=torch.float32, seed=args.seed).train()
+        # the checkpoint's config, whatever --tiny says, as train.py takes it
+        model, cfg = load_checkpoint(args.model_path, device=device, dtype=torch.float32)
+        # the data path (ROADMAP A.8) will tokenize with it; loaded now, as train.py does, so that
+        # missing vocabulary files fail before any step
+        tokenizer, new_token_ids, _ = load_tokenizer(args.model_path)
+        logger.info(f"checkpoint {args.model_path}: vocabulary of {len(tokenizer)}, special ids {new_token_ids}")
+    else:
+        cfg = tiny_test_config(visual_und=False) if args.tiny else G2VLMConfig(visual_und=False)
+        model = build_model(cfg, device=device, dtype=torch.float32, seed=args.seed)
+    model.train()
     schedule = trainer.warmup_cosine_schedule(0.0, args.lr, args.warmup, max(args.steps, args.warmup + 1))
     optimizer = trainer.make_optimizer(
         model, schedule=schedule, weight_decay=args.weight_decay,
