@@ -19,7 +19,7 @@ Phases (each prints its result; any failure raises and the exit code is 1):
   6. the recon slice: G2VLMConfig(visual_und=False) with random bf16 weights, 32
      uint8 views of 294x518, launch counts, shapes, finiteness and timing;
   7. K3 / K6 (the lse forwards): out bitwise equal to K2 / K1, lse against the
-     plain version, at the training shapes, two launches bitwise equal, each
+     plain version, at the training shapes (and phase 16's), two launches bitwise equal, each
      case beside its bound and the library call;
   8. K5 / K7 (the dq and dkv backward kernels) against the plain backward at
      the training shapes, a ragged pack and one with whole rows and columns of
@@ -56,7 +56,7 @@ Phases (each prints its result; any failure raises and the exit code is 1):
  15. the recon entry path from files on disk: (a) a full-width checkpoint cut in
      depth (2 DINOv2, 2 decoder and 2 ViT layers, vocab 5,120; the Pi3 heads at
      their full depth, which the reference's config files cannot cut) written by
-     this script, audited by `python -m g2vlm_tpu_torch.weights --audit`, loaded
+     the port's `weights.save_safetensors`, audited by `python -m g2vlm_tpu_torch.weights --audit`, loaded
      by `load_checkpoint` bitwise equal, and `G2VLMPipeline.recon` on 8 PNG
      views bitwise equal on the loaded and the original model, with K1 / K2
      launch counts; (b) `infer_recon_torch.py` on 32 PNG views of 294x518 at
@@ -65,7 +65,29 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      whole and in synchronised spans: host `load_views`, host normalisation,
      upload, forward, copies to numpy; (c) `eval_points_torch.py` and
      `eval_camera_torch.py` on a synthetic scene at full size, both at once
-     (exit 0, finite scores).
+     (exit 0, finite scores);
+ 16. K3 and K5 at head dim 80, the ViT's training shape (23,328 rows, 16:16
+     heads, 8 images of 2,916 rows each a segment), against their plain
+     versions as in phases 7-8 (run as the last case of their loop), beside
+     their bounds and the library call;
+ 17. the joint training step: (a) a cut-depth, full-width G2VLMConfig() with the
+     ViT, --freeze_recon, one pack of 2 DINOv2 views and 2 ViT images, on the
+     card (fp32 masters, bf16 compute, kernels) against the CPU (fp32): loss,
+     gradient norms, launch counts; (b) G2VLMConfig() at full width and depth
+     (4.54 B parameters), --split_layout --freeze_recon --factored_v --mu_dtype
+     bfloat16, per-layer and per-block checkpointing, on one pack built by the
+     port's SequencePacker from PNG files as a recon_then_und sample lays it out
+     (8 DINOv2 views of 294x518, 8 ViT images of 768x768 smart-resized to
+     756x756, a question and a 32-token answer; 12,137 tokens in 12,800 rows):
+     host ms per pack, ms per step, real tokens/s, peak memory, exact launch
+     counts, frozen leaves and their EMA bitwise unchanged;
+ 18. the data path and resume through train_torch.py --data_config at cut depth
+     (synthetic scenes and image conversations, both groups): run A takes 4
+     steps with a checkpoint every 2, run B 2 steps and then 2 more with
+     --resume; B's steps 2-3 against A's within 1e-3, data_status equal, a
+     checkpoint restored onto the card bitwise its file, write and restore
+     seconds. Subprocesses with PYTHONHASHSEED=0; the YAML is written with
+     PyYAML, whose absence fails the phase.
 Every kernel is also timed beside the one PyTorch library call that computes
 the same function (a yardstick only; the port never calls it). The last line is
 {"ok": true, "device": {...}}; before it, the card's line and one JSON line
@@ -81,7 +103,6 @@ import json
 import os
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
@@ -107,6 +128,8 @@ PARENT_K2_D80_MS = 1.604
 PARENT_K8_MS = {"chat_prefill_32_views": 91.014, "vit_chunk_4_images": 1.774}
 PARENT_INT8_TTFT_MS = 4591.3
 TRAIN_VIEWS, TRAIN_HW, TRAIN_TOKENS = 16, (294, 518), 12800
+# the joint step's ViT images: 8 of 768x768, smart-resized to 756x756 = 54 x 54 patch rows each
+VIT_TRAIN_IMAGES, VIT_ROWS_PER_IMAGE = 8, 2916
 
 
 def _fail(msg: str) -> None:
@@ -206,21 +229,32 @@ def _ratio(ms, library_ms):
     return f"; kernel / library {ms / library_ms:.2f}x" if library_ms else ""
 
 
-def _step_launches(c, chunks=1, remat_group=1, dino_remat_group=1):
+def _step_launches(c, chunks=1, remat_group=1, dino_remat_group=1, vit=False, freeze_recon=False):
     """Launches of one training step, derived from the config: every layer's lse forward runs
     twice (the forward, and its recomputation under per-layer checkpointing), each backward
     kernel once; the Pi3 decoders run once per view chunk. Groups of g > 1 layers checkpointed
     around the per-layer checkpoints run g - 1 more forwards a group: the group's recomputation
-    stops once the last layer's input is back, and that layer's own checkpoint recomputes it."""
+    stops once the last layer's input is back, and that layer's own checkpoint recomputes it.
+    `vit`: the pack holds ViT images and the ViT trains: each of its blocks (one checkpoint a
+    block) runs K3 twice and K5 once, at head dim 80. `freeze_recon`: DINOv2 and its inputs get
+    no gradient, so it runs the plain forward K1 once a layer and no backward; the Pi3 heads,
+    frozen too, still see hidden states that need a gradient and keep K6 / K7."""
     def lse(layers, group):
         return 2 * layers + (layers // group * (group - 1) if group > 1 else 0)
 
     pi3 = c.pi3.depth * (2 + 2 * c.use_global_points) * chunks
-    batched, segment = c.dino.num_hidden_layers + pi3, c.llm.num_hidden_layers
-    return {"flash_segment_attention_lse": lse(segment, remat_group), "flash_segment_attention_bwd_dq": segment,
-            "flash_segment_attention_bwd_dkv": segment,
-            "flash_batched_attention_lse": lse(c.dino.num_hidden_layers, dino_remat_group) + 2 * pi3,
-            "flash_batched_attention_bwd_dq": batched, "flash_batched_attention_bwd_dkv": batched}
+    segment = c.llm.num_hidden_layers + (c.vit.depth if vit else 0)
+    segment_lse = lse(c.llm.num_hidden_layers, remat_group) + (2 * c.vit.depth if vit else 0)
+    dino = c.dino.num_hidden_layers
+    out = {"flash_segment_attention_lse": segment_lse, "flash_segment_attention_bwd_dq": segment,
+           "flash_segment_attention_bwd_dkv": segment}
+    if freeze_recon:
+        out.update({"flash_batched_attention": dino, "flash_batched_attention_lse": 2 * pi3,
+                    "flash_batched_attention_bwd_dq": pi3, "flash_batched_attention_bwd_dkv": pi3})
+    else:
+        out.update({"flash_batched_attention_lse": lse(dino, dino_remat_group) + 2 * pi3,
+                    "flash_batched_attention_bwd_dq": dino + pi3, "flash_batched_attention_bwd_dkv": dino + pi3})
+    return out
 
 
 def _rel_errors(got, want):
@@ -309,6 +343,8 @@ def main() -> None:
     paths_run["recon_call"], paths_run["train_step"], recon_ms = _recon_and_train_phases(env)
     paths_run.update(_chat_phases(env, recon_ms))
     paths_run["recon_entry"] = _recon_entry_phase(env)
+    paths_run["joint_step"] = _joint_step_phase(env)
+    _data_resume_phase(env)
 
     for kname, e in kernels.items():
         for path, counts in paths_run.items():
@@ -331,7 +367,7 @@ def _recon_and_train_phases(env):
     import torch
 
     import train_torch
-    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
     from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
     from g2vlm_tpu_torch.ops import flash_attention as fa
     from g2vlm_tpu_torch.ops.masks import TokenInfo, make_segment_mask, make_token_info
@@ -453,12 +489,7 @@ def _recon_and_train_phases(env):
 
     # ---- 5. recon parity: card bf16 (kernels) vs CPU fp32 (plain) -------------
     full_cfg = G2VLMConfig(visual_und=False)
-    cut = dataclasses.replace(
-        full_cfg,
-        llm=dataclasses.replace(full_cfg.llm, num_hidden_layers=2, vocab_size=5120),
-        dino=dataclasses.replace(full_cfg.dino, num_hidden_layers=2),
-        pi3=dataclasses.replace(full_cfg.pi3, depth=2),
-    )
+    cut = cut_depth_config(full_cfg, 2)
     token_ids = dict(bos_token_id=1, eos_token_id=2, start_of_image=3, end_of_image=4)
     frames2 = np.random.default_rng(1).integers(0, 256, (2, 294, 518, 3), dtype=np.uint8)
     cpu_model = build_model(cut, device="cpu", dtype=torch.float32, seed=0)
@@ -574,11 +605,17 @@ def _recon_and_train_phases(env):
         print(f"[bwd] {tag}: two launches bitwise equal")
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # phase 16 is the last case: the ViT's training shape, 8 images of 2,916 patch rows each an
+    # attention segment, 16:16 heads of 80 (the joint step's shape, phase 17)
+    vit_seg = torch.arange(VIT_TRAIN_IMAGES, device=dev, dtype=torch.int32).repeat_interleave(VIT_ROWS_PER_IMAGE)
+    vit_train_info = TokenInfo(vit_seg, vit_seg, torch.full_like(vit_seg, -1),
+                               torch.arange(len(vit_seg), device=dev, dtype=torch.int32))
     for tag, info, h, kvh, d, iters in (
         ("train_pack_16_views", train_info, 12, 2, 128, 5),
         ("mixed_docs_padded", mixed, 12, 2, 128, 20),
         ("ragged_333_rows", ragged_pack, 12, 2, 128, 20),
         ("skip_rows_and_columns", skip_pack, 6, 2, 96, 20),
+        ("vit_train_8_images_d80", vit_train_info, 16, 16, 80, 3),
     ):
         n = info.seq_len
         q, k, v, dout = rnd(n, h, d), rnd(n, kvh, d), rnd(n, kvh, d), rnd(n, h, d)
@@ -617,7 +654,7 @@ def _recon_and_train_phases(env):
         k5q["max_abs_err"] = max(k5q["max_abs_err"], worst)
         k5kv["max_abs_err"] = max(k5kv["max_abs_err"], worst)
         del got, want, plain_lse
-        if tag == "train_pack_16_views":
+        if tag in ("train_pack_16_views", "vit_train_8_images_d80"):
             def run(which):
                 return fa._segment_backward_cuda(q, k, v, out, lse, dout, meta, meta, codes, None, which=which)
 
@@ -643,14 +680,21 @@ def _recon_and_train_phases(env):
             except (RuntimeError, TypeError) as e:
                 why_bwd = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
             shape = f"({n},{h}:{kvh},{d})"
-            k3e.update(ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=by3, library_ms=lib_fwd, shape=shape)
             both = dict(dq_dk_dv_ms=ms_both, function_bound_ms=fb, function_bound_by=fby,
                         bound_counts="ms / bound_ms: this kernel alone and its own products (dq 3, dkv 4); "
                                      "dq_dk_dv_ms / function_bound_ms: both kernels and the 5 products the "
                                      "function needs", plain_and_library_cover="dq+dk+dv")
-            k5q.update(ms=ms_dq, plain_ms=plain5, bound_ms=bq, bound_by=byq, library_ms=lib_bwd, shape=shape, **both)
-            k5kv.update(ms=ms_dkv, plain_ms=plain5, bound_ms=bkv, bound_by=bykv, library_ms=lib_bwd, shape=shape,
-                        **both)
+            rows = (
+                (k3e, dict(ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=by3, library_ms=lib_fwd, shape=shape)),
+                (k5q, dict(ms=ms_dq, plain_ms=plain5, bound_ms=bq, bound_by=byq, library_ms=lib_bwd, shape=shape,
+                           **both)),
+                (k5kv, dict(ms=ms_dkv, plain_ms=plain5, bound_ms=bkv, bound_by=bykv, library_ms=lib_bwd,
+                            shape=shape, **both)),
+            )
+            for e, row in rows:  # the decoder's shape heads the entry; each shape also under "at"
+                e.setdefault("at", {})[tag] = row
+                if tag == "train_pack_16_views":
+                    e.update(row)
             blocks = fa.bwd_blocks(n, n, h, kvh, 1, fa.dkv_head_split(n, n, h, kvh, 1, n_sm))
             print(f"[K5] {tag}: dq kernel {ms_dq:.3f} ms (its bound {bq:.3f} by {byq}), dkv kernel {ms_dkv:.3f} ms "
                   f"(its bound {bkv:.3f} by {bykv}), dq+dk+dv {ms_both:.3f} ms against the function's bound "
@@ -909,7 +953,7 @@ def _chat_phases(env, recon_ms):
     import numpy as np
     import torch
 
-    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
     from g2vlm_tpu_torch.data.device_preprocess import vit_device_grid
     from g2vlm_tpu_torch.inference import decoding
     from g2vlm_tpu_torch.inference.pipeline import UPLOAD_CHUNKS, G2VLMPipeline
@@ -1090,13 +1134,7 @@ def _chat_phases(env, recon_ms):
     del q, k, v, q2, k2, want, got, extreme
 
     # ---- 12. chat parity at cut depth: card bf16 (kernels) vs CPU fp32 (plain) --------
-    cut = dataclasses.replace(
-        cfg,
-        llm=dataclasses.replace(cfg.llm, num_hidden_layers=2, vocab_size=5120),
-        dino=dataclasses.replace(cfg.dino, num_hidden_layers=2),
-        vit=dataclasses.replace(cfg.vit, depth=2),
-        pi3=dataclasses.replace(cfg.pi3, depth=2),
-    )
+    cut = cut_depth_config(cfg, 2)
     token_ids = dict(bos_token_id=1, eos_token_id=2, start_of_image=3, end_of_image=4)
     frames8 = list(np.random.default_rng(1).integers(0, 256, (8, 294, 518, 3), dtype=np.uint8))
 
@@ -1393,28 +1431,6 @@ def _chat_phases(env, recon_ms):
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def _write_safetensors(path: str, state_dict) -> None:
-    """A `.safetensors` file in a few lines of this script's own (the card's
-    machine has no safetensors package): an 8-byte little-endian header
-    length, a JSON header padded to 8 bytes, then each tensor's raw bytes."""
-    import torch
-
-    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
-    header, tensors, offset = {}, [], 0
-    for key, t in state_dict.items():
-        t = t.detach().contiguous().cpu()
-        n = t.numel() * t.element_size()
-        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
-        tensors.append(t)
-        offset += n
-    head = json.dumps(header).encode()
-    head += b" " * (-len(head) % 8)
-    with open(path, "wb") as f:
-        f.write(struct.pack("<Q", len(head)) + head)
-        for t in tensors:
-            f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
-
-
 def _write_views(folder: str, n: int, seed: int):
     """n random 294x518 RGB PNGs in `folder`; returns their paths."""
     import numpy as np
@@ -1471,12 +1487,12 @@ def _recon_entry_phase(env):
     import numpy as np
     import torch
 
-    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
     from g2vlm_tpu_torch.data.images import load_views, resnet_normalize
     from g2vlm_tpu_torch.data.synthetic import make_tiny_scene_jsonl
     from g2vlm_tpu_torch.inference.pipeline import RECON_PROMPT, G2VLMPipeline
     from g2vlm_tpu_torch.ops import flash_attention as fa
-    from g2vlm_tpu_torch.weights import build_model, load_checkpoint
+    from g2vlm_tpu_torch.weights import build_model, load_checkpoint, save_safetensors
 
     dev, card = env.dev, env.card
     K1, K2 = "flash_batched_attention", "flash_segment_attention"
@@ -1497,19 +1513,14 @@ def _recon_entry_phase(env):
 
     # ---- 15a. checkpoint round trip at full width, cut depth ------------------------------
     full = G2VLMConfig()
-    cut = dataclasses.replace(
-        full,
-        llm=dataclasses.replace(full.llm, num_hidden_layers=2, vocab_size=5120),
-        dino=dataclasses.replace(full.dino, num_hidden_layers=2),
-        vit=dataclasses.replace(full.vit, depth=2),
-    )
+    cut = dataclasses.replace(cut_depth_config(full, 2), pi3=full.pi3)  # the config files hold no Pi3 field
     token_ids = dict(bos_token_id=1, eos_token_id=2, start_of_image=3, end_of_image=4)
     model = build_model(cut, device=dev, dtype=torch.bfloat16, seed=0)
     sd = model.state_dict()
     ckpt = os.path.join(work, "ckpt")
     os.makedirs(ckpt)
     t0 = time.perf_counter()
-    _write_safetensors(os.path.join(ckpt, "model.safetensors"), sd)
+    save_safetensors(os.path.join(ckpt, "model.safetensors"), sd)
     for name, sub in (("text_config.json", cut.llm), ("vit_config.json", cut.vit), ("dino_config.json", cut.dino)):
         with open(os.path.join(ckpt, name), "w") as f:
             json.dump(dataclasses.asdict(sub), f)
@@ -1624,6 +1635,333 @@ def _recon_entry_phase(env):
     print(f"[entry] phase 15 in {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches
 
+
+
+def _joint_pack(folder, n_views, view_hw, n_vit, vit_hw, max_tokens, max_vit, vocab, seed):
+    """One pack as a recon_then_und sample lays it out, built by the port's
+    SequencePacker from PNG files it writes into `folder` first: a prompt,
+    `n_views` DINOv2 views of `view_hw` (positive depths, world points from
+    them), `n_vit` ViT images resized to `vit_hw` and smart-resized, a
+    question and a 32-token answer with the loss; the sorted [und | geo]
+    layout. Returns (the packer's batch dict, host ms of the pack from the
+    files: PIL decode, the native ViT preprocess, the packing, cojitter and
+    normalisation)."""
+    import random
+
+    import numpy as np
+    from PIL import Image
+
+    from g2vlm_tpu_torch.data.packing import PackerConfig, SequencePacker
+    from g2vlm_tpu_torch.data.recon_dataset import depth_to_world_points
+    from g2vlm_tpu_torch.data.vit_preprocess import preprocess_vit_image_fast
+
+    rng = np.random.default_rng(seed)
+    h, w = view_hw
+    os.makedirs(folder, exist_ok=True)
+    dino_paths, vit_paths = [], []
+    for i in range(n_views):
+        dino_paths.append(os.path.join(folder, f"view_{i}.png"))
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(dino_paths[-1])
+    for i in range(n_vit):
+        vit_paths.append(os.path.join(folder, f"image_{i}.png"))
+        Image.fromarray(rng.integers(0, 256, (*vit_hw, 3), dtype=np.uint8)).save(vit_paths[-1])
+    ids = dict(bos_token_id=vocab - 4, eos_token_id=vocab - 3, start_of_image=vocab - 2, end_of_image=vocab - 1)
+    intr = np.asarray([[0.8 * w, 0, w / 2], [0, 0.8 * w, h / 2], [0, 0, 1]], np.float32)
+    t0 = time.perf_counter()
+    dino_views = []
+    for i, path in enumerate(dino_paths):
+        depth = (1.5 + rng.random((h, w))).astype(np.float32)
+        c2w = np.eye(4, dtype=np.float32)
+        c2w[:3, 3] = (0.1 * i, 0.02 * i, 0.05 * i)
+        pts, valid = depth_to_world_points(depth, intr, c2w)
+        dino_views.append(dict(image=np.asarray(Image.open(path).convert("RGB")), depths=depth, extrinsics=c2w,
+                               intrinsics=intr, world_points=pts, point_masks=valid, view_infos=f"view/{i}",
+                               image_paths=path))
+    vit_views = []
+    for path in vit_paths:
+        patches, grid = preprocess_vit_image_fast(path, target_hw=vit_hw)
+        vit_views.append({"patches": patches, "grid_thw": grid})
+    text = [list(rng.integers(100, min(5000, vocab - 4), n)) for n in (8, 16, 32)]
+    plan = ([{"type": "text"}] + [{"type": "dino_image"}] * n_views + [{"type": "vit_image"}] * n_vit
+            + [{"type": "text"}, {"type": "text", "loss": 1}])
+    packer = SequencePacker(PackerConfig(max_num_tokens=max_tokens, max_vit_patches=max_vit), ids)
+    packer.add_sample(dict(plan=plan, text_ids_list=text, dino_views=dino_views, vit_views=vit_views),
+                      random.Random(seed))
+    batch = packer.to_batch(random.Random(seed), sorted_layout=True, geo_start_bucket=256)
+    return batch, (time.perf_counter() - t0) * 1e3
+
+
+def _joint_step_phase(env):
+    """Phase 17 (16 runs with phases 7-8). Returns the kernels' launches of
+    the last full-size joint training step."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import train_torch
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.weights import build_model
+
+    dev, card = env.dev, env.card
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="g2vlm_joint_")
+    t_phase = time.perf_counter()
+
+    # ---- 17a. joint parity at cut depth: card (fp32 masters, bf16 compute, kernels) vs CPU (fp32) ----
+    cut = cut_depth_config(G2VLMConfig(), 2)
+    b, _ = _joint_pack(os.path.join(work, "cut"), 2, TRAIN_HW, 2, (448, 448), 2304, 2048, cut.llm.vocab_size, 5)
+    cut_batch = train_torch.batch_from_pack(b).map(lambda x: x[0])
+    cut_geo_start = b["geo_start"]
+    groups = {"llm": "language_model.", "vit": "vit_model."}
+
+    def grad_norms(m):
+        return {g: sum(p.grad.float().square().sum().item() for n_, p in m.named_parameters()
+                       if n_.startswith(prefix) and p.grad is not None) ** 0.5 for g, prefix in groups.items()}
+
+    cpu_model = build_model(cut, device="cpu", dtype=torch.float32, seed=0).train()
+    trainer.apply_freeze(cpu_model, freeze_recon=True)
+    t0 = time.perf_counter()
+    want_loss, _ = trainer.train_forward(cpu_model, cut_batch, cut, compute_dtype=torch.float32,
+                                         geo_start=cut_geo_start)
+    want_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    want_norms = grad_norms(cpu_model)
+    gpu_model = build_model(cut, device=dev, dtype=torch.float32, seed=None).train()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    trainer.apply_freeze(gpu_model, freeze_recon=True)
+    want_launches = _step_launches(cut, vit=True, freeze_recon=True)
+    fa.reset_launch_counts()
+    got_loss, _ = trainer.train_forward(gpu_model, cut_batch.map(lambda x: x.to(dev)), cut,
+                                        compute_dtype=torch.bfloat16, geo_start=cut_geo_start)
+    got_loss.backward()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fa.launch_counts.items() if v}
+    if launches != want_launches:
+        _fail(f"joint parity: launches {launches}, expected {want_launches}")
+    rel = abs(got_loss.item() - want_loss.item()) / abs(want_loss.item())
+    print(f"[joint-parity] 2 views of {TRAIN_HW[0]}x{TRAIN_HW[1]} + 2 ViT images of 448x448, --freeze_recon: loss "
+          f"card {got_loss.item():.5f} cpu {want_loss.item():.5f} rel {rel:.3e} (budget 3e-2); cpu fp32 "
+          f"forward+backward {cpu_s:.1f} s; launches {launches}")
+    if not rel <= 3e-2:
+        _fail(f"joint parity: loss off by {rel} (budget 3e-2)")
+    got_norms = grad_norms(gpu_model)
+    for g, w in want_norms.items():
+        r = abs(got_norms[g] - w) / w
+        print(f"[joint-parity] grad norm {g}: card {got_norms[g]:.4e} cpu {w:.4e} rel {r:.3e} (budget 1e-1)")
+        if not (w > 0 and r <= 1e-1):
+            _fail(f"joint parity: grad norm of {g} off by {r} (budget 1e-1)")
+    frozen_with_grad = [n_ for n_, p in gpu_model.named_parameters() if not p.requires_grad and p.grad is not None]
+    if frozen_with_grad:
+        _fail(f"joint parity: frozen leaves got gradients: {frozen_with_grad[:3]}")
+    del cpu_model, gpu_model, got_loss, want_loss, cut_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 17b. the joint training step at full width and depth -------------------------------------
+    cfg = G2VLMConfig()
+    b, host_ms = _joint_pack(os.path.join(work, "full"), TRAIN_VIEWS // 2, TRAIN_HW, VIT_TRAIN_IMAGES, (768, 768),
+                             TRAIN_TOKENS, VIT_TRAIN_IMAGES * VIT_ROWS_PER_IMAGE, cfg.llm.vocab_size, 6)
+    geo_start = b["geo_start"]
+    real_tokens = int((b["doc_id"] >= 0).sum())
+    batch = train_torch.batch_from_pack(b, dev)
+    vit_rows = int((b["vit_seg"] >= 0).sum())
+    print(f"[joint] one pack by SequencePacker from {TRAIN_VIEWS // 2} + {VIT_TRAIN_IMAGES} PNGs: {real_tokens} "
+          f"real tokens in {TRAIN_TOKENS} rows, {vit_rows} ViT patch rows in {len(b['vit_seg'])} slots, geo_start "
+          f"{geo_start}; host {host_ms:.1f} ms (PIL decode, native ViT preprocess, packing, cojitter, "
+          f"normalisation) ({card})")
+    if vit_rows != VIT_TRAIN_IMAGES * VIT_ROWS_PER_IMAGE:
+        _fail(f"joint pack: {vit_rows} ViT patch rows, expected {VIT_TRAIN_IMAGES * VIT_ROWS_PER_IMAGE}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32, seed=0).train()
+    optimizer = trainer.make_optimizer(
+        model, schedule=trainer.warmup_cosine_schedule(0.0, 1e-4, 0, 1000), weight_decay=0.05,
+        freeze_recon=True, mu_dtype=torch.bfloat16, factored_v=True)
+    state = trainer.init_train_state(model, optimizer, ema=True)
+    step_fn = trainer.make_train_step(cfg, compute_dtype=torch.bfloat16, ema_decay=0.9999, geo_start=geo_start)
+    torch.cuda.synchronize()
+    n_all = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for p in optimizer.params)
+    state_gb = (4 * n_all * 2 + 4 * n_train + 2 * n_train) / 1e9
+    print(f"[joint] fp32 init of {n_all / 1e9:.3f} B parameters ({n_train / 1e9:.3f} B trainable: the und expert, "
+          f"the ViT, embeddings and lm_head), optimizer and EMA on the card in {time.perf_counter() - t0:.1f} s; "
+          f"state reckoned {state_gb:.1f} GB (masters + EMA of all, gradients fp32 + bf16 first moment of the "
+          f"trainable) ({card})")
+    named = dict(model.named_parameters())
+    frozen_names = [n_ for n_, p in named.items() if not p.requires_grad]
+    probe = frozen_names[:: max(1, len(frozen_names) // 8)]
+    before = {n_: named[n_].detach().clone() for n_ in probe}
+    moved_probe = {n_: p.detach().clone() for n_, p in named.items() if p.requires_grad and p.numel() < 5_000_000}
+    want_launches = _step_launches(cfg, vit=True, freeze_recon=True)
+    losses, times = [], []
+    for step in range(4):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: v for k, v in fa.launch_counts.items() if v}
+        if launches != want_launches:
+            _fail(f"joint step {step}: launches {launches}, expected {want_launches}")
+        losses.append(metrics["loss"].item())
+        print(f"[joint] step {step}: loss {losses[-1]:.5f} grad_norm {metrics['grad_norm'].item():.4f} ce "
+              f"{metrics['ce'].item():.4f} dl {metrics['dl'].item():.4f} | {times[-1]:.1f} ms")
+        if not (np.isfinite(losses[-1]) and np.isfinite(metrics["grad_norm"].item())):
+            _fail(f"joint step {step}: loss or grad norm is not finite")
+    for n_ in probe:
+        if not torch.equal(named[n_], before[n_]) or not torch.equal(state.ema_params[n_], before[n_]):
+            _fail(f"joint step: frozen parameter {n_} or its EMA changed")
+    n_moved = sum(not torch.equal(named[n_], old) for n_, old in moved_probe.items())
+    if n_moved < 0.9 * len(moved_probe):
+        _fail(f"joint step: only {n_moved} of {len(moved_probe)} sampled trainable leaves changed")
+    ms = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[joint] G2VLMConfig(), --split_layout --freeze_recon --factored_v --mu_dtype bfloat16, remat: "
+          f"{ms:.1f} ms per step (median of steps 1-3 of {[round(t, 1) for t in times]}), "
+          f"{real_tokens / ms * 1e3:.1f} real tokens/s, peak allocated {peak:.2f} GiB; {len(probe)} sampled frozen "
+          f"leaves and their EMA bitwise unchanged, {n_moved}/{len(moved_probe)} sampled trainable leaves changed; "
+          f"launches per step {launches} ({card})")
+    joint_launches = dict(launches)
+    if env.args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
+    del model, optimizer, state, step_fn, batch, named, before, moved_probe, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    print(f"[joint] phase 17 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return joint_launches
+
+
+def _data_resume_phase(env):
+    """Phase 18: train_torch.py on a data config at cut depth, run A against run B resumed."""
+    import gc
+
+    import torch
+    import yaml
+
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
+    from g2vlm_tpu_torch.data.synthetic import make_tiny_joint_data
+    from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.train.checkpoint import STATE_FILE, CheckpointManager, state_tensors
+    from g2vlm_tpu_torch.weights import build_model, load_safetensors
+
+    dev, card = env.dev, env.card
+    work = tempfile.mkdtemp(prefix="g2vlm_data_")
+    t_phase = time.perf_counter()
+    cut = cut_depth_config(G2VLMConfig(), 2)
+    data = os.path.join(work, "data")
+    os.makedirs(data)
+    data_cfg = make_tiny_joint_data(data, target_size=TRAIN_HW[1], vit_hw=(448, 448))
+    # packs close once they hold 2,000 tokens; a sample may take half of the 16,384 rows (4 views of up to
+    # 44 x 37 patches do); at most three ViT images of 1,024 patch rows join a pack before it closes
+    common = ["--data_config", os.path.join(data, "joint.yaml"), "--cut_depth", "2", "--max_vit_patches", "4096",
+              "--max_num_tokens", "16384", "--expected_num_tokens", "2000", "--image_num_range", "2", "4",
+              "--split_layout", "--freeze_recon", "--factored_v", "--mu_dtype", "bfloat16", "--ckpt_every", "2",
+              "--log_every", "1"]
+    runs = {"A": ["--steps", "4", "--checkpoint_dir", os.path.join(work, "ckA")],
+            "B": ["--steps", "2", "--checkpoint_dir", os.path.join(work, "ckB")],
+            "B_resumed": ["--steps", "4", "--checkpoint_dir", os.path.join(work, "ckB"), "--resume"]}
+    with open(common[1], "w") as f:
+        yaml.safe_dump(data_cfg, f)
+
+    def start(argv):
+        return subprocess.Popen([sys.executable, "train_torch.py", *common, *argv], cwd=REPO_ROOT, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                env=dict(os.environ, PYTHONHASHSEED="0"))
+
+    def finish(procs):
+        """Waits for each run of `procs` (tag -> process); fails on a non-zero exit or a run still going
+        after 300 s, and leaves none running."""
+        out = {}
+        try:
+            for tag, proc in procs.items():
+                try:
+                    _, err = proc.communicate(timeout=300)
+                except subprocess.TimeoutExpired:
+                    _fail(f"train_torch.py run {tag} still ran after 300 s")
+                if proc.returncode != 0:
+                    _fail(f"train_torch.py run {tag} exited {proc.returncode}: {err[-2000:]}")
+                out[tag] = err
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return out
+
+    t0 = time.perf_counter()
+    logs = finish({tag: start(runs[tag]) for tag in ("A", "B")})  # A and B's first part at once
+    logs.update(finish({"B_resumed": start(runs["B_resumed"])}))
+    t_runs = time.perf_counter() - t0
+
+    def step_metrics(log):
+        out = {}
+        for line in log.splitlines():
+            if " step " in line and "loss=" in line:
+                words = line[line.index(" step ") + 6:].split()
+                out[int(words[0])] = {k: float(v) for k, v in (w.split("=") for w in words[1:] if "=" in w)}
+        return out
+
+    got_a, got_b = step_metrics(logs["A"]), step_metrics(logs["B_resumed"])
+    if "resumed at step 2" not in logs["B_resumed"] or sorted(got_a) != [0, 1, 2, 3] or sorted(got_b) != [2, 3]:
+        _fail(f"resume: steps logged A {sorted(got_a)}, B resumed {sorted(got_b)}: {logs['B_resumed'][-1500:]}")
+    worst = 0.0
+    for step in (2, 3):
+        for k, v in got_a[step].items():
+            err = abs(got_b[step][k] - v)
+            worst = max(worst, err / (abs(v) + 1e-30))
+            if err > 1e-3 * abs(v) + 1e-4:  # 1e-4: the 4 decimals the log prints
+                _fail(f"resume: step {step} {k} {got_b[step][k]} against {v} uninterrupted (1e-3 relative)")
+    status_a = json.load(open(os.path.join(work, "ckA", "data_status_4.json")))
+    status_b = json.load(open(os.path.join(work, "ckB", "data_status_4.json")))
+    if status_a != status_b:
+        _fail("resume: the data_status of the resumed run differs from the uninterrupted one's")
+    print(f"[data] train_torch.py --data_config (2 synthetic scenes of 84x140 views at {TRAIN_HW[1]} wide, 3 image "
+          f"conversations at 448x448) --cut_depth 2 --split_layout --freeze_recon, subprocesses with PYTHONHASHSEED=0 (PyYAML "
+          f"{yaml.__version__}): A 4 steps, B 2 steps "
+          f"then --resume for 2, all in {t_runs:.1f} s; steps 2-3 of B against A: worst metric {worst:.2e} "
+          f"relative (budget 1e-3); data_status equal; A's losses {[got_a[s]['loss'] for s in range(4)]} ({card})")
+
+    # B's checkpoint 2 (rewritten by the resumed run after its step 2, as train.py labels a mid-run save by
+    # the step just run), restored on the card: bitwise the file, and its write time
+    model = build_model(cut, device=dev, dtype=torch.float32, seed=1).train()
+    optimizer = trainer.make_optimizer(model, freeze_recon=True, mu_dtype=torch.bfloat16, factored_v=True)
+    state = trainer.init_train_state(model, optimizer, ema=True)
+    mgr = CheckpointManager(os.path.join(work, "ckB"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, status = mgr.restore(state, step=2)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    saved = load_safetensors(os.path.join(work, "ckB", "2", STATE_FILE))
+    restored = state_tensors(state)
+    if set(saved) != set(restored) or not all(torch.equal(restored[k].cpu(), v) for k, v in saved.items()):
+        _fail("restore: the restored tensors are not bitwise the saved ones")
+    if status != json.load(open(os.path.join(work, "ckB", "data_status_2.json"))) or state.step != int(saved["step"]):
+        _fail(f"restore: data_status or step ({state.step}) differ from the saved ones")
+    out = CheckpointManager(os.path.join(work, "ck_again"))
+    t0 = time.perf_counter()
+    out.save(state.step, state, data_status=status)
+    t_write = time.perf_counter() - t0
+    n_bytes = os.path.getsize(os.path.join(work, "ck_again", str(state.step), STATE_FILE))
+    print(f"[data] checkpoint of {len(saved)} tensors, {n_bytes / 2**30:.3f} GiB (fp32 parameters and EMA of "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M, factored Adam state): written from the card "
+          f"in {t_write:.2f} s, restored onto it in {t_restore:.2f} s, every tensor and data_status bitwise "
+          f"equal ({card})")
+    del model, optimizer, state, saved, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    print(f"[data] phase 18 in {time.perf_counter() - t_phase:.1f} s ({card})")
 
 if __name__ == "__main__":
     main()

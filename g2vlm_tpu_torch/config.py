@@ -217,3 +217,17 @@ def tiny_test_config(visual_und: bool = True) -> G2VLMConfig:
         ),
         pi3=Pi3HeadConfig(depth=5, num_heads=16),
     )
+
+
+def cut_depth_config(cfg: G2VLMConfig, layers: int = 2, vocab_size: int = 5120) -> G2VLMConfig:
+    """`cfg` at its full widths with `layers` layers in the decoder, DINOv2,
+    the ViT and the Pi3 decoders, and a vocabulary of `vocab_size`: the cut
+    that the card's parity checks run, in which tokenizer-less text ids (below
+    5,100) fit. Port-only: the JAX package has no such helper."""
+    return dataclasses.replace(
+        cfg,
+        llm=dataclasses.replace(cfg.llm, num_hidden_layers=layers, vocab_size=vocab_size),
+        dino=dataclasses.replace(cfg.dino, num_hidden_layers=layers),
+        vit=dataclasses.replace(cfg.vit, depth=layers),
+        pi3=dataclasses.replace(cfg.pi3, depth=layers),
+    )

@@ -62,6 +62,12 @@
 // Two kernels, one owner per output row, no atomics: two runs give bitwise
 // equal results.
 //
+// Head dim 80 (the Qwen2-VL ViT's; 160-byte rows fit neither swizzle) is laid
+// out as 96 columns in shared memory, as attention_segment.cu lays out its
+// forward: the pad columns of every tile are zeroed once and never written
+// again, so S = Q K^T and dP = dO V^T are unchanged; dQ, dK and dV run over 96
+// columns (the pad ones come out 0) and are stored over 80.
+//
 // Ragged tails and empty rows: out-of-range rows of any tile are zero-filled;
 // out-of-range or empty (lse == kLseEmpty) query rows read lse = +inf, so
 // their P is exp2(-inf) = 0 and never NaN; keys >= n_kv are masked on PARTIAL
@@ -85,6 +91,10 @@ constexpr int kStages = 4;  // shared-memory stages of the ring
 // the H100: 8 stages at D 64, or copies 3 tiles ahead, changed nothing)
 constexpr int kAhead = kStages - 2;
 constexpr int kReleaseWarps = kBwdThreads / 32;  // one release arrival per warp
+
+// columns of a tile in shared memory: head dim 80 is zero-padded to 96
+template <int D>
+constexpr int kSmemCols = D == 80 ? 96 : D;
 
 struct BwdArgs {
   const void* q;     // (B, n_q, H, D) through strides
@@ -144,10 +154,29 @@ __device__ __forceinline__ void advance(int& stage, int& phase) {
   }
 }
 
-// stores a warpgroup's 64 x D accumulator times `mult` as rows of T (rows >= `rows` are not written)
+// zeroes the pad columns D .. kSmemCols<D> of `n_tiles` consecutive tiles from `tiles`, once: the
+// copies never write them
+template <int D>
+__device__ __forceinline__ void zero_pad_columns(unsigned char* tiles, int n_tiles) {
+  constexpr int kDs = kSmemCols<D>;
+  if constexpr (kDs != D) {
+    constexpr int kPadChunks = (kDs - D) / 8;
+    for (int i = threadIdx.x; i < n_tiles * kTileRows * kPadChunks; i += kBwdThreads) {
+      const int t = i / (kTileRows * kPadChunks);
+      const int r = (i / kPadChunks) % kTileRows;
+      const int c = D / 8 + i % kPadChunks;
+      *reinterpret_cast<int4*>(tiles + t * kTileRows * kDs * 2 + swizzled_offset<kDs, kTileRows>(r, c)) =
+          make_int4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+  }
+}
+
+// stores the first D columns of a warpgroup's 64 x kSmemCols<D> accumulator times `mult` as rows of T (rows >=
+// `rows` are not written)
 template <typename T, int D>
-__device__ __forceinline__ void store_acc(const float (&acc)[D / 2], float mult, T* dst_row0, long long row_stride,
-                                          int rows, int tid) {
+__device__ __forceinline__ void store_acc(const float (&acc)[kSmemCols<D> / 2], float mult, T* dst_row0,
+                                          long long row_stride, int rows, int tid) {
   const int qd = tid & 3;
 #pragma unroll
   for (int row = 0; row < 2; ++row) {
@@ -169,7 +198,7 @@ __device__ __forceinline__ void store_acc(const float (&acc)[D / 2], float mult,
 
 template <int D>
 struct DqSmem {
-  static constexpr int kTile = kTileRows * D * 2;
+  static constexpr int kTile = kTileRows * kSmemCols<D> * 2;
   static constexpr int kQ = 0;                                 // [kConsumerWgs] resident Q tiles
   static constexpr int kDo = kQ + kConsumerWgs * kTile;        // [kConsumerWgs] resident dO tiles
   static constexpr int kK = kDo + kConsumerWgs * kTile;        // [kStages] streamed K tiles
@@ -183,6 +212,7 @@ struct DqSmem {
 template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dq_kernel(const BwdArgs a) {
   using L = DqSmem<D>;
+  constexpr int kDs = kSmemCols<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const uint32_t sb = smem_u32(smem);
@@ -204,6 +234,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dq_kernel(const BwdArgs a)
   const int wg = threadIdx.x / kWgThreads;
   const int tid = threadIdx.x % kWgThreads;
 
+  zero_pad_columns<D>(smem + L::kQ, 2 * (kConsumerWgs + kStages));  // Q, dO, K, V: contiguous tiles
   init_ring(full, empty);
 
   // This warpgroup's query head and tile. Q and dO stay in shared memory.
@@ -214,10 +245,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dq_kernel(const BwdArgs a)
   const long long o_ss = static_cast<long long>(a.h) * D;
   const uint32_t s_q = sb + L::kQ + wg * L::kTile;
   const uint32_t s_do = sb + L::kDo + wg * L::kTile;
-  load_tile_swizzled<T, D, kTileRows>(
+  load_tile_swizzled<T, D, kTileRows, kDs>(
       s_q, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + static_cast<long long>(min(q0, a.n_q - 1)) * a.q_ss,
       a.q_ss, n_rows, tid, kWgThreads);
-  load_tile_swizzled<T, D, kTileRows>(
+  load_tile_swizzled<T, D, kTileRows, kDs>(
       s_do, static_cast<const T*>(a.dout) + (b * a.n_q + min(q0, a.n_q - 1)) * o_ss + h * D, o_ss, n_rows, tid,
       kWgThreads);
   cp_async_commit();
@@ -247,10 +278,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dq_kernel(const BwdArgs a)
       if (threadIdx.x == 0) s_info[ld_stage] = make_int4(t, c0, c1, 0);
       const int n0 = t * kTileRows;
       const int rows = min(kTileRows, a.n_kv - n0);
-      load_tile_swizzled<T, D, kTileRows>(sb + L::kK + ld_stage * L::kTile, k + n0 * a.k_ss, a.k_ss, rows,
-                                          threadIdx.x, kBwdThreads);
-      load_tile_swizzled<T, D, kTileRows>(sb + L::kV + ld_stage * L::kTile, v + n0 * a.v_ss, a.v_ss, rows,
-                                          threadIdx.x, kBwdThreads);
+      load_tile_swizzled<T, D, kTileRows, kDs>(sb + L::kK + ld_stage * L::kTile, k + n0 * a.k_ss, a.k_ss, rows,
+                                               threadIdx.x, kBwdThreads);
+      load_tile_swizzled<T, D, kTileRows, kDs>(sb + L::kV + ld_stage * L::kTile, v + n0 * a.v_ss, a.v_ss, rows,
+                                               threadIdx.x, kBwdThreads);
       if (kSeg && threadIdx.x < kTileRows) {
         const int r = threadIdx.x;
         cp_async16_u32(sb + L::kMeta + (ld_stage * kTileRows + r) * 16, a.kv_meta + (r < rows ? n0 + r : 0),
@@ -277,9 +308,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dq_kernel(const BwdArgs a)
     row_delta[row] = in ? a.delta[stat + r] : 0.f;
     rm[row] = kSeg && in ? a.q_meta[q0 + r] : make_int4(-2, -1, -1, 0);
   }
-  float acc[D / 2];
+  float acc[kDs / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kDs / 2; ++i) acc[i] = 0.f;
   cp_async_wait<0>();  // this thread's Q / dO chunks (the ring's copies are in no group)
   fence_proxy_async();
   named_barrier(1 + wg, kWgThreads);  // the warpgroup's Q and dO tiles are in place
@@ -297,9 +328,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dq_kernel(const BwdArgs a)
       const uint32_t s_v = sb + L::kV + stage * L::kTile;
       float s[32], dp[32];
       wgmma_fence();
-      product_abt<T, D>(s, s_q, s_k);
+      product_abt<T, kDs>(s, s_q, s_k);
       wgmma_commit();
-      product_abt<T, D>(dp, s_do, s_v);
+      product_abt<T, kDs>(dp, s_do, s_v);
       wgmma_commit();
       wgmma_wait<1>();  // S is in; dP may still run under the exp2
       fence_regs(s);
@@ -327,7 +358,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dq_kernel(const BwdArgs a)
       uint32_t ds[4][4];
       to_a_operands<T>(ds, dp);
       wgmma_fence();
-      product_ab<T, D>(acc, ds, s_k);
+      product_ab<T, kDs>(acc, ds, s_k);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -348,7 +379,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dq_kernel(const BwdArgs a)
 
 template <int D>
 struct DkvSmem {
-  static constexpr int kTile = kTileRows * D * 2;
+  static constexpr int kTile = kTileRows * kSmemCols<D> * 2;
   static constexpr int kK = 0;                                 // [kConsumerWgs] resident K tiles
   static constexpr int kV = kK + kConsumerWgs * kTile;         // [kConsumerWgs] resident V tiles
   static constexpr int kQ = kV + kConsumerWgs * kTile;         // [kStages] streamed Q tiles
@@ -364,6 +395,7 @@ struct DkvSmem {
 template <typename T, int D, bool kSeg>
 __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dkv_kernel(const BwdArgs a) {
   using L = DkvSmem<D>;
+  constexpr int kDs = kSmemCols<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const uint32_t sb = smem_u32(smem);
@@ -386,6 +418,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dkv_kernel(const BwdArgs a
   const int tid = threadIdx.x % kWgThreads;
   const long long o_ss = static_cast<long long>(a.h) * D;
 
+  zero_pad_columns<D>(smem + L::kK, 2 * (kConsumerWgs + kStages));  // K, V, Q, dO: contiguous tiles
   init_ring(full, empty);
 
   // This warpgroup's 64 keys: K and V stay in shared memory, dK and dV in registers.
@@ -395,9 +428,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dkv_kernel(const BwdArgs a
   const uint32_t s_k = sb + L::kK + wg * L::kTile;
   const uint32_t s_v = sb + L::kV + wg * L::kTile;
   const long long k_row = min(k0, a.n_kv - 1);
-  load_tile_swizzled<T, D, kTileRows>(s_k, static_cast<const T*>(a.k) + b * a.k_sb + kv_h * a.k_sh + k_row * a.k_ss,
+  load_tile_swizzled<T, D, kTileRows, kDs>(s_k, static_cast<const T*>(a.k) + b * a.k_sb + kv_h * a.k_sh + k_row * a.k_ss,
                                       a.k_ss, rows, tid, kWgThreads);
-  load_tile_swizzled<T, D, kTileRows>(s_v, static_cast<const T*>(a.v) + b * a.v_sb + kv_h * a.v_sh + k_row * a.v_ss,
+  load_tile_swizzled<T, D, kTileRows, kDs>(s_v, static_cast<const T*>(a.v) + b * a.v_sb + kv_h * a.v_sh + k_row * a.v_ss,
                                       a.v_ss, rows, tid, kWgThreads);
   cp_async_commit();
 
@@ -426,13 +459,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dkv_kernel(const BwdArgs a
       if (threadIdx.x == 0) s_info[ld_stage] = make_int4(ld_qt, h, c0, c1);
       const int q0 = ld_qt * kTileRows;
       const int q_rows = min(kTileRows, a.n_q - q0);
-      load_tile_swizzled<T, D, kTileRows>(
+      load_tile_swizzled<T, D, kTileRows, kDs>(
           sb + L::kQ + ld_stage * L::kTile,
           static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh + static_cast<long long>(q0) * a.q_ss, a.q_ss, q_rows,
           threadIdx.x, kBwdThreads);
-      load_tile_swizzled<T, D, kTileRows>(sb + L::kDo + ld_stage * L::kTile,
-                                          static_cast<const T*>(a.dout) + (b * a.n_q + q0) * o_ss + h * D, o_ss,
-                                          q_rows, threadIdx.x, kBwdThreads);
+      load_tile_swizzled<T, D, kTileRows, kDs>(sb + L::kDo + ld_stage * L::kTile,
+                                               static_cast<const T*>(a.dout) + (b * a.n_q + q0) * o_ss + h * D,
+                                               o_ss, q_rows, threadIdx.x, kBwdThreads);
       if (threadIdx.x < kTileRows) {
         const int r = threadIdx.x;
         const long long stat = (b * a.h + h) * a.n_q + q0 + (r < q_rows ? r : 0);
@@ -461,9 +494,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dkv_kernel(const BwdArgs a
     const int r = k0 + key_row + row * 8;
     rm[row] = kSeg && r < a.n_kv ? a.kv_meta[r] : make_int4(-1, -1, -1, -1);
   }
-  float acc_dk[D / 2], acc_dv[D / 2];
+  float acc_dk[kDs / 2], acc_dv[kDs / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
+  for (int i = 0; i < kDs / 2; ++i) acc_dk[i] = acc_dv[i] = 0.f;
   cp_async_wait<0>();  // this thread's K / V chunks (the ring's copies are in no group)
   fence_proxy_async();
   named_barrier(1 + wg, kWgThreads);  // the warpgroup's K and V tiles are in place
@@ -481,9 +514,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dkv_kernel(const BwdArgs a
     if (code != kSkip) {
       fence_proxy_async();
       wgmma_fence();
-      product_abt<T, D>(st, s_k, s_q);
+      product_abt<T, kDs>(st, s_k, s_q);
       wgmma_commit();
-      product_abt<T, D>(dpt, s_v, s_do);
+      product_abt<T, kDs>(dpt, s_v, s_do);
       wgmma_commit();
       wgmma_wait<1>();  // S^T is in; dP^T may still run
       fence_regs(st);
@@ -518,8 +551,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) bwd_dkv_kernel(const BwdArgs a
       to_a_operands<T>(pt, st);
       to_a_operands<T>(dst, dpt);
       wgmma_fence();
-      product_ab<T, D>(acc_dv, pt, s_do);
-      product_ab<T, D>(acc_dk, dst, s_q);
+      product_ab<T, kDs>(acc_dv, pt, s_do);
+      product_ab<T, kDs>(acc_dk, dst, s_q);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc_dv);
@@ -611,6 +644,8 @@ template <typename T, bool kSeg>
 cudaError_t dispatch_bwd(const BwdArgs& a, int b, int d, bool dkv, cudaStream_t stream) {
   switch (d) {
     case 64: return launch_bwd<T, 64, kSeg>(a, b, dkv, stream);
+    // the Qwen2-VL ViT's head dim: the segment form only, for the ViT's training branch
+    case 80: return kSeg ? launch_bwd<T, 80, true>(a, b, dkv, stream) : cudaErrorInvalidValue;
     case 96: return launch_bwd<T, 96, kSeg>(a, b, dkv, stream);
     case 128: return launch_bwd<T, 128, kSeg>(a, b, dkv, stream);
     default: return cudaErrorInvalidValue;

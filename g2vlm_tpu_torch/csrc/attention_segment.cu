@@ -578,9 +578,7 @@ template <typename T, bool kPipe>
 cudaError_t dispatch(const SegmentArgs& a, int d, int n_blocks, cudaStream_t stream) {
   switch (d) {
     case 64: return launch<T, 64, kPipe>(a, n_blocks, stream);
-    // the Qwen2-VL ViT's head dim, forward only: the lse forward at this width comes with the
-    // ViT's training branch
-    case 80: return a.lse ? cudaErrorInvalidValue : launch_as<T, 80, false, kPipe>(a, n_blocks, stream);
+    case 80: return launch<T, 80, kPipe>(a, n_blocks, stream);  // the Qwen2-VL ViT's head dim
     case 96: return launch<T, 96, kPipe>(a, n_blocks, stream);
     case 128: return launch<T, 128, kPipe>(a, n_blocks, stream);
     default: return cudaErrorInvalidValue;

@@ -187,9 +187,10 @@ __device__ __forceinline__ void cp_async4_u32(uint32_t dst, const void* src, boo
 __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // Copies `rows` valid rows (of R) of a D-wide row-major global tile into the
-// swizzled layout; rows past `rows` are zero-filled. `tid` / `nthreads` split
-// the chunks among the calling threads.
-template <typename T, int D, int R>
+// swizzled layout of a kCols-column tile (kCols >= D; columns past D are not
+// written); rows past `rows` are zero-filled. `tid` / `nthreads` split the
+// chunks among the calling threads.
+template <typename T, int D, int R, int kCols = D>
 __device__ __forceinline__ void load_tile_swizzled(uint32_t tile, const T* src, long long row_stride, int rows,
                                                    int tid, int nthreads) {
   constexpr int kChunks = D / 8;
@@ -197,7 +198,7 @@ __device__ __forceinline__ void load_tile_swizzled(uint32_t tile, const T* src, 
     const int r = i / kChunks;
     const int c = i % kChunks;
     const bool ok = r < rows;
-    cp_async16_u32(tile + swizzled_offset<D, R>(r, c), ok ? src + r * row_stride + c * 8 : src, ok);
+    cp_async16_u32(tile + swizzled_offset<kCols, R>(r, c), ok ? src + r * row_stride + c * 8 : src, ok);
   }
 }
 

@@ -1,5 +1,7 @@
 """Synthetic annotated-scene generation for harness smoke runs: the port's own
-copy of g2vlm_tpu/data/synthetic.py (numpy + PIL), which it does not import.
+copy of g2vlm_tpu/data/synthetic.py (numpy + PIL), which it does not import,
+and (port only) `make_tiny_joint_data`, a data config of such scenes and of
+image conversations for train_torch.py --data_config.
 
 Produces the JsonlReconDataset row format (data/recon_dataset.py) —
 RGB PNGs + 16-bit depth PNGs + GT extrinsics/intrinsics — so
@@ -69,3 +71,57 @@ def make_tiny_scene_jsonl(
     with open(path, "w") as f:
         f.write(json.dumps({"frames": frames}) + "\n")
     return path
+
+
+def make_tiny_joint_data(
+    dir_path: str,
+    n_scenes: int = 2,
+    n_frames: int = 4,
+    scene_hw=(84, 140),
+    n_chats: int = 3,
+    image_hw=(64, 80),
+    target_size: int = 518,
+    vit_hw=(768, 768),
+    seed: int = 0,
+) -> dict:
+    """Write `n_scenes` synthetic scenes (one JSONL row each, as
+    `make_tiny_scene_jsonl` makes them) and `n_chats` LLaVA-style rows of one
+    random PNG and a question and answer each into `dir_path`; returns the
+    data config (the layout of configs/joint_train.yaml) of a mandatory
+    `recon` group and a `vlm_sft` group over them. `target_size` is the DINOv2
+    views' width, `vit_hw` the ViT images' first resize."""
+    from PIL import Image
+
+    rows = []
+    for i in range(n_scenes):
+        sub = os.path.join(dir_path, f"scene_{i}")
+        os.makedirs(sub, exist_ok=True)
+        with open(make_tiny_scene_jsonl(sub, n_frames, scene_hw, seed + i)) as f:
+            rows.append(f.read().strip())
+    recon = os.path.join(dir_path, "recon.jsonl")
+    with open(recon, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    rng = np.random.default_rng(seed + 1000)
+    chat = os.path.join(dir_path, "vlm.jsonl")
+    with open(chat, "w") as f:
+        for i in range(n_chats):
+            name = f"chat_{i}.png"
+            Image.fromarray(rng.integers(0, 256, (*image_hw, 3), dtype=np.uint8)).save(os.path.join(dir_path, name))
+            conv = [{"from": "human", "value": f"<image>\nWhat colour is patch {i}?"},
+                    {"from": "gpt", "value": f"Mostly noise, number {i}."}]
+            f.write(json.dumps({"image": name, "conversations": conv}) + "\n")
+    return {
+        "recon": {
+            "dataset_names": ["tiny_scenes"],
+            "dino_image_transform_args": {"target_size": target_size},
+            "is_mandatory": True,
+            "weight": 1.0,
+            "dataset_info": {"tiny_scenes": {"jsonl_path": recon}},
+        },
+        "vlm_sft": {
+            "dataset_names": ["tiny_chats"],
+            "vit_image_transform_args": {"image_size_h": vit_hw[0], "image_size_w": vit_hw[1]},
+            "weight": 1.0,
+            "dataset_info": {"tiny_chats": {"jsonl_path": chat, "data_dir": dir_path}},
+        },
+    }

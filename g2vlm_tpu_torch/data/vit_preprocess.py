@@ -1,9 +1,10 @@
 """Host-side Qwen2-VL image preprocessing (the port's own copy of
 g2vlm_tpu/data/vit_preprocess.py, which it does not import; a test holds the
 two equal): PIL bicubic resize to 768x768, `smart_resize` to multiples of 28,
-CLIP normalisation, merge-grouped patch rows. The JAX package's
-`preprocess_vit_image_fast` is a call into its C++ data-path extension for the
-training loader; it comes with the ViT training branch."""
+CLIP normalisation, merge-grouped patch rows. `preprocess_vit_image_fast`, the
+training data path's form, is one pass of the C++ data path (csrc
+`vit_preprocess_u8`, the JAX package's source copied byte for byte), bitwise
+the JAX package's native output (tests/test_torch_datapath_native.py)."""
 
 from __future__ import annotations
 
@@ -85,3 +86,34 @@ def preprocess_vit_image(
     arr = np.asarray(image, np.float32) / 255.0  # (H, W, C)
     arr = (arr - OPENAI_CLIP_MEAN) / OPENAI_CLIP_STD
     return tile_patches(arr.transpose(2, 0, 1), patch_size, merge_size)
+
+
+def preprocess_vit_image_fast(
+    image,
+    target_hw: Tuple[int, int] = (768, 768),
+    patch_size: int = 14,
+    merge_size: int = 2,
+) -> Tuple[np.ndarray, Tuple[int, int, int]]:
+    """The training data path's preprocess: one fused C++ pass (resize,
+    normalise, patch rows; csrc `vit_preprocess_u8`). The resample is PIL's
+    antialiased Keys bicubic accumulated in float, so the rows sit within
+    ~1/255 of `preprocess_vit_image`'s, which serving keeps. As in the JAX
+    package, G2VLM_NATIVE_VIT=0 takes `preprocess_vit_image` instead, and so
+    does an input that is no RGB image (path, PIL image or HWC uint8 array)."""
+    import os
+
+    if os.environ.get("G2VLM_NATIVE_VIT", "1") == "1":
+        arr = None
+        if isinstance(image, str):
+            from PIL import Image
+
+            arr = np.asarray(Image.open(image).convert("RGB"))
+        elif isinstance(image, np.ndarray) and image.dtype == np.uint8:
+            arr = image
+        elif hasattr(image, "convert"):
+            arr = np.asarray(image.convert("RGB"))
+        if arr is not None and arr.ndim == 3 and arr.shape[2] == 3:
+            from ..csrc import vit_preprocess
+
+            return vit_preprocess(arr, target_hw, patch_size, merge_size)
+    return preprocess_vit_image(image, target_hw, patch_size, merge_size)

@@ -13,8 +13,9 @@ consecutive rows. `encode` is the uniform-grid form (dense attention per
 temporal frame, plain tensor code as in the JAX package); `encode_packed`
 takes several images of any grids concatenated, each image an attention
 segment of the segment kernel at head dim 80 (K2, or K4 / K8 by the serving
-options). `packed_row_chunks`, `pack_views` and `merge_permuted_hw_coords` are
-host numpy, the port's own copies.
+options; in training, with `remat`, K3 forwards and K5 backwards).
+`packed_row_chunks`, `pack_views` and `merge_permuted_hw_coords` are host
+numpy, the port's own copies.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import VitConfig
 from ..ops.attention import dense_attention, self_attender
@@ -112,19 +114,30 @@ def _norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return layer_norm(x, ln.weight, ln.bias, LN_EPS)
 
 
-def _tower(model: QwenVit, patches: torch.Tensor, cos, sin, attend, dt: torch.dtype) -> torch.Tensor:
-    """Patch embed, the blocks with `attend(q, k, v) -> (S, H, hd)`, the merger."""
+def _block(blk: VisionBlock, x: torch.Tensor, cos, sin, attend, cfg: VitConfig, dt: torch.dtype) -> torch.Tensor:
+    s = x.shape[0]
+    d, nh, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    qkv = linear(_norm(x, blk.norm1), blk.attn.qkv, dt).view(s, 3, nh, hd)
+    q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
+    attn = attend(q, k, qkv[:, 2])
+    x = x + linear(attn.reshape(s, d), blk.attn.proj, dt)
+    m = _act(linear(_norm(x, blk.norm2), blk.mlp.fc1, dt), cfg.hidden_act)
+    return x + linear(m, blk.mlp.fc2, dt)
+
+
+def _tower(model: QwenVit, patches: torch.Tensor, cos, sin, attend, dt: torch.dtype, remat: bool = False):
+    """Patch embed, the blocks with `attend(q, k, v) -> (S, H, hd)`, the merger.
+    With `remat` each block is recomputed in the backward instead of keeping
+    its activations (a 32-block tower at 23,328 rows does not keep them)."""
     cfg = model.cfg
     s = patches.shape[0]
-    d, nh, hd = cfg.embed_dim, cfg.num_heads, cfg.head_dim
+    d = cfg.embed_dim
     x = F.linear(patches.to(dt), model.patch_embed.proj.weight.reshape(d, -1).to(dt))
     for blk in model.blocks:
-        qkv = linear(_norm(x, blk.norm1), blk.attn.qkv, dt).view(s, 3, nh, hd)
-        q, k = apply_vision_rope(qkv[:, 0], qkv[:, 1], cos, sin)
-        attn = attend(q, k, qkv[:, 2])
-        x = x + linear(attn.reshape(s, d), blk.attn.proj, dt)
-        m = _act(linear(_norm(x, blk.norm2), blk.mlp.fc1, dt), cfg.hidden_act)
-        x = x + linear(m, blk.mlp.fc2, dt)
+        if remat:
+            x = checkpoint(_block, blk, x, cos, sin, attend, cfg, dt, use_reentrant=False)
+        else:
+            x = _block(blk, x, cos, sin, attend, cfg, dt)
     x = _norm(x, model.merger.ln_q).reshape(s // 4, 4 * d)
     return linear(F.gelu(linear(x, model.merger.mlp[0], dt)), model.merger.mlp[2], dt)
 
@@ -158,11 +171,12 @@ def encode_packed(
     attn_impl: str = "auto",
     attn_pipe: bool = False,
     row_chunks: int = 1,
+    remat: bool = False,
 ) -> torch.Tensor:
     """Packed multi-image encode: each image is an attention segment, so any
     per-image grids share one call. Returns (P // 4, hidden_size) merged
     tokens in image order; rows of padding segments are garbage and callers
-    drop them.
+    drop them. `remat` recomputes each block in the backward (training).
 
     row_chunks > 1 runs the whole tower on P / row_chunks-row slices, one
     after another: images never attend across each other, so any
@@ -176,14 +190,14 @@ def encode_packed(
         rpc = p_tot // row_chunks
         return torch.cat([
             encode_packed(model, patches[i : i + rpc], coords[i : i + rpc], seg_id[i : i + rpc],
-                          compute_dtype, attn_impl, attn_pipe)
+                          compute_dtype, attn_impl, attn_pipe, remat=remat)
             for i in range(0, p_tot, rpc)
         ], dim=0)
     cos, sin = vision_rope_cos_sin(coords, model.cfg.head_dim)
     seg = seg_id.to(torch.int32)
     # full bidirectional attention within each image, none across
     info = TokenInfo(seg, seg, torch.full_like(seg, -1), torch.arange(p_tot, dtype=torch.int32, device=seg.device))
-    return _tower(model, patches, cos, sin, self_attender(info, attn_impl, attn_pipe), compute_dtype)
+    return _tower(model, patches, cos, sin, self_attender(info, attn_impl, attn_pipe), compute_dtype, remat)
 
 
 def packed_row_chunks(seg_id, max_rows: int = 16384) -> int:

@@ -24,8 +24,9 @@ again, serial) replaces `_flash_kernel_int8` (through `_flash_int8`): K2's
 function with QK^T as an s8 wgmma (int8 x int8 -> int32) on per-token scales,
 the quantized serving mode's prefill attention, on K2's grid, ring and masks;
 its quantiser `quantize_qk` is plain tensor code here, as the JAX package
-keeps it outside its kernel. K2, K4 and K8 also take the Qwen2-VL ViT's head
-dim 80 (forward only).
+keeps it outside its kernel. Every segment kernel (K2, K3, K4, K8 and the
+backward K5) also takes the Qwen2-VL ViT's head dim 80, zero-padded to 96 in
+shared memory: K2 / K4 / K8 serve the chat path's ViT, K3 and K5 train it.
 
 Backwards (csrc/attention_bwd.cu). K7 replaces `_batched_bwd_dq_kernel` and
 `_batched_bwd_dkv_kernel` (through `_batched_vjp_bwd`), K5 replaces
@@ -83,9 +84,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEAD_DIMS = (64, 96, 128)
-# the segment forwards without lse (K2, K4, K8) also take the Qwen2-VL ViT's head dim
-FORWARD_HEAD_DIMS = (64, 80, 96, 128)
+HEAD_DIMS = (64, 96, 128)  # the batched kernels (K1, K6, K7)
+# the segment kernels (K2-K5, K8) also take the Qwen2-VL ViT's head dim
+SEGMENT_HEAD_DIMS = (64, 80, 96, 128)
 TILE = 64  # the tile of the codes: a warpgroup's query rows and a K/V stage's keys in every kernel
 SEGMENT_WARPGROUPS = 3  # consumer warpgroups of a K2 / K3 / K4 / K8 block (kWgs of csrc/attention_segment.cu)
 BWD_KEYS_PER_BLOCK = 2 * TILE  # the dkv kernel's block: two warpgroups of 64 keys
@@ -601,14 +602,14 @@ def flash_segment_attention_bwd_reference(
     return dq.to(q.dtype), dk.transpose(0, 1).to(k.dtype), dv.transpose(0, 1).to(v.dtype)
 
 
-def _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale, head_dims=HEAD_DIMS):
+def _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale):
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     s_q, h, d = q.shape
     s_kv, kvh, _ = k.shape
     if k.shape != (s_kv, kvh, d) or v.shape != k.shape or h % kvh:
         raise ValueError(f"{name}: shapes q {q.shape} k {k.shape} v {v.shape}")
-    _check_cuda_inputs(name, q, k, v, head_dims=head_dims)
+    _check_cuda_inputs(name, q, k, v, head_dims=SEGMENT_HEAD_DIMS)
     _check_meta(name, q, s_q, s_kv, q_meta, kv_meta)
     return float(d ** -0.5 if scale is None else scale)
 
@@ -627,8 +628,7 @@ def _segment_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale, with_lse: bool
         name = "flash_segment_attention_pipe"
     else:
         name = "flash_segment_attention_lse" if with_lse else "flash_segment_attention"
-    scale = _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale,
-                               head_dims=HEAD_DIMS if with_lse else FORWARD_HEAD_DIMS)
+    scale = _segment_cuda_args(name, q, k, v, q_meta, kv_meta, scale)
     s_q, h, d = q.shape
     s_kv, kvh, _ = k.shape
     out = torch.empty((s_q, h, d), dtype=q.dtype, device=q.device)
@@ -655,7 +655,7 @@ def _segment_backward_cuda(q, k, v, out, lse, dout, q_meta, kv_meta, codes, scal
     s_q, h, d = q.shape
     s_kv, kvh, _ = k.shape
     dout = dout.contiguous()
-    _check_cuda_inputs(name, q, dout)
+    _check_cuda_inputs(name, q, dout, head_dims=SEGMENT_HEAD_DIMS)
     if not out.is_contiguous() or lse.shape != (h, s_q) or lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError(f"{name}: out and lse must be the forward's own outputs")
     if codes.shape != (-(-s_q // TILE), -(-s_kv // TILE)) or codes.dtype != torch.int8 or not codes.is_contiguous():
@@ -850,7 +850,7 @@ def _int8_launch_grid(q8, qs, k8, ks, v, q_meta, kv_meta, codes) -> int:
     s_kv, kvh, d = v.shape
     if k8.shape != (s_kv, kvh, dp) or dp != -(-d // 32) * 32 or h % kvh:
         raise ValueError(f"{name}: shapes q8 {q8.shape} k8 {k8.shape} v {v.shape}")
-    _check_cuda_inputs(name, v, head_dims=FORWARD_HEAD_DIMS)
+    _check_cuda_inputs(name, v, head_dims=SEGMENT_HEAD_DIMS)
     for t, shape in ((q8, None), (k8, None), (qs, (h, s_q)), (ks, (kvh, s_kv))):
         want = torch.int8 if shape is None else torch.float32
         if t.dtype != want or t.device != v.device or not t.is_contiguous() or (shape and t.shape != shape):

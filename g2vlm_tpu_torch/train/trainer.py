@@ -11,9 +11,8 @@ built for them. The optimizer is written out here rather than taken from
 leaf, the schedule read at the count before the step, a bf16 first moment that
 is still updated in fp32.
 
-Not ported yet: the ViT branch of the forward (it waits for the Qwen2-VL ViT)
-and the in-program SegFormer sky mask (a `sky_masks` field passed in is
-honoured).
+Not ported yet: the in-program SegFormer sky mask (a `sky_masks` field passed
+in is honoured).
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ import torch
 
 from ..config import G2VLMConfig
 from ..models import g2vlm as tg
-from ..models import mot_decoder
+from ..models import mot_decoder, qwen_vit
 from ..ops.masks import TokenInfo
 from . import loss as losses
 
@@ -59,10 +58,11 @@ class TrainBatch:
     point_masks: torch.Tensor  # (1, N, H, W) bool
     extrinsics: torch.Tensor  # (1, N, 4, 4)
     normal_batch_mask: torch.Tensor  # (1,) bool
-    # ViT branch (joint recon + understanding batches); not ported yet
-    vit_patches: Optional[torch.Tensor] = None
-    vit_coords: Optional[torch.Tensor] = None
-    vit_seg: Optional[torch.Tensor] = None
+    # ViT branch (joint recon + understanding batches): vit_indexes above is
+    # padded with S (those slots are dropped); None = no ViT branch in this run
+    vit_patches: Optional[torch.Tensor] = None  # (P, pdim)
+    vit_coords: Optional[torch.Tensor] = None  # (P, 2)
+    vit_seg: Optional[torch.Tensor] = None  # (P,) image index, -1 = padding
     # conf supervision: precomputed sky masks (1, N, H, W) bool
     sky_masks: Optional[torch.Tensor] = None
 
@@ -99,8 +99,6 @@ def train_forward(
     geo_start: the static [und | geo] boundary of a sorted pack; it switches
     the MoT to the SPLIT expert mode (contiguous single-expert matmuls
     instead of MIXED's two experts on every row)."""
-    if batch.vit_patches is not None and batch.vit_patches.shape[0] > 0:
-        raise NotImplementedError("the ViT branch of train_forward is not ported yet (ROADMAP A.8)")
     lm = model.language_model
     s = batch.doc_id.shape[0]
     dev = batch.doc_id.device
@@ -117,6 +115,16 @@ def train_forward(
         model, batch.dino_images, compute_dtype, remat=remat, remat_group=dino_remat_group
     )
     seq = seq.index_put((dino_idx,), dino_emb)
+
+    # ViT branch: the packed semantic image tokens scattered into the sequence. Padded
+    # vit_indexes equal S: they land on an extra row that is cut off, as JAX's mode="drop"
+    # scatter drops them (and their rows get no gradient), with no host sync
+    if batch.vit_patches is not None and batch.vit_patches.shape[0] > 0:
+        vit_emb = qwen_vit.encode_packed(
+            model.vit_model, batch.vit_patches, batch.vit_coords, batch.vit_seg, compute_dtype, remat=remat
+        )
+        seq = torch.cat([seq, seq.new_zeros((1, seq.shape[1]))])
+        seq = seq.index_put((batch.vit_indexes.long(),), vit_emb.to(compute_dtype))[:s]
 
     info = TokenInfo(batch.doc_id, batch.fn_id, batch.noise_id, batch.pos)
     hidden = mot_decoder.decoder_forward_train(
@@ -169,8 +177,9 @@ _SHARED_LLM = ("language_model.model.embed_tokens.weight", "language_model.lm_he
 
 def freeze_labels(model: torch.nn.Module, freeze_und: bool, freeze_recon: bool) -> Dict[str, str]:
     """'train' / 'frozen' per parameter name. freeze_und freezes the und
-    expert; freeze_recon freezes the geo expert and the recon towers and
-    heads. The shared trunk leaves (token embedding, lm_head) stay trainable."""
+    expert and the semantic ViT; freeze_recon freezes the geo expert and the
+    recon towers and heads. The shared trunk leaves (token embedding,
+    lm_head) stay trainable."""
     labels = {}
     for name, _ in model.named_parameters():
         geo = name.startswith(_RECON_PREFIXES) or (
@@ -179,7 +188,7 @@ def freeze_labels(model: torch.nn.Module, freeze_und: bool, freeze_recon: bool) 
         if geo:
             labels[name] = "frozen" if freeze_recon else "train"
         else:
-            und = name.startswith("language_model.") and name not in _SHARED_LLM
+            und = name.startswith("vit_model.") or (name.startswith("language_model.") and name not in _SHARED_LLM)
             labels[name] = "frozen" if und and freeze_und else "train"
     return labels
 

@@ -240,6 +240,30 @@ _SAFETENSORS_DTYPES = {
 }
 
 
+def save_safetensors(path: str, tensors: Mapping[str, torch.Tensor]) -> None:
+    """Write {key: tensor} (any device; F32, F16, BF16, I64 or I32) as a
+    `.safetensors` file that `load_safetensors` and the `safetensors` package
+    read: an 8-byte little-endian header length, a JSON header padded with
+    spaces to 8 bytes, then each tensor's bytes in the header's order. The
+    port's own writer: the card's machine has no safetensors package."""
+    names = {dtype: name for name, (_, dtype) in _SAFETENSORS_DTYPES.items()}
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        if t.dtype not in names:
+            raise ValueError(f"save_safetensors: {key} has dtype {t.dtype}; the format here takes {sorted(names)}")
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    # the header needs only shapes and dtypes, so each tensor is brought to the host as it is
+    # written: the peak host memory is one tensor, not the whole state
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)) + head)
+        for t in tensors.values():
+            f.write(memoryview(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy()))
+
+
 def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
     """Read a `.safetensors` file -> {key: host tensor}. The file is
     memory-mapped (copy-on-write), so the tensors share its pages and a later

@@ -311,8 +311,25 @@ def test_segment_kernel_head_dim_80_matches_plain(gen, case):
     got = fa.flash_segment_attention(q, k, v, info, info)
     _check(got, fa.flash_segment_attention_reference(q.float(), k.float(), v.float(), info, info))
     assert (got[info.doc_id < 0] == 0).all()
-    with pytest.raises(ValueError):  # no lse forward or backward at this width yet
-        fa.flash_segment_attention(q.clone().requires_grad_(True), k, v, info, info)
+    # the ViT's training branch: the lse forward (K3) and the backward (K5) at this width
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    before = dict(fa.launch_counts)
+    out = fa.flash_segment_attention(qg, kg, vg, info, info)
+    assert torch.equal(out, got)  # K3's out is K2's
+    dout = _rnd(gen, *q.shape)
+    grads = torch.autograd.grad(out, (qg, kg, vg), dout)
+    for name in ("flash_segment_attention_lse", "flash_segment_attention_bwd_dq", "flash_segment_attention_bwd_dkv"):
+        assert fa.launch_counts[name] == before[name] + 1, name
+    with torch.no_grad():
+        qf, kf, vf = q.float(), k.float(), v.float()
+        _, want_lse = fa.flash_segment_attention_lse_reference(qf, kf, vf, info, info)
+        meta = info.packed()
+        _, lse = fa._segment_forward_cuda(q, k, v, meta, meta, fa.block_codes(meta, meta), None, with_lse=True)
+        assert (lse - want_lse).abs().max().item() < 2e-3
+        want = fa.flash_segment_attention_bwd_reference(qf, kf, vf, out.float(), lse, dout.float(), info, info)
+    for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+        _check_grad(g, w, name)
+        assert (g[info.doc_id < 0] == 0).all(), name
 
 
 def test_a_callers_plan_gives_the_calls_own_result(gen):
@@ -348,19 +365,19 @@ def test_pipelined_kernel_equals_the_plain_schedule(gen, case):
     assert (got.float() - base.float()).abs().max().item() <= 1e-3
     _check(got, fa.flash_segment_attention_reference(q.float(), k.float(), v.float(), info, info))
     assert (got[info.doc_id < 0] == 0).all()
-    if case["d"] != 80:  # with lse: K3's function, and the K5 backward behind it
-        meta = info.packed()
-        codes = fa.block_codes(meta, meta)
-        out, lse = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True, pipelined=True)
-        _, lse3 = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True)
-        assert torch.equal(out, got)
-        assert (lse - lse3).abs().max().item() <= 1e-5 * max(1.0, lse3[lse3 > -1e29].abs().max().item())
-        qg = q.clone().requires_grad_(True)
-        dout = _rnd(gen, *q.shape)
-        (dq,) = torch.autograd.grad(fa.flash_segment_attention(qg, k, v, info, info, pipelined=True), qg, dout)
-        qg2 = q.clone().requires_grad_(True)
-        (dq2,) = torch.autograd.grad(fa.flash_segment_attention(qg2, k, v, info, info), qg2, dout)
-        _check_grad(dq, dq2, "dq through the pipelined forward")
+    # with lse: K3's function, and the K5 backward behind it
+    meta = info.packed()
+    codes = fa.block_codes(meta, meta)
+    out, lse = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True, pipelined=True)
+    _, lse3 = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True)
+    assert torch.equal(out, got)
+    assert (lse - lse3).abs().max().item() <= 1e-5 * max(1.0, lse3[lse3 > -1e29].abs().max().item())
+    qg = q.clone().requires_grad_(True)
+    dout = _rnd(gen, *q.shape)
+    (dq,) = torch.autograd.grad(fa.flash_segment_attention(qg, k, v, info, info, pipelined=True), qg, dout)
+    qg2 = q.clone().requires_grad_(True)
+    (dq2,) = torch.autograd.grad(fa.flash_segment_attention(qg2, k, v, info, info), qg2, dout)
+    _check_grad(dq, dq2, "dq through the pipelined forward")
 
 
 def test_pipelined_kernel_fp16_and_extreme_logits(gen):
@@ -426,6 +443,8 @@ BWD_TILE_CASES = [
     ([50, 13], [50, 13], ["causal", "full"], 70, 4, 2, 64, torch.bfloat16),
     ([150, 50], [100, 50, 50], ["full", "causal", "full"], 200, 12, 2, 128, torch.float16),
     ([77], [30, 47], ["full", "causal"], 77, 3, 3, 96, torch.float16),
+    ([200, 120], [80, 120, 50, 70], ["causal", "full", "causal", "full"], 333, 4, 4, 80, torch.bfloat16),
+    ([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"], 384, 6, 2, 80, torch.float16),
 ]
 
 
@@ -441,9 +460,9 @@ def _segment_bwd_inputs(gen, case):
 
 
 @pytest.mark.parametrize("case", BWD_TILE_CASES, ids=["ragged_333", "skip_tiles_g3_d96", "g2_d64", "fp16_d128",
-                                                      "fp16_g1_d96"])
+                                                      "fp16_g1_d96", "ragged_g1_d80", "fp16_skip_tiles_g3_d80"])
 def test_segment_backward_tiles_repeatable_and_match_plain(gen, case):
-    """Ragged tails, head dims 64 / 96 / 128, odd and even GQA groups, fp16: the kernels match
+    """Ragged tails, head dims 64 / 80 / 96 / 128, odd and even GQA groups, fp16: the kernels match
     the plain backward, two launches agree bit for bit, and rows that see nothing get zeros."""
     info, args = _segment_bwd_inputs(gen, case)
     q, k, v, out, lse, dout = args[:6]
@@ -537,16 +556,16 @@ def test_segment_forwards_match_plain_and_repeat(gen, d, pack, heads):
     assert torch.equal(pipe, fa.flash_segment_attention(q, k, v, info, info, pipelined=True))
     _check(pipe, want)
     assert (pipe.float() - out.float()).abs().max().item() <= 1e-3 and (pipe[pad] == 0).all()
-    if d != 80:  # the lse forwards, serial (K3) and pipelined (K4 with lse)
-        meta = info.packed()
-        _, want_lse = fa.flash_segment_attention_lse_reference(q.float(), k.float(), v.float(), info, info)
-        for pipelined, base in ((False, out), (True, pipe)):
-            out3, lse = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True, pipelined=pipelined)
-            out4, lse4 = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True,
-                                                  pipelined=pipelined)
-            assert torch.equal(out3, base) and torch.equal(out4, out3) and torch.equal(lse4, lse)
-            assert (lse - want_lse).abs().max().item() < 2e-3
-            assert (lse[:, pad] == fa.LSE_EMPTY).all()
+    # the lse forwards, serial (K3) and pipelined (K4 with lse)
+    meta = info.packed()
+    _, want_lse = fa.flash_segment_attention_lse_reference(q.float(), k.float(), v.float(), info, info)
+    for pipelined, base in ((False, out), (True, pipe)):
+        out3, lse = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True, pipelined=pipelined)
+        out4, lse4 = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=True,
+                                              pipelined=pipelined)
+        assert torch.equal(out3, base) and torch.equal(out4, out3) and torch.equal(lse4, lse)
+        assert (lse - want_lse).abs().max().item() < 2e-3
+        assert (lse[:, pad] == fa.LSE_EMPTY).all()
 
 
 

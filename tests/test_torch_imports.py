@@ -34,7 +34,9 @@ def test_every_port_module_and_script_imports_without_jax():
     modules = _port_modules() + list(_SCRIPTS)
     assert "g2vlm_tpu_torch.train.trainer" in modules and "g2vlm_tpu_torch.config" in modules
     for name in ("cli", "models.qwen_vit", "inference.decoding", "data.vit_preprocess", "data.tokenizer", "utils.ply",
-                 "utils.metrics", "utils.rotation", "utils.alignment", "data.synthetic", "data.recon_dataset"):
+                 "utils.metrics", "utils.rotation", "utils.alignment", "data.synthetic", "data.recon_dataset",
+                 "csrc", "data.distributed", "data.cropping", "data.augment", "data.frame_sampling",
+                 "data.vlm_dataset", "data.packing", "data.registry", "train.checkpoint"):
         assert "g2vlm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"

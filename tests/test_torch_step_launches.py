@@ -4,7 +4,11 @@ against what the kernels' autograd Functions do on the CPU: each forward call
 is one lse-forward launch on the card (K3, K6), each backward call one dq and
 one dkv launch (K5, K7). Per-layer checkpointing, groups of layers
 checkpointed around it (`remat_group`, `dino_remat_group`) and the Pi3 heads
-in view chunks (`head_view_chunk`), at tiny_test_config size. CPU only."""
+in view chunks (`head_view_chunk`), at tiny_test_config size; and the joint
+step: a pack with ViT images (each ViT block checkpointed: K3 twice, K5 once),
+with the recon side frozen (`--freeze_recon`: DINOv2 runs the plain forward
+K1, no backward; the frozen Pi3 heads keep K6 / K7) or all of it trained.
+CPU only."""
 
 import collections
 import dataclasses
@@ -33,6 +37,17 @@ CASES = {
     "llm_group_only": (4, dict(remat_group=2), dict(remat_group=2)),
     "head_view_chunk_1": (2, dict(head_view_chunk=1), dict(chunks=2)),
 }
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_threads():
+    """This module runs many small torch ops, which torch spreads over one thread per core by
+    default; beside the other test workers that oversubscribes the machine (1.7x slower on one
+    core), so the module runs on two threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def _counted_calls(monkeypatch):
@@ -68,3 +83,29 @@ def test_step_launches_equal_the_calls_of_a_step(name, monkeypatch):
     loss.backward()
     assert torch.isfinite(loss)
     assert dict(counts) == chip_smoke._step_launches(cfg, **launch_kw)
+
+
+@pytest.mark.parametrize("freeze_recon", [True, False], ids=["freeze_recon", "all_trained"])
+@pytest.mark.parametrize("sorted_layout", [True, False], ids=["split", "mixed"])
+def test_joint_step_launches_equal_the_calls_of_a_step(freeze_recon, sorted_layout, monkeypatch):
+    from test_torch_joint_train import _pack
+
+    cfg = tiny_test_config()
+    model = build_model(cfg, device="cpu", dtype=torch.float32, seed=0).train()
+    trainer.apply_freeze(model, freeze_recon=freeze_recon)
+    fields, geo_start = _pack(sorted_layout)
+    counts = _counted_calls(monkeypatch)
+    plain_forwards = collections.Counter()
+    batched = fa.flash_batched_attention_reference
+
+    def counted_plain(*args, **kw):  # the no-grad CPU path of K1, which the card runs as the kernel
+        plain_forwards["flash_batched_attention"] += 1
+        return batched(*args, **kw)
+
+    monkeypatch.setattr(fa, "flash_batched_attention_reference", counted_plain)
+    loss, _ = trainer.train_forward(model, trainer.TrainBatch.from_numpy(**fields), cfg,
+                                    compute_dtype=torch.float32, geo_start=geo_start)
+    loss.backward()
+    assert torch.isfinite(loss)
+    want = chip_smoke._step_launches(cfg, vit=True, freeze_recon=freeze_recon)
+    assert {**counts, **plain_forwards} == want

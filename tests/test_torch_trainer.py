@@ -287,16 +287,31 @@ def test_two_train_steps_match_optax(factored):
 
 
 def test_vit_branch_raises_until_ported():
-    fields, _ = _batch_fields(0, False)
-    batch = _tbatch(fields)
-    batch.vit_patches = torch.zeros(4, 8)
-    with pytest.raises(NotImplementedError):
-        ttr.train_forward(_fresh_model(_random_params()), batch, CFG, compute_dtype=torch.float32)
+    """The ViT branch no longer raises: on a joint pack (DINOv2 views, ViT images, padded ViT
+    slots) `train_forward` gives the JAX package's loss and details. Every gradient is held
+    against jax.grad in tests/test_torch_joint_train.py."""
+    from test_torch_joint_train import CFG as VIT_CFG
+    from test_torch_joint_train import JCFG as VIT_JCFG
+    from test_torch_joint_train import _fresh_model as vit_model
+    from test_torch_joint_train import _pack
+    from test_torch_joint_train import _random_params as vit_params
+
+    params = vit_params(2)
+    fields, geo_start = _pack(False, seed=3)
+    want, wdet = jax.jit(lambda p: jtr.train_forward(
+        p, jtr.TrainBatch(**{k: jnp.asarray(v) for k, v in fields.items()}), VIT_JCFG, compute_dtype=jnp.float32,
+        remat=False, geo_start=geo_start))(jax.tree.map(jnp.asarray, params))
+    got, gdet = ttr.train_forward(vit_model(params), _tbatch(fields), VIT_CFG, compute_dtype=torch.float32,
+                                  geo_start=geo_start)
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-4)
+    for key in wdet:
+        np.testing.assert_allclose(gdet[key].item(), float(wdet[key]), rtol=1e-4, atol=1e-6, err_msg=key)
 
 
-def test_train_torch_entry_point_runs_on_the_cpu():
+def test_train_torch_entry_point_runs_on_the_cpu(tmp_path):
     proc = subprocess.run(
-        [sys.executable, "train_torch.py", "--tiny", "--synthetic", "--steps", "2", "--device", "cpu", "--log_every", "1"],
+        [sys.executable, "train_torch.py", "--tiny", "--synthetic", "--steps", "2", "--device", "cpu", "--log_every", "1",
+         "--checkpoint_dir", str(tmp_path / "ckpts")],
         cwd=REPO, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
@@ -318,7 +333,8 @@ def test_train_torch_model_path_matches_in_memory(tmp_path):
     for extra in ([], ["--model_path", str(ck)]):
         proc = subprocess.run(
             [sys.executable, "train_torch.py", "--tiny", "--synthetic", "--steps", "1", "--device", "cpu",
-             "--log_every", "1", *extra], cwd=REPO, capture_output=True, text=True, timeout=300)
+             "--log_every", "1", "--checkpoint_dir", str(tmp_path / "out"), *extra], cwd=REPO, capture_output=True,
+            text=True, timeout=300)
         assert proc.returncode == 0, proc.stderr[-2000:]
         line = next(line for line in proc.stderr.splitlines() if "step 0 " in line)
         step0.append([w for w in line[line.index("step 0 "):].split() if not w.endswith("ms/step")])
@@ -346,7 +362,7 @@ def test_train_torch_model_path_matches_jax_train_py(tmp_path):
     runs = {}
     for script, extra, env in (
         ("train.py", ["--checkpoint_dir", str(tmp_path / "out")], dict(os.environ, JAX_PLATFORMS="cpu")),
-        ("train_torch.py", ["--device", "cpu"], None),
+        ("train_torch.py", ["--device", "cpu", "--checkpoint_dir", str(tmp_path / "out_torch")], None),
     ):
         proc = subprocess.run([sys.executable, script, *common, *extra], cwd=REPO, capture_output=True, text=True,
                               timeout=300, env=env)
@@ -358,14 +374,16 @@ def test_train_torch_model_path_matches_jax_train_py(tmp_path):
         assert abs(got[k] - v) <= 1e-4 * abs(v) + 1e-4, (k, got[k], v)
 
 
-@pytest.mark.parametrize("flags", [["--data_config", "x.yaml"], ["--resume"], ["--dp", "2"], ["--train_conf"],
-                                   ["--bootstrap_moe"], ["--max_vit_patches", "64"], []])
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--train_conf"], ["--bootstrap_moe"], []])
 def test_train_torch_flags_that_wait_for_a_module_raise(flags):
     sys.path.insert(0, str(REPO))
     try:
         import train_torch
     finally:
         sys.path.pop(0)
-    argv = flags if not flags else ["--synthetic"] + flags  # without --synthetic: real data, not ported
+    if not flags:  # neither --synthetic nor --data_config: no data
+        with pytest.raises(ValueError, match="--data_config.*--synthetic"):
+            train_torch.parse_args([])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_torch.parse_args(argv)
+        train_torch.parse_args(["--synthetic"] + flags)

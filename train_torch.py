@@ -1,9 +1,19 @@
 #!/usr/bin/env python
 """Training entry point of the PyTorch port (the counterpart of train.py on
-one NVIDIA GPU): joint CE + Pi3 3D training with EMA, on synthetic packs.
+one NVIDIA GPU): joint CE + Pi3 3D training with EMA, checkpoints and
+resuming, on packs from a data config or on synthetic packs.
 
 Smoke on the CPU (tiny model, fp32):
   python train_torch.py --tiny --synthetic --steps 2 --device cpu
+
+Real data: a YAML of dataset groups (configs/joint_train.yaml's layout; the
+`recon` and `vlm_sft` groups, each dataset's JSONL under `dataset_info`),
+packed by data/packing.py; `--max_vit_patches` > 0 adds the Qwen2-VL ViT and
+its branch of the training step; checkpoints every `--ckpt_every` steps into
+`--checkpoint_dir`, and `--resume` continues from the newest one, data
+cursors included:
+  python train_torch.py --data_config joint.yaml --max_vit_patches 23328 \\
+      --split_layout --freeze_recon --checkpoint_dir ckpts [--resume]
 
 The recon stage at full width on one H100 (16 views of 294x518 in a
 12,800-token pack, und expert frozen, factored Adam with a bf16 first moment):
@@ -15,8 +25,8 @@ vocabulary from its tokenizer files):
   python train_torch.py --synthetic --model_path /path/to/G2VLM-2B-MoT --steps 10
 
 Runs on `cuda` unless `--device cpu` is given, and raises when `cuda` is
-asked for and absent. Real datasets, resuming and multi-GPU meshes are not
-ported yet: their flags raise NotImplementedError.
+asked for and absent. Multi-GPU meshes, the conf head and the MoE bootstrap
+are not ported yet: their flags raise NotImplementedError.
 """
 
 import argparse
@@ -25,15 +35,17 @@ import itertools
 
 # flags of train.py that wait for modules of the port, with the ROADMAP item
 _NOT_PORTED = {
-    "data_config": "the packer and the datasets (ROADMAP A.8: train/dataloader.py, data/packing.py)",
     "bootstrap_moe": "weights.init_moe_from_dense and the dense / moe layer modules (ROADMAP A.10b)",
-    "resume": "train/checkpoint.py (ROADMAP A.8)",
     "dp": "multi-GPU meshes (ROADMAP A.9)",
     "tp": "multi-GPU meshes (ROADMAP A.9)",
     "sequence_parallel": "parallel/sequence.py (ROADMAP A.9)",
     "train_conf": "the conf decoder and the SegFormer sky mask (ROADMAP A.10)",
-    "max_vit_patches": "the ViT branch of train_forward (ROADMAP A.8)",
 }
+
+
+# the vocabulary the tokenizer-less text ids (hash(word) % 5000 + 100) and the four special tokens above
+# them need
+_HASH_VOCAB = 5104
 
 
 def parse_args(argv=None):
@@ -62,6 +74,9 @@ def parse_args(argv=None):
     ap.add_argument("--log_every", type=int, default=10)
     ap.add_argument("--profile_dir", type=str, default=None, help="torch.profiler trace of steps 5-7")
     ap.add_argument("--tiny", action="store_true", help="tiny config in fp32 (tests)")
+    ap.add_argument("--cut_depth", type=int, default=0,
+                    help="port only: the full-width config with this many layers per tower and a vocabulary of "
+                         "5,120, in which tokenizer-less ids fit (the card's checks; 0 = the full depth)")
     ap.add_argument("--synthetic", action="store_true", help="synthetic data (no datasets needed)")
     ap.add_argument("--views", type=int, default=None, help="full-size synthetic pack: number of views")
     ap.add_argument("--hw", type=int, nargs=2, default=(294, 518), help="full-size synthetic pack: view size")
@@ -70,30 +85,43 @@ def parse_args(argv=None):
     ap.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--model_path", type=str, default=None,
                     help="checkpoint dir: text/vit/dino_config.json, model.safetensors and the vocabulary files")
+    ap.add_argument("--data_config", type=str, default=None, help="YAML of dataset groups (real data)")
+    ap.add_argument("--tokenizer_path", type=str, default=None,
+                    help="tokenizer dir (vocab.json / merges.txt) for the data config's text without --model_path; "
+                         "without either, text ids come from a hash of each word")
+    ap.add_argument("--max_num_tokens", type=int, default=36864)
+    ap.add_argument("--expected_num_tokens", type=int, default=None,
+                    help="packer emit threshold (default 8/9 of --max_num_tokens)")
+    ap.add_argument("--image_num_range", type=int, nargs=2, default=(2, 24),
+                    help="the range of the view count the packer draws per pack")
+    ap.add_argument("--max_vit_patches", type=int, default=0,
+                    help="ViT patch-row slots per pack (0 = no ViT branch; > 0 for joint recon + und data)")
+    ap.add_argument("--geo_start_bucket", type=int, default=256)
+    ap.add_argument("--checkpoint_dir", type=str, default="ckpts")
+    ap.add_argument("--ckpt_every", type=int, default=500)
+    ap.add_argument("--keep_ckpts", type=int, default=2)
+    ap.add_argument("--resume", action="store_true", help="continue from the newest checkpoint in --checkpoint_dir")
     # accepted for train.py's command lines; each raises until its module is ported
-    ap.add_argument("--data_config", type=str, default=None)
     ap.add_argument("--bootstrap_moe", action="store_true")
-    ap.add_argument("--resume", action="store_true")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--sequence_parallel", action="store_true")
     ap.add_argument("--train_conf", action="store_true")
-    ap.add_argument("--max_vit_patches", type=int, default=0)
     args = ap.parse_args(argv)
-    defaults = {"dp": 1, "tp": 1, "max_vit_patches": 0}
+    defaults = {"dp": 1, "tp": 1}
     for flag, waits_for in _NOT_PORTED.items():
         if getattr(args, flag) not in (None, False, defaults.get(flag)):
             raise NotImplementedError(f"--{flag} is not ported yet: it waits for {waits_for}")
-    if not args.synthetic:
-        raise NotImplementedError(
-            "only --synthetic data is ported: real data waits for " + _NOT_PORTED["data_config"])
+    if not args.synthetic and not args.data_config:
+        raise ValueError("no data: pass --data_config <yaml> for real data or --synthetic for synthetic packs")
     return args
 
 
-def synthetic_batches(cfg, seed=0, device=None):
+def synthetic_batches(cfg, seed=0, device=None, start=0):
     """Endless stream of (TrainBatch with a leading batch axis of 1, geo_start
     None): the tiny two-view pack of train.py's `synthetic_batches`, in the
-    unsorted layout (MIXED expert mode)."""
+    unsorted layout (MIXED expert mode), from step `start` on (a resumed run
+    continues the stream, where train.py's starts it over)."""
     import numpy as np
 
     from g2vlm_tpu_torch.models.g2vlm import SequenceBuilder
@@ -101,7 +129,7 @@ def synthetic_batches(cfg, seed=0, device=None):
 
     n, h, w = 2, 56, 56
     hp = wp = h // cfg.dino_patch_size
-    for step in itertools.count():
+    for step in itertools.count(start):
         rng = np.random.default_rng(seed + step)
         b = SequenceBuilder(11, 12)
         b.add_text([7, 23, 45])
@@ -181,12 +209,81 @@ def full_size_batch(cfg, views, hw, tokens, seed=0, device=None):
     return _batch_from_prefill(pre, ce_idx, ce_labels, rng, views, h, w, device, positive_depth=True), geo_start
 
 
+def packer_batches(args, data_cfg, cfg, new_token_ids, tokenizer, data_status, device=None):
+    """Real data: the data config's dict -> dataset groups -> packer -> an
+    endless stream of (TrainBatch with a leading batch axis of 1, geo_start,
+    the pack's data_indexes, the packer's resume status after it). The group
+    draws come from a generator seeded with --seed, so that a run and its
+    resumption see the same packs; `data_status` (a checkpoint's) fast-forwards
+    the datasets and the packer."""
+    import random
+
+    from g2vlm_tpu_torch.data.packing import PackedIterableDataset, PackerConfig
+    from g2vlm_tpu_torch.data.registry import build_groups_from_config
+
+    groups = build_groups_from_config(data_cfg, tokenizer=tokenizer, data_status=data_status)
+    if new_token_ids is None:
+        # no tokenizer: the special tokens sit at the top of the vocabulary, where
+        # add_special_tokens appends them
+        v = cfg.llm.vocab_size
+        new_token_ids = dict(bos_token_id=v - 4, eos_token_id=v - 3, start_of_image=v - 2, end_of_image=v - 1)
+    expected = args.expected_num_tokens or args.max_num_tokens * 8 // 9
+    packed = PackedIterableDataset(
+        groups,
+        new_token_ids,
+        PackerConfig(
+            expected_num_tokens=expected,
+            max_num_tokens_per_sample=min(16384, args.max_num_tokens // 2),
+            max_num_tokens=args.max_num_tokens,
+            image_num_range=tuple(args.image_num_range),
+            sorted_layout=args.split_layout,
+            geo_start_bucket=args.geo_start_bucket,
+            max_vit_patches=args.max_vit_patches,
+        ),
+        group_rng=random.Random(args.seed),
+        resume=data_status,
+    )
+    for b in packed:
+        yield batch_from_pack(b, device), b.get("geo_start"), b.get("data_indexes", []), packed.resume_status()
+
+
+def batch_from_pack(b, device=None):
+    """A packer's batch dict (data/packing.py `to_batch`) -> TrainBatch with a
+    leading batch axis of 1, as train.py's packer_batches builds it."""
+    import numpy as np
+
+    from g2vlm_tpu_torch.train.trainer import TrainBatch
+
+    fields = {k: b[k] for k in (
+        "text_ids", "text_indexes", "dino_indexes", "vit_indexes", "is_geo", "position_ids", "doc_id", "fn_id",
+        "noise_id", "pos", "ce_indexes", "ce_labels", "ce_weights", "dino_images")}
+    fields.update(world_points=b["world_points"][None], point_masks=b["point_masks"][None],
+                  extrinsics=b["extrinsics"][None], normal_batch_mask=np.ones((1,), bool))
+    for k in ("vit_patches", "vit_coords", "vit_seg"):
+        if b.get(k) is not None:
+            fields[k] = b[k]
+    return TrainBatch.from_numpy(device=device, **{k: v[None] for k, v in fields.items()})
+
+
 def main(argv=None):
     args = parse_args(argv)
+    data_cfg = None
+    if args.data_config:
+        from g2vlm_tpu_torch.data.registry import load_yaml_config
+
+        data_cfg = load_yaml_config(args.data_config)
+    return train(args, data_cfg)
+
+
+def train(args, data_cfg=None):
+    """The training loop of `main`, after the data config (if any) was read
+    into `data_cfg`. Returns the final TrainState."""
     import torch
 
-    from g2vlm_tpu_torch.config import G2VLMConfig, tiny_test_config
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config, tiny_test_config
+    from g2vlm_tpu_torch.data.packing import fold_data_status
     from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.train.checkpoint import CheckpointManager
     from g2vlm_tpu_torch.train.logging import StepTimer, create_logger, format_metrics, maybe_profile
     from g2vlm_tpu_torch.weights import build_model, load_checkpoint
 
@@ -194,18 +291,25 @@ def main(argv=None):
         raise RuntimeError("--device cuda (the default) needs an NVIDIA GPU; pass --device cpu for the CPU")
     device = torch.device(args.device)
     logger = create_logger()
+    tokenizer = new_token_ids = None
     if args.model_path:
         from g2vlm_tpu_torch.data.tokenizer import load_tokenizer
 
         # the checkpoint's config, whatever --tiny says, as train.py takes it
         model, cfg = load_checkpoint(args.model_path, device=device, dtype=torch.float32)
-        # the data path (ROADMAP A.8) will tokenize with it; loaded now, as train.py does, so that
-        # missing vocabulary files fail before any step
         tokenizer, new_token_ids, _ = load_tokenizer(args.model_path)
         logger.info(f"checkpoint {args.model_path}: vocabulary of {len(tokenizer)}, special ids {new_token_ids}")
     else:
-        cfg = tiny_test_config(visual_und=False) if args.tiny else G2VLMConfig(visual_und=False)
+        cfg = tiny_test_config() if args.tiny else G2VLMConfig(visual_und=args.max_vit_patches > 0)
+        if args.cut_depth:
+            cfg = cut_depth_config(cfg, args.cut_depth)
         model = build_model(cfg, device=device, dtype=torch.float32, seed=args.seed)
+        if args.tokenizer_path:
+            from g2vlm_tpu_torch.data.tokenizer import load_tokenizer
+
+            tokenizer, new_token_ids, _ = load_tokenizer(args.tokenizer_path)
+            if len(tokenizer) > cfg.llm.vocab_size:
+                raise ValueError(f"tokenizer vocabulary {len(tokenizer)} exceeds the model's {cfg.llm.vocab_size}")
     model.train()
     schedule = trainer.warmup_cosine_schedule(0.0, args.lr, args.warmup, max(args.steps, args.warmup + 1))
     optimizer = trainer.make_optimizer(
@@ -218,16 +322,29 @@ def main(argv=None):
     n_train = sum(p.numel() for p in optimizer.params)
     n_all = sum(p.numel() for p in model.parameters())
     logger.info(f"device {device}; {n_all / 1e9:.3f} B parameters, {n_train / 1e9:.3f} B trainable")
+    mgr = CheckpointManager(args.checkpoint_dir, keep=args.keep_ckpts)
+    data_status = None
+    if args.resume and mgr.latest_step() is not None:
+        state, data_status = mgr.restore(state)
+        logger.info(f"resumed at step {state.step} from {args.checkpoint_dir}")
 
-    if args.views is not None:
+    if data_cfg is not None and tokenizer is None and cfg.llm.vocab_size < _HASH_VOCAB:
+        raise ValueError(
+            f"without --tokenizer_path or --model_path the datasets' text ids are hash(word) % 5000 + 100: with "
+            f"the four special tokens above them they need a vocabulary of at least {_HASH_VOCAB}, and this "
+            f"model's is {cfg.llm.vocab_size} (pass --tokenizer_path, or --cut_depth for a model of 5,120)")
+    if data_cfg is not None:
+        batches = packer_batches(args, data_cfg, cfg, new_token_ids, tokenizer, data_status, device)
+    elif args.views is not None:
         batch, geo_start = full_size_batch(cfg, args.views, tuple(args.hw), args.tokens, args.seed, device)
         if not args.split_layout:
             geo_start = None
-        batches = itertools.repeat((batch, geo_start))
+        batches = ((batch, geo_start, [], {}) for _ in itertools.count())
     else:
         if args.split_layout:
             raise ValueError("--split_layout needs the sorted full-size pack: pass --views")
-        batches = synthetic_batches(cfg, args.seed, device)
+        batches = ((batch, geo_start, [], {})
+                   for batch, geo_start in synthetic_batches(cfg, args.seed, device, start=state.step))
 
     step_fns = {}  # one step function per geo_start, as train.py caches one program per bucket
 
@@ -241,10 +358,15 @@ def main(argv=None):
             )
         return step_fns[geo_start]
 
+    # the resume cursors, folded per consumed batch, saved with each checkpoint; the packer's
+    # own status (the cursors of the samples it read and dropped, its counters) joins them
+    status = dict(data_status or {})
     timer = StepTimer()
-    for step, (batch, geo_start) in enumerate(batches):
+    for step, (batch, geo_start, dixs, packer_status) in enumerate(batches, start=state.step):
         if step >= args.steps:
             break
+        fold_data_status(status, dixs)
+        status.update(packer_status)
         with maybe_profile(args.profile_dir, step, 5, 3):
             state, metrics = get_step_fn(geo_start)(state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
@@ -252,6 +374,11 @@ def main(argv=None):
                 torch.cuda.synchronize()
             timer.tick()
             logger.info(format_metrics(step, metrics, timer.avg_step_time))
+        if step > 0 and step % args.ckpt_every == 0:
+            mgr.save(step, state, data_status=status or None)
+            logger.info(f"checkpointed step {step}")
+    mgr.save(state.step, state, data_status=status or None)
+    mgr.wait()
     logger.info("done")
     return state
 
