@@ -7,11 +7,13 @@ Phases (each prints its result; any failure raises and the exit code is 1):
   1. device: the card's name and power limit;
   2. build: nvcc builds the attention kernels from g2vlm_tpu_torch/csrc, one
      process per source, in parallel;
-  3. K1 (batched attention) against its plain version at the recon shapes,
+  3. K1 (batched attention) against its plain version at the recon shapes
+     (and DINOv3's, phase 21),
      two launches bitwise equal, each case beside its bound and the library
      call;
   4. K2 (segment attention) against its plain (chunked) version at the
-     32-view recon prefill, a small mixed case and an extreme-logit case,
+     32-view recon prefill, a small mixed case, the DINOv3 recon prefill and an
+     extreme-logit case,
      two launches bitwise equal, each case beside its bound and the library
      call;
   5. recon parity: a full-width, cut-depth model runs recon_from_frames on the
@@ -87,7 +89,28 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      --resume; B's steps 2-3 against A's within 1e-3, data_status equal, a
      checkpoint restored onto the card bitwise its file, write and restore
      seconds. Subprocesses with PYTHONHASHSEED=0; the YAML is written with
-     PyYAML, whose absence fails the phase.
+     PyYAML, whose absence fails the phase;
+ 19. the conf-head stage (train_torch.py --train_conf): (a) a cut-depth,
+     full-width G2VLMConfig(visual_und=False, train_conf_pi3=True) step on the
+     card against the CPU fp32 run (loss, local_conf_loss, gradient norms with
+     the conf decoder's, launch counts) and the frozen SegFormer's logits and
+     sky mask; (b) phase 10's step at full width and depth with the conf decoder
+     and head and the in-program sky masks of a SegFormer with random weights
+     from the seed: ms per step, real tokens/s, peak memory, exact launch
+     counts, the SegFormer (and a sample of the other frozen leaves) and their
+     EMA bitwise unchanged;
+ 20. the "moe" and "dense" decoder layers: (a) the 32-view recon call with each
+     (random bf16 weights; a MIXED prefill of 25,088 rows): launch counts,
+     finite outputs, latency, memory; (b) cut-depth parity against the CPU of
+     recon and of the chat prefill with its first decode step, for each; (c)
+     --model_path <cut 'mot' checkpoint> --bootstrap_moe: the checkpoint
+     written, loaded on both devices, the geo expert copied from the base
+     expert, one step card vs CPU (loss, gradient norms, launches);
+ 21. the DINOv3 geometry tower (use_dinov3, Dinov3Config(): ViT-L/16): (a)
+     cut-depth parity of recon_from_frames(new_width=512) against the CPU; (b)
+     the 32-view call at full size on 288x512 views (launch counts, latency,
+     memory). Its K1 shape (32, 581, 16, 64) runs in phase 3's loop and its K2
+     prefill (32 views of 18 x 32 patches) in phase 4's.
 Every kernel is also timed beside the one PyTorch library call that computes
 the same function (a yardstick only; the port never calls it). The last line is
 {"ok": true, "device": {...}}; before it, the card's line and one JSON line
@@ -238,11 +261,12 @@ def _step_launches(c, chunks=1, remat_group=1, dino_remat_group=1, vit=False, fr
     `vit`: the pack holds ViT images and the ViT trains: each of its blocks (one checkpoint a
     block) runs K3 twice and K5 once, at head dim 80. `freeze_recon`: DINOv2 and its inputs get
     no gradient, so it runs the plain forward K1 once a layer and no backward; the Pi3 heads,
-    frozen too, still see hidden states that need a gradient and keep K6 / K7."""
+    frozen too, still see hidden states that need a gradient and keep K6 / K7. The conf decoder
+    (`train_conf_pi3`) is one more Pi3 decoder of self-attention blocks."""
     def lse(layers, group):
         return 2 * layers + (layers // group * (group - 1) if group > 1 else 0)
 
-    pi3 = c.pi3.depth * (2 + 2 * c.use_global_points) * chunks
+    pi3 = c.pi3.depth * (2 + 2 * c.use_global_points + c.train_conf_pi3) * chunks
     segment = c.llm.num_hidden_layers + (c.vit.depth if vit else 0)
     segment_lse = lse(c.llm.num_hidden_layers, remat_group) + (2 * c.vit.depth if vit else 0)
     dino = c.dino.num_hidden_layers
@@ -345,6 +369,9 @@ def main() -> None:
     paths_run["recon_entry"] = _recon_entry_phase(env)
     paths_run["joint_step"] = _joint_step_phase(env)
     _data_resume_phase(env)
+    paths_run["conf_step"] = _conf_stage_phase(env)
+    paths_run.update(_dense_moe_phase(env, recon_ms))
+    paths_run["recon_dinov3"] = _dinov3_phase(env, recon_ms)
 
     for kname, e in kernels.items():
         for path, counts in paths_run.items():
@@ -395,6 +422,8 @@ def _recon_and_train_phases(env):
         ("pi3_self", 32, 777, 777, 16, 96, None, False),
         ("pi3_cross_frame0", 32, 777, 777, 16, 96, None, True),
         ("pi3_self_valid_kv", 32, 777, 777, 16, 96, 700, False),
+        # phase 21's shape: DINOv3 at 288x512 views, 18 x 32 patches + CLS + 4 registers
+        ("dinov3", 32, 581, 581, 16, 64, None, False),
     ]
     for tag, b, s, m, h, d, valid, cross in k1_cases:
         q = rnd(b, s, h, d)
@@ -430,10 +459,13 @@ def _recon_and_train_phases(env):
     shape_pipe = G2VLMPipeline(None, G2VLMConfig(visual_und=False))
     pre = shape_pipe.build_recon_prefill(32, 21, 37)
     recon_info = pre.token_info(dev)
+    # phase 21's prefill: 32 DINOv3 views of 18 x 32 patches
+    dinov3_info = shape_pipe.build_recon_prefill(32, 18, 32).token_info(dev)
 
     for tag, info, h, kvh, d, iters in (
         ("recon_prefill_32_views", recon_info, 12, 2, 128, 5),
         ("mixed_docs_padded", mixed, 12, 2, 128, 20),
+        ("recon_prefill_32_views_dinov3", dinov3_info, 12, 2, 128, 5),
     ):
         n = info.seq_len
         q, k, v = rnd(n, h, d), rnd(n, kvh, d), rnd(n, kvh, d)
@@ -463,6 +495,9 @@ def _recon_and_train_phases(env):
             del out
             k2e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by, library_ms=lib,
                        shape=f"({n},{h}:{kvh},{d})")
+        if tag == "recon_prefill_32_views_dinov3":
+            k2e.setdefault("at", {})[tag] = dict(shape=f"({n},{h}:{kvh},{d})", ms=ms, plain_ms=plain_ms,
+                                                 bound_ms=bound_ms, bound_by=by, library_ms=lib)
     del q, k, v, qf, kf, vf
     torch.cuda.empty_cache()
 
@@ -859,7 +894,6 @@ def _recon_and_train_phases(env):
     torch.cuda.empty_cache()
 
     # ---- 10. the training slice -------------------------------------------------
-    n_steps = 4
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, dtype=torch.float32, seed=0).train()
@@ -873,58 +907,78 @@ def _recon_and_train_phases(env):
     print(f"[train] fp32 init of {n_params / 1e9:.3f} B parameters ({n_train / 1e9:.3f} B trainable), optimizer "
           f"and EMA on the card in {time.perf_counter() - t0:.1f} s; pack {TRAIN_TOKENS} rows, {real_tokens} real "
           f"tokens, {TRAIN_VIEWS} views of {TRAIN_HW[0]}x{TRAIN_HW[1]}, geo_start {geo_start}")
+    train_launches = _full_size_steps(
+        env, "train", state, step_fn, train_batch, real_tokens, _step_launches(cfg),
+        f"{TRAIN_VIEWS} views {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_TOKENS}-row pack, bf16 compute, fp32 masters")
+    del model, optimizer, state, step_fn, train_batch
+    torch.cuda.empty_cache()
+    return recon_launches, train_launches, recon_ms
+
+
+def _full_size_steps(env, tag, state, step_fn, batch, real_tokens, want_launches, desc, always_frozen=()):
+    """Four steps on one repeated batch, each one's launches held to `want_launches`; the loss must
+    fall over three steps, a sample of the frozen parameters (and every parameter and buffer whose
+    name starts with one of `always_frozen`) and their EMA stay bitwise unchanged, and at least 90% of
+    a sample of the trainable ones and of their EMA move. Prints each step and ms per step (median of
+    steps 1-3), real tokens/s and peak memory; returns the launches of the last step."""
+    import numpy as np
+    import torch
+
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+
+    model = state.model
     named = dict(model.named_parameters())
     frozen_names = [n_ for n_, p in named.items() if not p.requires_grad]
     probe = frozen_names[:: max(1, len(frozen_names) // 8)]  # a sample of the frozen leaves, copied
+    probe += [n_ for n_ in frozen_names if n_.startswith(always_frozen) and n_ not in probe]
+    buffers = {n_: b.detach().clone() for n_, b in model.named_buffers() if n_.startswith(always_frozen)}
     before = {n_: named[n_].detach().clone() for n_ in probe}
     moved_probe = {n_: p.detach().clone() for n_, p in named.items() if p.requires_grad and p.numel() < 5_000_000}
-    want_launches = _step_launches(cfg)
     losses, norms, times = [], [], []
-    for step in range(n_steps):
+    for step in range(4):
         fa.reset_launch_counts()
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, train_batch)
+        state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         launches = {k: v for k, v in fa.launch_counts.items() if v}
         if launches != want_launches:
-            _fail(f"train slice step {step}: launches {launches}, expected {want_launches}")
+            _fail(f"{tag} step {step}: launches {launches}, expected {want_launches}")
         losses.append(metrics["loss"].item())
         norms.append(metrics["grad_norm"].item())
-        print(f"[train] step {step}: loss {losses[-1]:.5f} grad_norm {norms[-1]:.4f} "
+        print(f"[{tag}] step {step}: loss {losses[-1]:.5f} grad_norm {norms[-1]:.4f} "
               + " ".join(f"{k} {val.item():.4f}" for k, val in metrics.items() if k not in ("loss", "grad_norm"))
               + f" | {times[-1]:.1f} ms")
         if not (np.isfinite(losses[-1]) and np.isfinite(norms[-1])):
-            _fail(f"train slice step {step}: loss or grad norm is not finite")
+            _fail(f"{tag} step {step}: loss or grad norm is not finite")
     if not losses[2] < losses[0]:
-        _fail(f"train slice: the loss did not fall over three steps on one batch: {losses}")
+        _fail(f"{tag}: the loss did not fall over three steps on one batch: {losses}")
     for n_ in probe:
         if not torch.equal(named[n_], before[n_]) or not torch.equal(state.ema_params[n_], before[n_]):
-            _fail(f"train slice: frozen parameter {n_} or its EMA changed")
+            _fail(f"{tag}: frozen parameter {n_} or its EMA changed")
+    for n_, b in model.named_buffers():
+        if n_ in buffers and not torch.equal(b, buffers[n_]):
+            _fail(f"{tag}: frozen buffer {n_} changed")
     n_moved = sum(not torch.equal(named[n_], old) for n_, old in moved_probe.items())
     n_ema_moved = sum(not torch.equal(state.ema_params[n_], old) for n_, old in moved_probe.items())
     if n_moved < 0.9 * len(moved_probe) or n_ema_moved < 0.9 * len(moved_probe):
-        _fail(f"train slice: only {n_moved} parameters and {n_ema_moved} EMA leaves of {len(moved_probe)} changed")
+        _fail(f"{tag}: only {n_moved} parameters and {n_ema_moved} EMA leaves of {len(moved_probe)} changed")
     ms = statistics.median(times[1:])
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[train] {TRAIN_VIEWS} views {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_TOKENS}-row pack, bf16 compute, fp32 "
-          f"masters: {ms:.1f} ms per step (median of steps 1.. of {[round(t, 1) for t in times]}), "
+    print(f"[{tag}] {desc}: {ms:.1f} ms per step (median of steps 1.. of {[round(t, 1) for t in times]}), "
           f"{real_tokens / ms * 1e3:.1f} real tokens/s, peak allocated {peak:.2f} GiB; loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; {len(probe)} sampled frozen leaves and their EMA bitwise unchanged, "
-          f"{n_moved}/{len(moved_probe)} sampled trainable leaves changed; launches per step {want_launches} ({card})")
+          f"{losses[-1]:.4f}; {len(probe)} frozen leaves (a sample, and all under {always_frozen}) and their EMA "
+          f"bitwise unchanged, {len(buffers)} frozen buffers unchanged, {n_moved}/{len(moved_probe)} "
+          f"sampled trainable leaves changed; launches per step {want_launches} ({env.card})")
 
-    if args.profile:
+    if env.args.profile:
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step_fn(state, train_batch)
+            step_fn(state, batch)
             torch.cuda.synchronize()
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
-
-    train_launches = dict(launches)  # read after the last training step
-    del model, optimizer, state, step_fn, train_batch, named, before, moved_probe, metrics
-    torch.cuda.empty_cache()
-    return recon_launches, train_launches, recon_ms
+    return dict(launches)
 
 
 
@@ -1962,6 +2016,376 @@ def _data_resume_phase(env):
     torch.cuda.empty_cache()
     shutil.rmtree(work)
     print(f"[data] phase 18 in {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def _step_parity(env, tag, cpu_model, cfg, batch, geo_start, groups, want_launches, freeze, details=()):
+    """One forward + backward of `cpu_model` on the CPU (fp32, the plain versions) and of a copy of it
+    on the card (fp32 masters, bf16 compute, the kernels), each with `freeze` (apply_freeze's flags):
+    the loss and each of `details` within 3e-2 of the CPU's, each group's gradient norm (a prefix or a
+    tuple of prefixes) within 1e-1, the card's launches exactly `want_launches`. Returns the card's
+    model."""
+    import torch
+
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.weights import build_model
+
+    def grad_norms(m):
+        return {g: sum(p.grad.float().square().sum().item() for n_, p in m.named_parameters()
+                       if n_.startswith(prefix) and p.grad is not None) ** 0.5 for g, prefix in groups.items()}
+
+    one = batch.map(lambda x: x[0])
+    cpu_model.train()
+    trainer.apply_freeze(cpu_model, **freeze)
+    t0 = time.perf_counter()
+    want_loss, want_det = trainer.train_forward(cpu_model, one, cfg, compute_dtype=torch.float32, geo_start=geo_start)
+    want_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    want_norms = grad_norms(cpu_model)
+    gpu_model = build_model(cfg, device=env.dev, dtype=torch.float32, seed=None).train()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    trainer.apply_freeze(gpu_model, **freeze)
+    fa.reset_launch_counts()
+    got_loss, got_det = trainer.train_forward(gpu_model, one.map(lambda x: x.to(env.dev)), cfg,
+                                              compute_dtype=torch.bfloat16, geo_start=geo_start)
+    got_loss.backward()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fa.launch_counts.items() if v}
+    if launches != want_launches:
+        _fail(f"{tag}: launches {launches}, expected {want_launches}")
+    for key, got, want in [("loss", got_loss, want_loss)] + [(k, got_det[k], want_det[k]) for k in details]:
+        rel = abs(got.item() - want.item()) / abs(want.item())
+        print(f"[{tag}] {key}: card {got.item():.5f} cpu {want.item():.5f} rel {rel:.3e} (budget 3e-2)")
+        if not rel <= 3e-2:
+            _fail(f"{tag}: {key} off by {rel} (budget 3e-2)")
+    got_norms = grad_norms(gpu_model)
+    for g, w in want_norms.items():
+        r = abs(got_norms[g] - w) / w
+        print(f"[{tag}] grad norm {g}: card {got_norms[g]:.4e} cpu {w:.4e} rel {r:.3e} (budget 1e-1)")
+        if not (w > 0 and r <= 1e-1):
+            _fail(f"{tag}: grad norm of {g} off by {r} (budget 1e-1)")
+    print(f"[{tag}] cpu fp32 forward+backward {cpu_s:.1f} s; card launches {launches} ({env.card})")
+    return gpu_model
+
+
+def _tame_point_heads(model):
+    """Scale the point heads' projections by 0.1 in place, as the CPU parity tests do with random
+    weights (tests/test_torch_recon.py `_random_params`): a seeded init puts z = log depth in about
+    [-7, 8], where exp(z) turns bf16's few-1e-2 absolute error in z into as much relative error of the
+    largest point (a cut 'dense' model unscaled: 3.4e-2 with z in [-6.3, 8.3]); the scaled heads keep
+    z, and so exp(z), in a range a trained model gives. Used by the parity checks of phases 20 and 21."""
+    import torch
+
+    with torch.no_grad():
+        for name in ("point_head", "global_point_head"):
+            getattr(model, name).proj.weight.mul_(0.1)
+    return model
+
+
+PI3_GROUPS = {"dino": "dino_model.", "llm": "language_model.", "dino2llm": "dino2llm.",
+              "point": ("point_decoder.", "point_head."), "camera": ("camera_decoder.", "camera_head."),
+              "global": ("global_points_decoder.", "global_point_head.")}
+
+
+def _conf_stage_phase(env):
+    """Phase 19, the conf-head training stage (train_torch.py --train_conf). Returns the kernels'
+    launches of the last full-size step."""
+    import gc
+
+    import torch
+
+    import train_torch
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
+    from g2vlm_tpu_torch.models import segformer
+    from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.weights import build_model
+
+    dev, card = env.dev, env.card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(G2VLMConfig(visual_und=False), train_conf_pi3=True)
+
+    # ---- 19a. cut-depth parity: card (fp32 masters, bf16 compute, kernels) vs CPU (fp32, plain) -----
+    cut = cut_depth_config(cfg, 2)
+    batch, geo_start = train_torch.full_size_batch(cut, 2, TRAIN_HW, 1792, 1, "cpu")
+    cpu_model = build_model(cut, device="cpu", dtype=torch.float32, seed=0)
+    imgs = batch.dino_images[0]
+    with torch.no_grad():
+        want = segformer.seg_logits(cpu_model.segformer, imgs)
+    gpu_model = _step_parity(env, "conf-parity", cpu_model, cut, batch, geo_start,
+                             dict(PI3_GROUPS, conf=("conf_decoder.", "conf_head.")), _step_launches(cut),
+                             dict(freeze_und=True), details=("local_conf_loss",))
+    with torch.no_grad():
+        got = segformer.seg_logits(gpu_model.segformer, imgs.to(dev)).cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    sky_g, sky_w = got.argmax(1) == 2, want.argmax(1) == 2
+    print(f"[conf-parity] SegFormer logits {tuple(got.shape)} fp32, TF32 off: max|gpu-cpu|/max|cpu| {rel:.3e} "
+          f"(budget 3e-2); arg-max class equal on {(got.argmax(1) == want.argmax(1)).float().mean().item():.6f} of "
+          f"the pixels, sky mask on {(sky_g == sky_w).float().mean().item():.6f} ({sky_w.float().mean().item():.4f} "
+          f"of them sky on the CPU)")
+    if not rel <= 3e-2:
+        _fail(f"conf parity: SegFormer logits off by {rel} (budget 3e-2)")
+    if not all(p.grad is None for n_, p in gpu_model.named_parameters() if n_.startswith("Pi3Loss.")):
+        _fail("conf parity: the frozen SegFormer got gradients")
+    del cpu_model, gpu_model, batch, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 19b. the conf-head step at full width and depth --------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32, seed=0).train()
+    optimizer = trainer.make_optimizer(
+        model, schedule=trainer.warmup_cosine_schedule(0.0, 1e-4, 0, 1000), weight_decay=0.05,
+        freeze_und=True, mu_dtype=torch.bfloat16, factored_v=True)
+    state = trainer.init_train_state(model, optimizer, ema=True)
+    batch, geo_start = train_torch.full_size_batch(cfg, TRAIN_VIEWS, TRAIN_HW, TRAIN_TOKENS, 0, dev)
+    step_fn = trainer.make_train_step(cfg, compute_dtype=torch.bfloat16, ema_decay=0.9999, geo_start=geo_start)
+    torch.cuda.synchronize()
+    real_tokens = int((batch.doc_id[0] >= 0).sum().item())
+    n_all = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for p in optimizer.params)
+    n_conf = sum(p.numel() for n_, p in model.named_parameters() if n_.startswith(("conf_decoder.", "conf_head.")))
+    print(f"[conf] fp32 init of {n_all / 1e9:.3f} B parameters ({n_train / 1e9:.3f} B trainable, {n_conf / 1e6:.1f} M "
+          f"of them the conf decoder and head; the SegFormer's random weights from the seed, frozen), optimizer "
+          f"and EMA on the card in {time.perf_counter() - t0:.1f} s ({card})")
+    launches = _full_size_steps(
+        env, "conf", state, step_fn, batch, real_tokens, _step_launches(cfg),
+        f"--train_conf, {TRAIN_VIEWS} views {TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_TOKENS}-row pack, SPLIT, "
+        f"--freeze_und --factored_v --mu_dtype bfloat16, sky masks from the SegFormer in-program",
+        always_frozen=("Pi3Loss.",))
+    del model, optimizer, state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[conf] phase 19 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
+def _dense_moe_phase(env, recon_ms):
+    """Phase 20, the "moe" and "dense" decoder layers. Returns {path: launches} of the two full-size
+    recon calls."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    import train_torch
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
+    from g2vlm_tpu_torch.inference import decoding
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.weights import build_model, init_moe_from_dense, load_checkpoint, save_safetensors
+
+    dev, card = env.dev, env.card
+    K1, K2 = "flash_batched_attention", "flash_segment_attention"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+
+    def with_layers(cfg, variant):
+        return dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, layer_module=variant))
+
+    def counted(fn):
+        fa.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: v for k, v in fa.launch_counts.items() if v}
+
+    # ---- 20a. the 32-view recon call with each layer module, MIXED prefill ------------------------
+    frames = np.random.default_rng(0).integers(0, 256, (32, 294, 518, 3), dtype=np.uint8)
+    paths = {}
+    for variant in ("moe", "dense"):
+        cfg = with_layers(G2VLMConfig(visual_und=False), variant)
+        model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+        pipe = G2VLMPipeline(model, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        out, launches = counted(lambda: pipe.recon_from_frames(frames))
+        want = {K1: cfg.dino.num_hidden_layers + cfg.pi3.depth * (2 + 2 * cfg.use_global_points),
+                K2: cfg.llm.num_hidden_layers}
+        if launches != want:
+            _fail(f"recon {variant}: launches {launches}, expected {want}")
+        for key in ("points", "local_points", "global_points", "camera_poses"):
+            if not torch.isfinite(out[key]).all():
+                _fail(f"recon {variant}: {key} is not finite")
+        if tuple(out["points"].shape) != (32, 294, 518, 3):
+            _fail(f"recon {variant}: points of shape {tuple(out['points'].shape)}")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            pipe.recon_from_frames(frames)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times)
+        print(f"[layers] recon_from_frames, layer_module={variant!r} (MIXED prefill of 25,088 rows), 32 views "
+              f"294x518 bf16: {ms:.1f} ms per call (median of {[round(t, 1) for t in times]}; phase 6's 'mot' in "
+              f"GEO_MAIN {recon_ms:.1f} ms), {32e3 / ms:.2f} frames/s, peak allocated "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; outputs finite ({card})")
+        paths["recon_" + variant] = launches
+        del model, pipe, out
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- 20b. cut-depth parity of recon, the chat prefill and its first decode step -------------
+    token_ids = dict(bos_token_id=1, eos_token_id=2, start_of_image=3, end_of_image=4)
+    frames2 = np.random.default_rng(1).integers(0, 256, (2, 294, 518, 3), dtype=np.uint8)
+
+    def chat_first_step(pipe, cut):
+        prefill, hidden, kv, _, _ = pipe.chat_prefill(list(frames2), QUESTION, device_preprocess=True)
+        dt = pipe.model.dtype
+        cache = decoding.build_cache(kv, prefill.seq_len, cut.llm, len(prefill.doc_id) + 8, dtype=dt)
+        logits, _ = decoding.decode_step(pipe.model.language_model, cache, pipe._start_token(),
+                                         int(prefill.next_rope_pos), cut.llm, compute_dtype=dt)
+        real = torch.as_tensor(prefill.doc_id >= 0)
+        return {"prefill_hidden": hidden.float().cpu()[real], "first_step_logits": logits.float().cpu()}
+
+    for variant in ("moe", "dense"):
+        cut = cut_depth_config(with_layers(G2VLMConfig(), variant), 2)
+        cpu_model = _tame_point_heads(build_model(cut, device="cpu", dtype=torch.float32, seed=0))
+        cpu_pipe = G2VLMPipeline(cpu_model, cut, new_token_ids=token_ids)
+        t0 = time.perf_counter()
+        want = {**cpu_pipe.recon_from_frames(frames2), **chat_first_step(cpu_pipe, cut)}
+        cpu_s = time.perf_counter() - t0
+        gpu_model = build_model(cut, device=dev, dtype=torch.bfloat16, seed=None)
+        gpu_model.load_state_dict(cpu_model.state_dict())
+        pipe = G2VLMPipeline(gpu_model, cut, new_token_ids=token_ids)
+        got, l_recon = counted(lambda: pipe.recon_from_frames(frames2))
+        chat, l_chat = counted(lambda: chat_first_step(pipe, cut))
+        got.update(chat)
+        n_dino, n_llm = cut.dino.num_hidden_layers, cut.llm.num_hidden_layers
+        if l_recon != {K1: n_dino + cut.pi3.depth * 4, K2: n_llm} or l_chat != {K1: n_dino, K2: cut.vit.depth + n_llm}:
+            _fail(f"layers parity {variant}: launches recon {l_recon}, chat {l_chat}")
+        rels = {}
+        for key, w in want.items():
+            a = got[key].float().cpu()
+            rels[key] = ((a - w).abs().max() / w.abs().max()).item()
+            if not torch.isfinite(a).all() or rels[key] > 3e-2:
+                _fail(f"layers parity {variant}: {key} off by {rels[key]} (budget 3e-2)")
+        print(f"[layers-parity] layer_module={variant!r}, cut depth, 2 views: max|gpu-cpu|/max|cpu| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f" (budget 3e-2); launches recon {l_recon}, chat prefill + first step {l_chat}; cpu fp32 {cpu_s:.1f} s")
+        del cpu_model, cpu_pipe, gpu_model, pipe, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- 20c. --model_path <cut checkpoint> --bootstrap_moe: one step, card vs CPU --------------
+    # train_torch.py loads the checkpoint, copies the base expert into the geo expert and trains; its
+    # load_tokenizer needs `transformers`, which the card's machine may lack, so its calls run here in
+    # process: load_checkpoint, init_moe_from_dense, then the recon-stage step of phase 9
+    work = tempfile.mkdtemp(prefix="g2vlm_bootstrap_")
+    full = G2VLMConfig()
+    cut = dataclasses.replace(cut_depth_config(full, 2), pi3=full.pi3)  # the config files hold no Pi3 field
+    save_safetensors(os.path.join(work, "model.safetensors"),
+                     build_model(cut, device="cpu", dtype=torch.bfloat16, seed=3).state_dict())
+    for name, sub in (("text_config.json", cut.llm), ("vit_config.json", cut.vit), ("dino_config.json", cut.dino)):
+        with open(os.path.join(work, name), "w") as f:
+            json.dump(dataclasses.asdict(sub), f)
+    cpu_model, ccfg = load_checkpoint(work, device="cpu", dtype=torch.float32)
+    init_moe_from_dense(cpu_model)
+    sd = cpu_model.state_dict()
+    if not all(torch.equal(v, sd[k.replace("_moe_geo", "")]) for k, v in sd.items() if "_moe_geo" in k):
+        _fail("bootstrap: a geo leaf is not a copy of its base leaf")
+    batch, geo_start = train_torch.full_size_batch(ccfg, 2, TRAIN_HW, 1792, 1, "cpu")
+    gpu_model = _step_parity(env, "bootstrap-parity", cpu_model, ccfg, batch, geo_start, PI3_GROUPS,
+                             _step_launches(ccfg), dict(freeze_und=True))
+    loaded, _ = load_checkpoint(work, device=dev, dtype=torch.float32)
+    init_moe_from_dense(loaded)
+    if not all(torch.equal(v.cpu(), sd[k]) for k, v in loaded.state_dict().items()):
+        _fail("bootstrap: the card's load + init_moe_from_dense differs from the CPU's")
+    print(f"[layers] --bootstrap_moe on a cut 'mot' checkpoint ({len(sd)} tensors): every geo leaf a copy of its "
+          f"base leaf, the card's load bitwise the CPU's; phase 20 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    del cpu_model, gpu_model, loaded, sd
+    shutil.rmtree(work)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _dinov3_phase(env, recon_ms):
+    """Phase 21, the DINOv3 geometry tower. Returns the kernels' launches of the full-size recon
+    call."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from g2vlm_tpu_torch.config import Dinov3Config, G2VLMConfig, cut_depth_config
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.weights import build_model
+
+    dev, card = env.dev, env.card
+    K1, K2 = "flash_batched_attention", "flash_segment_attention"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(G2VLMConfig(visual_und=False), use_dinov3=True, dinov3=Dinov3Config())
+    width = 512  # 294x518 frames -> 288x512 views, 18 x 32 patches of 16
+
+    def recon_launches(c):
+        return {K1: c.dinov3.num_hidden_layers + c.pi3.depth * (2 + 2 * c.use_global_points),
+                K2: c.llm.num_hidden_layers}
+
+    # ---- 21a. cut-depth parity of the recon call --------------------------------------------------
+    cut = cut_depth_config(cfg, 2)
+    token_ids = dict(bos_token_id=1, eos_token_id=2, start_of_image=3, end_of_image=4)
+    frames2 = np.random.default_rng(1).integers(0, 256, (2, 294, 518, 3), dtype=np.uint8)
+    cpu_model = _tame_point_heads(build_model(cut, device="cpu", dtype=torch.float32, seed=0))
+    want = G2VLMPipeline(cpu_model, cut, new_token_ids=token_ids).recon_from_frames(frames2, new_width=width)
+    gpu_model = build_model(cut, device=dev, dtype=torch.bfloat16, seed=None)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    fa.reset_launch_counts()
+    got = G2VLMPipeline(gpu_model, cut, new_token_ids=token_ids).recon_from_frames(frames2, new_width=width)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fa.launch_counts.items() if v}
+    if launches != recon_launches(cut):
+        _fail(f"dinov3 parity: launches {launches}, expected {recon_launches(cut)}")
+    rels = {}
+    for key in ("local_points", "camera_poses", "global_points", "points"):
+        a, b = got[key].float().cpu(), want[key]
+        rels[key] = ((a - b).abs().max() / b.abs().max()).item()
+        if not torch.isfinite(a).all() or rels[key] > 3e-2:
+            _fail(f"dinov3 parity: {key} off by {rels[key]} (budget 3e-2)")
+    print(f"[dinov3-parity] cut depth, 2 views of 288x512: max|gpu-cpu|/max|cpu| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items()) + f" (budget 3e-2); launches {launches}")
+    del cpu_model, gpu_model, got, want
+
+    # ---- 21b. the 32-view recon call with the DINOv3 tower at full size ------------------------------
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    pipe = G2VLMPipeline(model, cfg)
+    frames = np.random.default_rng(0).integers(0, 256, (32, 294, 518, 3), dtype=np.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    out = pipe.recon_from_frames(frames, new_width=width)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fa.launch_counts.items() if v}
+    if launches != recon_launches(cfg):
+        _fail(f"dinov3 recon: launches {launches}, expected {recon_launches(cfg)}")
+    for key in ("points", "local_points", "global_points", "camera_poses"):
+        if not torch.isfinite(out[key]).all():
+            _fail(f"dinov3 recon: {key} is not finite")
+    if tuple(out["points"].shape) != (32, 288, 512, 3):
+        _fail(f"dinov3 recon: points of shape {tuple(out['points'].shape)}")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pipe.recon_from_frames(frames, new_width=width)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    rows = len(pipe.build_recon_prefill(32, 18, 32).doc_id)
+    print(f"[dinov3] recon_from_frames(new_width={width}), use_dinov3 with Dinov3Config() (ViT-L/16: "
+          f"{cfg.dinov3.num_hidden_layers} layers, {cfg.dinov3.hidden_size} wide, {cfg.dinov3.num_attention_heads} "
+          f"heads of {cfg.dinov3.head_dim}, {cfg.dinov3.num_register_tokens} registers), 32 views 288x512 bf16, a prefill of {rows} rows: "
+          f"{ms:.1f} ms per call (median of {[round(t, 1) for t in times]}; phase 6's DINOv2 at 294x518 "
+          f"{recon_ms:.1f} ms), {32e3 / ms:.2f} frames/s, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}; outputs finite; phase 21 in "
+          f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    del model, pipe, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
 
 if __name__ == "__main__":
     main()

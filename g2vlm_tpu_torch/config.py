@@ -12,7 +12,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 def _filter_kwargs(cls, d: Dict[str, Any]) -> Dict[str, Any]:
@@ -153,6 +153,55 @@ class Pi3HeadConfig:
 
 
 @dataclass(frozen=True)
+class Dinov3Config:
+    """DINOv3 ViT geometry encoder (the port's copy of g2vlm_tpu/models/dinov3.py's
+    config; defaults are the ViT-L/16 widths of the public dinov3-vitl16 config)."""
+
+    hidden_size: int = 1024
+    num_hidden_layers: int = 24
+    num_attention_heads: int = 16
+    intermediate_size: int = 4096
+    hidden_act: str = "gelu"
+    layer_norm_eps: float = 1e-5
+    image_size: int = 512
+    patch_size: int = 16
+    num_channels: int = 3
+    num_register_tokens: int = 4
+    layerscale_value: float = 1.0
+    rope_theta: float = 100.0
+    use_gated_mlp: bool = False
+    query_bias: bool = True
+    key_bias: bool = False
+    value_bias: bool = True
+    proj_bias: bool = True
+    mlp_bias: bool = True
+    pos_embed_shift: Optional[float] = None
+    pos_embed_jitter: Optional[float] = None
+    pos_embed_rescale: Optional[float] = 2.0
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+@dataclass(frozen=True)
+class SegformerConfig:
+    """SegFormer mit_b0 geometry and its all-MLP head (the port's copy of
+    g2vlm_tpu/models/segformer.py's config)."""
+
+    embed_dims: Tuple[int, ...] = (32, 64, 160, 256)
+    num_heads: Tuple[int, ...] = (1, 2, 5, 8)
+    depths: Tuple[int, ...] = (2, 2, 2, 2)
+    sr_ratios: Tuple[int, ...] = (8, 4, 2, 1)
+    mlp_ratios: Tuple[int, ...] = (4, 4, 4, 4)
+    patch_sizes: Tuple[int, ...] = (7, 3, 3, 3)
+    strides: Tuple[int, ...] = (4, 2, 2, 2)
+    decoder_dim: int = 256
+    num_classes: int = 150
+    sky_class: int = 2
+
+
+@dataclass(frozen=True)
 class G2VLMConfig:
     """Top-level assembly config (reference g2vlm.py:79-117)."""
 
@@ -160,7 +209,7 @@ class G2VLMConfig:
     vit: VitConfig = field(default_factory=VitConfig)
     dino: DinoConfig = field(default_factory=DinoConfig)
     pi3: Pi3HeadConfig = field(default_factory=Pi3HeadConfig)
-    dinov3: Any = None  # models.dinov3.Dinov3Config when use_dinov3
+    dinov3: Any = None  # a Dinov3Config when use_dinov3
 
     visual_und: bool = True
     visual_recon: bool = True
@@ -220,14 +269,16 @@ def tiny_test_config(visual_und: bool = True) -> G2VLMConfig:
 
 
 def cut_depth_config(cfg: G2VLMConfig, layers: int = 2, vocab_size: int = 5120) -> G2VLMConfig:
-    """`cfg` at its full widths with `layers` layers in the decoder, DINOv2,
-    the ViT and the Pi3 decoders, and a vocabulary of `vocab_size`: the cut
-    that the card's parity checks run, in which tokenizer-less text ids (below
-    5,100) fit. Port-only: the JAX package has no such helper."""
+    """`cfg` at its full widths with `layers` layers in the decoder, DINOv2
+    (and DINOv3 where the config has it), the ViT and the Pi3 decoders, and a
+    vocabulary of `vocab_size`: the cut that the card's parity checks run, in
+    which tokenizer-less text ids (below 5,100) fit. Port-only: the JAX
+    package has no such helper."""
     return dataclasses.replace(
         cfg,
         llm=dataclasses.replace(cfg.llm, num_hidden_layers=layers, vocab_size=vocab_size),
         dino=dataclasses.replace(cfg.dino, num_hidden_layers=layers),
+        dinov3=None if cfg.dinov3 is None else dataclasses.replace(cfg.dinov3, num_hidden_layers=layers),
         vit=dataclasses.replace(cfg.vit, depth=layers),
         pi3=dataclasses.replace(cfg.pi3, depth=layers),
     )

@@ -1,16 +1,21 @@
 """G2VLM model (port of g2vlm_tpu/models/g2vlm.py: the recon path, the chat
 prefill and the pieces the training step calls).
 
-`G2VLM` owns the MoT LLM, the DINOv2 encoder, the `dino2llm` projection, the
-Pi3 heads and, with `cfg.visual_und`, the Qwen2-VL ViT under the reference's
-state-dict prefixes (`language_model.`, `dino_model.`, `dino2llm.`,
-`point_decoder.`, `camera_decoder.`, `global_points_decoder.`, `point_head.`,
-`camera_head.`, `global_point_head.`, `vit_model.`), which are the keys
-g2vlm_tpu's `params_from_torch` reads. Recon is one packed prefill through the
-decoder in GEO_MAIN routing, then the heads over the hidden states at the
-dino-token rows. The chat prefill mixes dino (geo expert) and ViT and text
-(und expert) rows: it is sorted host-side into [und | geo | padding] and runs
-the SPLIT layers, and its per-layer K/V feed the decode cache.
+`G2VLM` owns the MoT LLM, the geometry encoder (DINOv2, or DINOv3 with
+`cfg.use_dinov3`), the `dino2llm` projection, the Pi3 heads, with
+`cfg.train_conf_pi3` the conf decoder and head and the frozen SegFormer that
+supervises them, and with `cfg.visual_und` the Qwen2-VL ViT, under the
+reference's state-dict prefixes (`language_model.`, `dino_model.`,
+`dino2llm.`, `point_decoder.`, `camera_decoder.`, `global_points_decoder.`,
+`point_head.`, `camera_head.`, `global_point_head.`, `conf_decoder.`,
+`conf_head.`, `Pi3Loss.point_loss.segformer.`, `vit_model.`), which are the
+keys g2vlm_tpu's `params_from_torch` reads. Recon is one packed prefill
+through the decoder in GEO_MAIN routing, then the heads over the hidden
+states at the dino-token rows. The chat prefill mixes dino (geo expert) and
+ViT and text (und expert) rows: it is sorted host-side into
+[und | geo | padding] and runs the SPLIT layers, and its per-layer K/V feed
+the decode cache. A "dense" or "moe" decoder has no expert attention: it runs
+every prefill MIXED.
 
 `PackedPrefill` and `SequenceBuilder` are numpy host code, the port's own copy
 of the JAX module's (the port imports nothing of g2vlm_tpu); a test holds the
@@ -25,12 +30,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import G2VLMConfig
+from ..config import G2VLMConfig, SegformerConfig
 
 from ..ops.linear import linear
 from ..ops.masks import TokenInfo
 from ..utils.geometry import homogenize_points
-from . import dinov2, mot_decoder, pi3_heads, qwen_vit
+from . import dinov2, dinov3, mot_decoder, pi3_heads, qwen_vit, segformer
 
 
 class PackedPrefill(NamedTuple):
@@ -155,20 +160,37 @@ class SequenceBuilder:
         )
 
 
+class _Pi3Loss(nn.Module):
+    """The reference checkpoints the frozen sky segmenter under its loss
+    module: `Pi3Loss.point_loss.segformer.*`."""
+
+    def __init__(self):
+        super().__init__()
+        self.point_loss = nn.Module()
+        self.point_loss.segformer = segformer.Segformer(SegformerConfig())
+
+
 class G2VLM(nn.Module):
-    """LLM + DINOv2 + dino2llm + Pi3 heads, and the Qwen2-VL ViT when
+    """LLM + geometry encoder + dino2llm + Pi3 heads; the conf decoder, conf
+    head and SegFormer when `cfg.train_conf_pi3`; the Qwen2-VL ViT when
     `cfg.visual_und`."""
 
     def __init__(self, cfg: G2VLMConfig):
         super().__init__()
-        if not cfg.visual_recon or cfg.use_dinov3 or cfg.train_conf_pi3:
-            raise NotImplementedError("the port covers visual_recon with DINOv2 and no conf head")
+        if not cfg.visual_recon:
+            raise NotImplementedError("the port covers visual_recon models")
+        if cfg.use_dinov3 and cfg.dinov3 is None:
+            raise ValueError("use_dinov3 needs cfg.dinov3, a Dinov3Config")
         self.cfg = cfg
         d = cfg.llm.hidden_size
         p = cfg.dino_patch_size
         self.language_model = mot_decoder.MoTForCausalLM(cfg.llm)
-        self.dino_model = dinov2.Dinov2(cfg.dino)
-        self.dino2llm = nn.Linear(cfg.dino.hidden_size, d)
+        if cfg.use_dinov3:
+            self.dino_model = dinov3.Dinov3(cfg.dinov3)
+            self.dino2llm = nn.Linear(cfg.dinov3.hidden_size, d)
+        else:
+            self.dino_model = dinov2.Dinov2(cfg.dino)
+            self.dino2llm = nn.Linear(cfg.dino.hidden_size, d)
         self.point_decoder = pi3_heads.Decoder(cfg.pi3, d, cfg.pi3.point_out_dim)
         self.point_head = pi3_heads.LinearPts3d(cfg.pi3.point_out_dim, p, 3)
         self.camera_decoder = pi3_heads.Decoder(cfg.pi3, d, cfg.pi3.camera_out_dim)
@@ -178,8 +200,16 @@ class G2VLM(nn.Module):
                 cfg.pi3, d, cfg.pi3.point_out_dim, cross=True
             )
             self.global_point_head = pi3_heads.LinearPts3d(cfg.pi3.point_out_dim, p, 3)
+        if cfg.train_conf_pi3:
+            self.conf_decoder = pi3_heads.Decoder(cfg.pi3, d, cfg.pi3.point_out_dim)
+            self.conf_head = pi3_heads.LinearPts3d(cfg.pi3.point_out_dim, p, 1)
+            self.Pi3Loss = _Pi3Loss()
         if cfg.visual_und:
             self.vit_model = qwen_vit.QwenVit(cfg.vit)
+
+    @property
+    def segformer(self) -> segformer.Segformer:
+        return self.Pi3Loss.point_loss.segformer
 
     @property
     def device(self) -> torch.device:
@@ -198,8 +228,12 @@ def encode_dino_to_llm(
     remat_group: int = 1,
 ) -> torch.Tensor:
     """dino_images (N, 3, H, W) RESNET-normalized -> (N*hw, D_llm), in
-    `compute_dtype` (default: the parameters' dtype)."""
-    tokens = dinov2.encode(model.dino_model, dino_images, compute_dtype, remat=remat, remat_group=remat_group)
+    `compute_dtype` (default: the parameters' dtype). DINOv3 takes no
+    `remat_group`, as in the JAX package."""
+    if model.cfg.use_dinov3:
+        tokens = dinov3.encode(model.dino_model, dino_images, compute_dtype, remat=remat)
+    else:
+        tokens = dinov2.encode(model.dino_model, dino_images, compute_dtype, remat=remat, remat_group=remat_group)
     n, hw, _ = tokens.shape
     return linear(tokens.reshape(n * hw, -1), model.dino2llm, tokens.dtype)
 
@@ -273,7 +307,8 @@ def prefill_hidden(
     [und | geo | padding] and runs the SPLIT layers, every expert product on a
     contiguous slice (the hidden states are un-sorted on return, the K/V stay
     sorted: a cache does not care about row order, and padding stays at the
-    tail); anything else computes both experts and selects (MIXED)."""
+    tail); anything else computes both experts and selects (MIXED). A "dense"
+    or "moe" decoder always runs MIXED."""
     dev, dt = model.device, model.dtype
     lm = model.language_model.model
 
@@ -331,7 +366,8 @@ def pi3_predict(
     remat: bool = False,
     view_chunk: int = 0,
 ) -> Dict[str, torch.Tensor]:
-    """The 3D heads; the global decoder cross-attends to frame 0.
+    """The 3D heads; the global decoder cross-attends to frame 0. With
+    `cfg.train_conf_pi3` the conf decoder and head add `conf` (N, H, W, 1).
 
     view_chunk > 0 runs the heads over chunks of that many views (a training
     memory bound): views are independent in the heads' self attention and
@@ -380,6 +416,9 @@ def _pi3_predict_full(
             context=global_ctx, context_positions=pos[:1], **kw,
         )
         out["global_points"] = pi3_heads.linear_pts3d(model.global_point_head, global_hidden, (h, w), p)
+    if cfg.train_conf_pi3:
+        conf_hidden = pi3_heads.decoder_forward(model.conf_decoder, dino_hidden, pos, **kw)
+        out["conf"] = pi3_heads.linear_pts3d(model.conf_head, conf_hidden, (h, w), p)
 
     out["points"] = torch.einsum(
         "nij,nhwj->nhwi", camera_poses, homogenize_points(local_points)

@@ -6,6 +6,11 @@ Submodule names follow the reference key space under `language_model.`
 (`model.layers.{i}.self_attn.q_proj_moe_geo`, `model.layers.{i}.ls1.gamma`,
 ...), so `state_dict()` feeds g2vlm_tpu's `mot_decoder.params_from_torch`.
 
+`cfg.layer_module` picks the layer: "mot" (both experts, LayerScale on the
+geo rows), "moe" (one shared attention, `mlp_moe_geo` on the geo rows and the
+final `norm_moe_geo` there) or "dense" (one set of weights, no LayerScale).
+GEO_MAIN and SPLIT exist for "mot" only; "dense" and "moe" run MIXED.
+
 GEO_MAIN (`decoder_forward`): the geometry expert runs on every row, then the
 few "und" (text) rows are recomputed with the base expert and written back
 with `index_copy`; matmuls run in the parameters' dtype. Training
@@ -90,11 +95,14 @@ class Mlp(nn.Module):
 
 
 class MoTAttention(nn.Module):
+    """The base expert's projections and qk-norms, and for "mot" the geo
+    expert's beside them (`_moe_geo`)."""
+
     def __init__(self, cfg: LLMConfig):
         super().__init__()
         d, hd = cfg.hidden_size, cfg.head_dim
         nh, kvh = cfg.num_attention_heads, cfg.num_key_value_heads
-        for sfx in ("", "_moe_geo"):
+        for sfx in ("", "_moe_geo") if cfg.layer_module == "mot" else ("",):
             setattr(self, "q_proj" + sfx, nn.Linear(d, nh * hd))
             setattr(self, "k_proj" + sfx, nn.Linear(d, kvh * hd))
             setattr(self, "v_proj" + sfx, nn.Linear(d, kvh * hd))
@@ -109,22 +117,30 @@ def _head_norm(x: torch.Tensor, norm: RMSNorm) -> torch.Tensor:
     return xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + norm.eps) * norm.weight.float()
 
 
+LAYER_MODULES = ("mot", "moe", "dense")
+
+
 class MoTDecoderLayer(nn.Module):
     def __init__(self, cfg: LLMConfig):
         super().__init__()
-        if cfg.layer_module != "mot":
-            raise NotImplementedError(f"layer_module {cfg.layer_module!r}: only 'mot' is ported")
+        if cfg.layer_module not in LAYER_MODULES:
+            raise ValueError(f"layer_module {cfg.layer_module!r} is none of {LAYER_MODULES}")
         d, eps = cfg.hidden_size, cfg.rms_norm_eps
         self.cfg = cfg
+        mot = cfg.layer_module == "mot"
         self.input_layernorm = RMSNorm(d, eps)
-        self.input_layernorm_moe_geo = RMSNorm(d, eps)
+        if mot:
+            self.input_layernorm_moe_geo = RMSNorm(d, eps)
         self.self_attn = MoTAttention(cfg)
         self.post_attention_layernorm = RMSNorm(d, eps)
-        self.post_attention_layernorm_moe_geo = RMSNorm(d, eps)
+        if mot:
+            self.post_attention_layernorm_moe_geo = RMSNorm(d, eps)
         self.mlp = Mlp(d, cfg.intermediate_size)
-        self.mlp_moe_geo = Mlp(d, cfg.intermediate_size)
-        self.ls1 = LayerScale(d)
-        self.ls2 = LayerScale(d)
+        if cfg.layer_module != "dense":
+            self.mlp_moe_geo = Mlp(d, cfg.intermediate_size)
+        if mot:
+            self.ls1 = LayerScale(d)
+            self.ls2 = LayerScale(d)
 
     def forward_geo_main(
         self,
@@ -175,6 +191,8 @@ class MoTDecoderLayer(nn.Module):
         nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         s, dt, eps = x.shape[0], x.dtype, cfg.rms_norm_eps
         at = self.self_attn
+        if cfg.layer_module != "mot":
+            return self._forward_shared_attention(x, is_geo, cos, sin, attend, return_kv)
         ls1, ls2 = self.ls1.gamma.to(dt), self.ls2.gamma.to(dt)
 
         if geo_start is None:
@@ -220,6 +238,25 @@ class MoTDecoderLayer(nn.Module):
         )
         return (x, LayerKV(k, v)) if return_kv else x
 
+    def _forward_shared_attention(self, x, is_geo, cos, sin, attend, return_kv):
+        """The "dense" and "moe" layers in MIXED routing: one attention for
+        every row and no LayerScale; "moe" takes `mlp_moe_geo` on the geo rows."""
+        cfg = self.cfg
+        nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        s, dt, eps = x.shape[0], x.dtype, cfg.rms_norm_eps
+        at = self.self_attn
+        h = self.input_layernorm(x)
+        q, k = _lin(h, at.q_proj, dt).view(s, nh, hd), _lin(h, at.k_proj, dt).view(s, kvh, hd)
+        v = _lin(h, at.v_proj, dt).view(s, kvh, hd)
+        gq, gk = (at.q_norm.weight, at.k_norm.weight) if cfg.qk_norm else (None, None)
+        q, k = _norm_rope(q, gq, cos, sin, eps, dt), _norm_rope(k, gk, cos, sin, eps, dt)
+        x = x + _lin(attend(q, k, v).reshape(s, nh * hd), at.o_proj, dt)
+        h = self.post_attention_layernorm(x)
+        m = _mlp(h, self.mlp, dt)
+        if cfg.layer_module == "moe":
+            m = torch.where(is_geo[:, None], _mlp(h, self.mlp_moe_geo, dt), m)
+        return (x + m, LayerKV(k, v)) if return_kv else x + m
+
 
 class MoTModel(nn.Module):
     def __init__(self, cfg: LLMConfig):
@@ -228,7 +265,8 @@ class MoTModel(nn.Module):
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.layers = nn.ModuleList(MoTDecoderLayer(cfg) for _ in range(cfg.num_hidden_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
-        self.norm_moe_geo = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        if cfg.use_moe:
+            self.norm_moe_geo = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
 
 class MoTForCausalLM(nn.Module):
@@ -255,6 +293,8 @@ def decoder_forward(
     """All layers in GEO_MAIN routing plus the final norm; returns the
     hidden states (S, D), with `return_kv` also the layers' `LayerKV`s."""
     cfg = model.cfg
+    if cfg.layer_module != "mot":
+        raise ValueError(f"GEO_MAIN routing needs the 'mot' layer module, not {cfg.layer_module!r}")
     cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     h = x.to(model.norm.weight.dtype)
     attend = self_attender(info, attn_impl, attn_pipe)
@@ -291,8 +331,9 @@ def decoder_forward_train(
     many layers instead (one saved carry per group), with the per-layer
     checkpoint nested inside unless `remat_inner` is off."""
     cfg = model.cfg
-    if cfg.layer_module != "mot":
-        raise NotImplementedError(f"layer_module {cfg.layer_module!r}: only 'mot' is ported")
+    if geo_start is not None and cfg.layer_module != "mot":
+        raise ValueError(f"--split_layout (SPLIT routing) needs the 'mot' layer module; this model's is "
+                         f"{cfg.layer_module!r}, which runs MIXED")
     cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     h = x.to(compute_dtype)
     n_layers = len(model.layers)
@@ -324,7 +365,9 @@ def decoder_forward_train(
     else:
         h = run_layers(model.layers, h, remat)
 
-    if geo_start is None:
+    if not cfg.use_moe:
+        h = model.norm(h)
+    elif geo_start is None:
         h = torch.where(is_geo[:, None], model.norm_moe_geo(h), model.norm(h))
     else:
         h = torch.cat([model.norm(h[:geo_start]), model.norm_moe_geo(h[geo_start:])], dim=0)

@@ -5,7 +5,8 @@ the update count), the EMA and the step, with the data cursors
 (`data_status`) as JSON beside them, and the newest `keep` checkpoints kept.
 
 Layout: `<directory>/<step>/state.safetensors` (the port's own safetensors
-writer, `weights.save_safetensors`; keys `params/<name>`, `ema/<name>`,
+writer, `weights.save_safetensors`; keys `params/<name>`, `buffers/<name>`
+(the SegFormer's BatchNorm statistics, where the model has it), `ema/<name>`,
 `mu/<name>`, `nu/<name>` or `nu_row/<name>` and `nu_col/<name>`, and the
 0-d int64 `step` and `count`) and `<directory>/data_status_<step>.json`. A
 step is written into a temporary directory and renamed, so an interrupted
@@ -34,6 +35,7 @@ def state_tensors(state: TrainState) -> Dict[str, torch.Tensor]:
     opt = state.optimizer
     names = {id(p): n for n, p in state.model.named_parameters()}
     out = {f"params/{n}": p.detach() for n, p in state.model.named_parameters()}
+    out.update({f"buffers/{n}": b for n, b in state.model.named_buffers()})
     if state.ema_params is not None:
         out.update({f"ema/{n}": e for n, e in state.ema_params.items()})
     for p, mu, nu in zip(opt.params, opt.mu, opt.nu):

@@ -11,8 +11,10 @@ built for them. The optimizer is written out here rather than taken from
 leaf, the schedule read at the count before the step, a bf16 first moment that
 is still updated in fp32.
 
-Not ported yet: the in-program SegFormer sky mask (a `sky_masks` field passed
-in is honoured).
+With the conf head (`cfg.train_conf_pi3`) the sky masks of its loss come from
+the batch's `sky_masks`, or else from the frozen SegFormer run on the batch's
+views under `torch.no_grad`, as the JAX trainer predicts them in-program. The
+SegFormer is always frozen.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from ..config import G2VLMConfig
 from ..models import g2vlm as tg
-from ..models import mot_decoder, qwen_vit
+from ..models import mot_decoder, qwen_vit, segformer
 from ..ops.masks import TokenInfo
 from . import loss as losses
 
@@ -153,8 +155,11 @@ def train_forward(
     gt = {"world_points": batch.world_points, "point_masks": batch.point_masks, "extrinsics": batch.extrinsics}
     if pred["conf"] is not None:
         gt["conf_target_thresh"] = conf_target_thresh
-        if batch.sky_masks is not None:
-            gt["sky_mask"] = batch.sky_masks
+        sky = batch.sky_masks
+        if sky is None:
+            with torch.no_grad():
+                sky = segformer.predict_sky_mask(model.segformer, batch.dino_images)[None]
+        gt["sky_mask"] = sky
     dl, dl_details = losses.pi3_loss(pred, gt, batch.normal_batch_mask)
     details.update(dl_details)
     details["dl"] = dl
@@ -173,15 +178,19 @@ _RECON_PREFIXES = (
     "global_points_decoder.", "global_point_head.", "conf_decoder.", "conf_head.",
 )
 _SHARED_LLM = ("language_model.model.embed_tokens.weight", "language_model.lm_head.weight")
+_ALWAYS_FROZEN = ("Pi3Loss.",)  # the SegFormer that gives the conf loss its sky masks
 
 
 def freeze_labels(model: torch.nn.Module, freeze_und: bool, freeze_recon: bool) -> Dict[str, str]:
     """'train' / 'frozen' per parameter name. freeze_und freezes the und
     expert and the semantic ViT; freeze_recon freezes the geo expert and the
-    recon towers and heads. The shared trunk leaves (token embedding,
-    lm_head) stay trainable."""
+    recon towers and heads; the SegFormer is always frozen. The shared trunk
+    leaves (token embedding, lm_head) stay trainable."""
     labels = {}
     for name, _ in model.named_parameters():
+        if name.startswith(_ALWAYS_FROZEN):
+            labels[name] = "frozen"
+            continue
         geo = name.startswith(_RECON_PREFIXES) or (
             name.startswith("language_model.") and ("_moe_geo" in name or ".ls1." in name or ".ls2." in name)
         )

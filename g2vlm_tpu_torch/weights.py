@@ -29,9 +29,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import G2VLMConfig
+from .config import G2VLMConfig, SegformerConfig
 
-from .models import dinov2, mot_decoder, qwen_vit
+from .models import dinov2, dinov3, mot_decoder, qwen_vit, segformer
 from .models.g2vlm import G2VLM
 
 
@@ -58,24 +58,30 @@ def _put_norm(sd: Dict, name: str, p: Dict) -> None:
 
 
 def _llm(sd: Dict, p: Dict, cfg, pre: str) -> None:
+    """The decoder of any layer module: the geo expert's leaves for "mot",
+    `mlp_moe_geo` alone for "moe", none for "dense"."""
     sd[pre + "model.embed_tokens.weight"] = _t(p["embed"])
     sd[pre + "lm_head.weight"] = _t(np.asarray(p["lm_head"]).T)
     sd[pre + "model.norm.weight"] = _t(p["norm"])
-    sd[pre + "model.norm_moe_geo.weight"] = _t(p["norm_geo"])
+    if cfg.use_moe:
+        sd[pre + "model.norm_moe_geo.weight"] = _t(p["norm_geo"])
+    mot = cfg.layer_module == "mot"
     for i in range(cfg.num_hidden_layers):
         lp = _layer(p["layers"], i)
         lpre = f"{pre}model.layers.{i}."
-        for sfx, tag in (("", ""), ("_moe_geo", "_geo")):
+        for sfx, tag in (("", ""), ("_moe_geo", "_geo")) if mot else (("", ""),):
             sd[f"{lpre}input_layernorm{sfx}.weight"] = _t(lp["ln_attn" + tag])
             sd[f"{lpre}post_attention_layernorm{sfx}.weight"] = _t(lp["ln_mlp" + tag])
             for proj in ("q", "k", "v", "o"):
                 _put_lin(sd, f"{lpre}self_attn.{proj}_proj{sfx}", lp[proj + tag])
             sd[f"{lpre}self_attn.q_norm{sfx}.weight"] = _t(lp["q_norm" + tag])
             sd[f"{lpre}self_attn.k_norm{sfx}.weight"] = _t(lp["k_norm" + tag])
+        for sfx, tag in (("", ""), ("_moe_geo", "_geo")) if cfg.use_moe else (("", ""),):
             for proj in ("gate", "up", "down"):
                 _put_lin(sd, f"{lpre}mlp{sfx}.{proj}_proj", lp["mlp" + tag][proj])
-        sd[lpre + "ls1.gamma"] = _t(lp["ls1"])
-        sd[lpre + "ls2.gamma"] = _t(lp["ls2"])
+        if mot:
+            sd[lpre + "ls1.gamma"] = _t(lp["ls1"])
+            sd[lpre + "ls2.gamma"] = _t(lp["ls2"])
 
 
 def _dino(sd: Dict, p: Dict, cfg, pre: str) -> None:
@@ -100,6 +106,66 @@ def _dino(sd: Dict, p: Dict, cfg, pre: str) -> None:
         _put_lin(sd, lpre + "mlp.fc1", lp["fc1"])
         _put_lin(sd, lpre + "mlp.fc2", lp["fc2"])
     _put_norm(sd, pre + "layernorm", p["final_norm"])
+
+
+def _dinov3(sd: Dict, p: Dict, cfg, pre: str) -> None:
+    d, c, ps = cfg.hidden_size, cfg.num_channels, cfg.patch_size
+    e = pre + "embeddings."
+    sd[e + "cls_token"] = _t(p["cls_token"]).reshape(1, 1, d)
+    sd[e + "register_tokens"] = _t(p["register_tokens"]).reshape(1, -1, d)
+    sd[e + "patch_embeddings.weight"] = _t(np.asarray(p["patch_embed"]["w"]).T).reshape(d, c, ps, ps)
+    sd[e + "patch_embeddings.bias"] = _t(p["patch_embed"]["b"])
+    for i in range(cfg.num_hidden_layers):
+        lp = _layer(p["layers"], i)
+        lpre = f"{pre}layer.{i}."
+        _put_norm(sd, lpre + "norm1", lp["norm1"])
+        _put_norm(sd, lpre + "norm2", lp["norm2"])
+        for proj in ("q", "k", "v", "o"):
+            _put_lin(sd, f"{lpre}attention.{proj}_proj", lp[proj])
+        sd[lpre + "layer_scale1.lambda1"] = _t(lp["ls1"])
+        sd[lpre + "layer_scale2.lambda1"] = _t(lp["ls2"])
+        for proj in ("gate", "up", "down") if cfg.use_gated_mlp else ("up", "down"):
+            _put_lin(sd, f"{lpre}mlp.{proj}_proj", lp[proj])
+    _put_norm(sd, pre + "norm", p["final_norm"])
+
+
+def _segformer(sd: Dict, p: Dict, pre: str) -> None:
+    """The inverse of g2vlm_tpu's `segformer.params_from_torch`."""
+    cfg = SegformerConfig()
+
+    def conv(name, q):
+        sd[name + ".weight"] = _t(q["w"])
+        if q.get("b") is not None:
+            sd[name + ".bias"] = _t(q["b"])
+
+    for si in range(4):
+        sp, bb = p[f"stage{si}"], f"{pre}backbone."
+        conv(f"{bb}patch_embed{si + 1}.proj", sp["patch"])
+        _put_norm(sd, f"{bb}patch_embed{si + 1}.norm", sp["patch_norm"])
+        _put_norm(sd, f"{bb}norm{si + 1}", sp["norm"])
+        for li in range(cfg.depths[si]):
+            lp, bpre = sp[f"block{li}"], f"{bb}block{si + 1}.{li}."
+            _put_norm(sd, bpre + "norm1", lp["norm1"])
+            _put_norm(sd, bpre + "norm2", lp["norm2"])
+            for name in ("q", "kv", "proj"):
+                _put_lin(sd, f"{bpre}attn.{name}", lp["attn"][name])
+            if "sr" in lp["attn"]:
+                conv(bpre + "attn.sr", lp["attn"]["sr"])
+                _put_norm(sd, bpre + "attn.norm", lp["attn"]["sr_norm"])
+            _put_lin(sd, bpre + "mlp.fc1", lp["mlp"]["fc1"])
+            conv(bpre + "mlp.dwconv.dwconv", lp["mlp"]["dw"])
+            _put_lin(sd, bpre + "mlp.fc2", lp["mlp"]["fc2"])
+    head, hpre = p["head"], pre + "decode_head."
+    for i in range(1, 5):
+        _put_lin(sd, f"{hpre}linear_c{i}.proj", head[f"linear_c{i}"])
+    conv(hpre + "linear_fuse.conv", head["fuse"])
+    bn = head["fuse_bn"]
+    for key, name in (("w", "weight"), ("b", "bias"), ("mean", "running_mean"), ("var", "running_var")):
+        sd[f"{hpre}linear_fuse.bn.{name}"] = _t(bn[key])
+    conv(hpre + "linear_pred", head["pred"])
+
+
+SEGFORMER_PREFIX = "Pi3Loss.point_loss.segformer."
 
 
 def _decoder(sd: Dict, p: Dict, depth: int, pre: str) -> None:
@@ -150,10 +216,16 @@ def _vit(sd: Dict, p: Dict, cfg, pre: str) -> None:
 
 def state_dict_from_jax(params_np: Dict, cfg: G2VLMConfig) -> Dict[str, torch.Tensor]:
     """The JAX parameter tree (numpy leaves) -> the port's fp32 CPU state
-    dict."""
+    dict. With `cfg.use_dinov3`, `params_np["dino"]` is the DINOv3 tree
+    (`g2vlm_tpu.models.dinov3.init_params`'s layout); with
+    `cfg.train_conf_pi3`, the conf decoder and head and the SegFormer are
+    carried where the tree holds them."""
     sd: Dict[str, torch.Tensor] = {}
     _llm(sd, params_np["llm"], cfg.llm, "language_model.")
-    _dino(sd, params_np["dino"], cfg.dino, "dino_model.")
+    if cfg.use_dinov3:
+        _dinov3(sd, params_np["dino"], cfg.dinov3, "dino_model.")
+    else:
+        _dino(sd, params_np["dino"], cfg.dino, "dino_model.")
     _put_lin(sd, "dino2llm", params_np["dino2llm"])
     _decoder(sd, params_np["point_decoder"], cfg.pi3.depth, "point_decoder.")
     _decoder(sd, params_np["camera_decoder"], cfg.pi3.depth, "camera_decoder.")
@@ -163,23 +235,36 @@ def state_dict_from_jax(params_np: Dict, cfg: G2VLMConfig) -> Dict[str, torch.Te
     if cfg.use_global_points:
         _decoder(sd, params_np["global_decoder"], cfg.pi3.depth, "global_points_decoder.")
         _put_lin(sd, "global_point_head.proj", params_np["global_point_head"]["proj"])
+    if cfg.train_conf_pi3 and "conf_decoder" in params_np:
+        _decoder(sd, params_np["conf_decoder"], cfg.pi3.depth, "conf_decoder.")
+        _put_lin(sd, "conf_head.proj", params_np["conf_head"]["proj"])
+    if cfg.train_conf_pi3 and "segformer" in params_np:
+        _segformer(sd, params_np["segformer"], SEGFORMER_PREFIX)
     if cfg.visual_und:
         _vit(sd, params_np["vit"], cfg.vit, "vit_model.")
     return sd
 
 
 @torch.no_grad()
-def init_random_(model: G2VLM, generator: torch.Generator) -> G2VLM:
+def init_random_(model: G2VLM, generator: torch.Generator, prefixes: Optional[Tuple[str, ...]] = None) -> G2VLM:
     """Fill every parameter in place with the distributions of g2vlm_tpu's
     `init_params`: Linear/conv weights N(0, 1/fan_in), biases 0, norm gains 1,
     token embeddings N(0, 0.02^2), the DINOv2 CLS token N(0, 1), position
     embeddings N(0, 0.02^2), mask and register tokens 0, LayerScales at their
-    configured values, the ViT's patch embed N(0, 0.02^2). One exception: `dino2llm` is drawn N(0, 1/fan_in)
-    instead of zero, so that the encoder reaches the outputs."""
+    configured values, the ViT's patch embed N(0, 0.02^2), DINOv3's patch
+    embed, CLS and register tokens N(0, 0.02^2), the SegFormer's BatchNorm at
+    identity statistics. One exception: `dino2llm` is drawn N(0, 1/fan_in)
+    instead of zero, so that the encoder reaches the outputs. With `prefixes`
+    only the modules under those state-dict prefixes (each ending in ".")."""
     cfg = model.cfg
     g = generator
-    for mod in model.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
+    for name, mod in model.named_modules():
+        if prefixes is not None and not (name + ".").startswith(prefixes):
+            continue
+        if isinstance(mod, dinov3.PatchEmbeddings):
+            mod.weight.normal_(0.0, 0.02, generator=g)
+            mod.bias.zero_()
+        elif isinstance(mod, (nn.Linear, nn.Conv2d)):
             fan_in = mod.weight[0].numel()
             mod.weight.normal_(0.0, fan_in ** -0.5, generator=g)
             if mod.bias is not None:
@@ -201,7 +286,45 @@ def init_random_(model: G2VLM, generator: torch.Generator) -> G2VLM:
             mod.mask_token.zero_()
             mod.register_tokens.zero_()
             mod.position_embeddings.normal_(0.0, 0.02, generator=g)
+        elif isinstance(mod, dinov3.LayerScale):
+            mod.lambda1.fill_(cfg.dinov3.layerscale_value)
+        elif isinstance(mod, dinov3.Embeddings):
+            mod.cls_token.normal_(0.0, 0.02, generator=g)
+            mod.register_tokens.normal_(0.0, 0.02, generator=g)
+        elif isinstance(mod, segformer.BatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
     return model
+
+
+@torch.no_grad()
+def init_moe_from_dense(model: G2VLM) -> G2VLM:
+    """Bootstrap the geo expert from the base one, in place: every decoder
+    leaf named `*_moe_geo*` (the geo expert's norms, projections, qk-norms
+    and MLP, and the final `norm_moe_geo`) takes a copy of its base leaf, as
+    g2vlm_tpu's `weights.init_moe_from_dense` does. The LayerScales stay. A
+    model without geo leaves ("dense") is left as it is."""
+    named = dict(model.language_model.named_parameters())
+    for name, p in named.items():
+        if "_moe_geo" in name:
+            p.copy_(named[name.replace("_moe_geo", "")])
+    return model
+
+
+def load_segformer_pth(path: str, device="cpu") -> Dict[str, torch.Tensor]:
+    """The reference's frozen sky segmenter weights (an mmseg pickle, e.g.
+    segformer.b0.512x512.ade.160k.pth, holding {'state_dict': {backbone.* /
+    decode_head.*}}) -> the state dict of the port's `Segformer`: the keys
+    g2vlm_tpu's `segformer.params_from_torch` reads, as fp32 on `device`. A
+    key it needs and the file lacks raises KeyError with its name. The file
+    is a pickle: load only one from a source you trust."""
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    sd = blob.get("state_dict", blob)
+    with torch.device("meta"):
+        want = list(segformer.Segformer(SegformerConfig()).state_dict())
+    return {k: torch.as_tensor(sd[k]).to(device=device, dtype=torch.float32) for k in want}
 
 
 def build_model(
@@ -318,6 +441,23 @@ def load_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def absent_optional(state_dict: Mapping, cfg: G2VLMConfig) -> Tuple[str, ...]:
+    """The state-dict prefixes of the modules that a model of `cfg` may take
+    from the checkpoint but that this one lacks entirely. Only a config that
+    trains the conf head has such: the conf decoder with its head (present
+    when any `conf_decoder.` key is) and the SegFormer (when any
+    `Pi3Loss.point_loss.segformer.` key is), as g2vlm_tpu's mapper takes
+    them; train.py fills what is absent from its seed."""
+    if not cfg.train_conf_pi3:
+        return ()
+    out = ()
+    if not any(k.startswith("conf_decoder.") for k in state_dict):
+        out += ("conf_decoder.", "conf_head.")
+    if not any(k.startswith(SEGFORMER_PREFIX) for k in state_dict):
+        out += (SEGFORMER_PREFIX,)
+    return out
+
+
 def _ignorable(key: str, cfg: G2VLMConfig) -> bool:
     """Checkpoint keys that no module of the port consumes, legitimately: the
     BatchNorm step counters, and the frozen sky segmenter under the loss
@@ -347,11 +487,14 @@ def audit_keys(state_dict: Mapping, cfg: G2VLMConfig) -> Dict[str, List[str]]:
 
 
 def _diff_keys(state_dict: Mapping, want: List[str], cfg: G2VLMConfig) -> Dict[str, List[str]]:
-    """audit_keys against the key list `want` of a model of `cfg`."""
+    """audit_keys against the key list `want` of a model of `cfg`; the
+    optional modules the checkpoint lacks entirely (`absent_optional`) are
+    not missing."""
     wanted = set(want)
+    absent = absent_optional(state_dict, cfg)
     return {
         "unknown": sorted(k for k in state_dict if k not in wanted and not _ignorable(k, cfg)),
-        "missing": [k for k in want if k not in state_dict],
+        "missing": [k for k in want if k not in state_dict and not k.startswith(absent)],
     }
 
 
@@ -360,15 +503,23 @@ def load_checkpoint(
     strict: bool = True,
     device="cuda",
     dtype: torch.dtype = torch.bfloat16,
+    cfg: Optional[G2VLMConfig] = None,
+    seed: int = 0,
 ) -> Tuple[G2VLM, G2VLMConfig]:
     """Read a reference checkpoint directory (text_config.json /
     vit_config.json / dino_config.json + model.safetensors) into a model built
     on `device` in `dtype` (each tensor is cast on its one copy into the
-    model). A key the model needs and the file lacks raises KeyError with its
-    name; with `strict`, so does a file key that no module consumes (up to 20
-    listed), so a renamed key can never load garbage silently. The default
-    device is the card, and without one this raises, as `build_model` does."""
-    cfg = G2VLMConfig.from_checkpoint_dir(checkpoint_dir)
+    model). `cfg` defaults to the directory's config; train_torch.py passes it
+    with `train_conf_pi3` for --train_conf (as train.py passes the JAX
+    loader), and then the conf decoder and head and the SegFormer come from
+    the file where it holds them and are otherwise drawn from `seed`
+    (`absent_optional`). A key the model needs and the file
+    lacks raises KeyError with its name; with `strict`, so does a file key
+    that no module consumes (up to 20 listed), so a renamed key can never load
+    garbage silently. The default device is the card, and without one this
+    raises, as `build_model` does."""
+    if cfg is None:
+        cfg = G2VLMConfig.from_checkpoint_dir(checkpoint_dir)
     model = build_model(cfg, device=device, dtype=dtype, seed=None)
     sd = load_safetensors(os.path.join(checkpoint_dir, "model.safetensors"))
     want = list(model.state_dict())
@@ -378,7 +529,10 @@ def load_checkpoint(
     if strict and diff["unknown"]:
         raise KeyError(f"checkpoint has {len(diff['unknown'])} keys no module consumed "
                        f"(renamed/extra?): {diff['unknown'][:20]}")
-    model.load_state_dict({k: sd[k] for k in want}, strict=True)
+    absent = absent_optional(sd, cfg)
+    if absent:
+        init_random_(model, torch.Generator(device=device).manual_seed(seed), prefixes=absent)
+    model.load_state_dict({k: sd[k] for k in want if not k.startswith(absent)}, strict=not absent)
     return model, cfg
 
 

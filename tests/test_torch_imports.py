@@ -36,7 +36,8 @@ def test_every_port_module_and_script_imports_without_jax():
     for name in ("cli", "models.qwen_vit", "inference.decoding", "data.vit_preprocess", "data.tokenizer", "utils.ply",
                  "utils.metrics", "utils.rotation", "utils.alignment", "data.synthetic", "data.recon_dataset",
                  "csrc", "data.distributed", "data.cropping", "data.augment", "data.frame_sampling",
-                 "data.vlm_dataset", "data.packing", "data.registry", "train.checkpoint"):
+                 "data.vlm_dataset", "data.packing", "data.registry", "train.checkpoint", "models.dinov3",
+                 "models.segformer", "models.modeling_utils"):
         assert "g2vlm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"
@@ -72,6 +73,21 @@ def test_port_config_equals_jax_config_field_for_field(make):
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
     assert got.llm.use_moe == want.llm.use_moe
+
+
+@pytest.mark.parametrize("name", ["Dinov3Config", "SegformerConfig"])
+def test_port_alternate_configs_equal_the_jax_modules_configs(name):
+    """The configs of the JAX package's DINOv3 and SegFormer modules, which the
+    port keeps in its config.py."""
+    import g2vlm_tpu.models.dinov3 as jd3
+    import g2vlm_tpu.models.segformer as jseg
+
+    want = getattr(jd3 if name == "Dinov3Config" else jseg, name)()
+    got = getattr(tcfg, name)()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [f.name for f in dataclasses.fields(got)] == [f.name for f in dataclasses.fields(want)]
+    if name == "Dinov3Config":
+        assert got.head_dim == want.head_dim == 64
 
 
 def test_port_image_constants_equal_the_jax_package(rng):

@@ -4,7 +4,8 @@ against what the kernels' autograd Functions do on the CPU: each forward call
 is one lse-forward launch on the card (K3, K6), each backward call one dq and
 one dkv launch (K5, K7). Per-layer checkpointing, groups of layers
 checkpointed around it (`remat_group`, `dino_remat_group`) and the Pi3 heads
-in view chunks (`head_view_chunk`), at tiny_test_config size; and the joint
+in view chunks (`head_view_chunk`), with the conf decoder (`train_conf_pi3`:
+one more Pi3 decoder), at tiny_test_config size; and the joint
 step: a pack with ViT images (each ViT block checkpointed: K3 twice, K5 once),
 with the recon side frozen (`--freeze_recon`: DINOv2 runs the plain forward
 K1, no backward; the frozen Pi3 heads keep K6 / K7) or all of it trained.
@@ -28,14 +29,17 @@ from g2vlm_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from g2vlm_tpu_torch.train import trainer  # noqa: E402
 from g2vlm_tpu_torch.weights import build_model  # noqa: E402
 
-# (layers of the decoder and of DINOv2, train_forward's options, _step_launches' options); two views
+# (layers of the decoder and of DINOv2, train_forward's options, _step_launches' options, config fields);
+# two views
 CASES = {
-    "per_layer_2": (2, {}, {}),
-    "remat_group_2_of_2": (2, dict(remat_group=2, dino_remat_group=2), dict(remat_group=2, dino_remat_group=2)),
-    "remat_group_2_of_4": (4, dict(remat_group=2, dino_remat_group=2), dict(remat_group=2, dino_remat_group=2)),
-    "remat_group_4_of_4": (4, dict(remat_group=4, dino_remat_group=4), dict(remat_group=4, dino_remat_group=4)),
-    "llm_group_only": (4, dict(remat_group=2), dict(remat_group=2)),
-    "head_view_chunk_1": (2, dict(head_view_chunk=1), dict(chunks=2)),
+    "per_layer_2": (2, {}, {}, {}),
+    "remat_group_2_of_2": (2, dict(remat_group=2, dino_remat_group=2), dict(remat_group=2, dino_remat_group=2), {}),
+    "remat_group_2_of_4": (4, dict(remat_group=2, dino_remat_group=2), dict(remat_group=2, dino_remat_group=2), {}),
+    "remat_group_4_of_4": (4, dict(remat_group=4, dino_remat_group=4), dict(remat_group=4, dino_remat_group=4), {}),
+    "llm_group_only": (4, dict(remat_group=2), dict(remat_group=2), {}),
+    "head_view_chunk_1": (2, dict(head_view_chunk=1), dict(chunks=2), {}),
+    "conf_head": (2, {}, {}, dict(train_conf_pi3=True)),
+    "conf_head_view_chunk_1": (2, dict(head_view_chunk=1), dict(chunks=2), dict(train_conf_pi3=True)),
 }
 
 
@@ -70,13 +74,15 @@ def _counted_calls(monkeypatch):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_step_launches_equal_the_calls_of_a_step(name, monkeypatch):
-    layers, kw, launch_kw = CASES[name]
+    layers, kw, launch_kw, top = CASES[name]
     base = tiny_test_config()
     cfg = dataclasses.replace(base, llm=dataclasses.replace(base.llm, num_hidden_layers=layers),
-                              dino=dataclasses.replace(base.dino, num_hidden_layers=layers))
+                              dino=dataclasses.replace(base.dino, num_hidden_layers=layers), **top)
     model = build_model(cfg, device="cpu", dtype=torch.float32, seed=0).train()
     trainer.apply_freeze(model, freeze_und=True)
-    batch, geo_start = train_torch.full_size_batch(cfg, 2, (28, 42), 64, 0, "cpu")
+    # the SegFormer's quarter-size map must hold its first 8x8 spatial-reduction conv
+    hw, rows = ((56, 70), 96) if cfg.train_conf_pi3 else ((28, 42), 64)
+    batch, geo_start = train_torch.full_size_batch(cfg, 2, hw, rows, 0, "cpu")
     counts = _counted_calls(monkeypatch)
     loss, _ = trainer.train_forward(model, batch.map(lambda x: x[0]), cfg, compute_dtype=torch.float32,
                                     geo_start=geo_start, **kw)

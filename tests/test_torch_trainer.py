@@ -376,6 +376,10 @@ def test_train_torch_model_path_matches_jax_train_py(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--train_conf"], ["--bootstrap_moe"], []])
 def test_train_torch_flags_that_wait_for_a_module_raise(flags):
+    """--dp (multi-GPU, ROADMAP A.9) still raises; --train_conf and
+    --bootstrap_moe are ported: parse_args takes them and sets what train.py
+    sets (tests/test_torch_conf_head.py and tests/test_torch_dense_moe.py run
+    them against train.py)."""
     sys.path.insert(0, str(REPO))
     try:
         import train_torch
@@ -385,5 +389,10 @@ def test_train_torch_flags_that_wait_for_a_module_raise(flags):
         with pytest.raises(ValueError, match="--data_config.*--synthetic"):
             train_torch.parse_args([])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_torch.parse_args(["--synthetic"] + flags)
+    if flags[0] == "--dp":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+            train_torch.parse_args(["--synthetic"] + flags)
+        return
+    args = train_torch.parse_args(["--synthetic"] + flags)
+    assert getattr(args, flags[0][2:]) is True and args.segformer_pth is None
+    assert set(train_torch._NOT_PORTED) == {"dp", "tp", "sequence_parallel"}

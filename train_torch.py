@@ -21,25 +21,32 @@ The recon stage at full width on one H100 (16 views of 294x518 in a
       --split_layout --freeze_und --factored_v --mu_dtype bfloat16 --steps 10
 
 From a reference checkpoint directory (fp32 masters from its weights, the
-vocabulary from its tokenizer files):
-  python train_torch.py --synthetic --model_path /path/to/G2VLM-2B-MoT --steps 10
+vocabulary from its tokenizer files); `--bootstrap_moe` then copies the base
+expert's weights into the geo expert's:
+  python train_torch.py --synthetic --model_path /path/to/G2VLM-2B-MoT --steps 10 [--bootstrap_moe]
+
+The conf-head stage: the Pi3 confidence decoder and head trained with the
+sky-gated BCE, the frozen SegFormer's sky masks from --segformer_pth, the
+checkpoint's `Pi3Loss.*` keys, or random weights drawn from the seed:
+  python train_torch.py --synthetic --views 16 --hw 294 518 --tokens 12800 \
+      --split_layout --freeze_und --factored_v --mu_dtype bfloat16 --train_conf [--segformer_pth seg.pth]
 
 Runs on `cuda` unless `--device cpu` is given, and raises when `cuda` is
-asked for and absent. Multi-GPU meshes, the conf head and the MoE bootstrap
-are not ported yet: their flags raise NotImplementedError.
+asked for and absent. Multi-GPU meshes are not ported yet: their flags raise
+NotImplementedError.
 """
 
 import argparse
+import dataclasses
 import itertools
+import os
 
 
 # flags of train.py that wait for modules of the port, with the ROADMAP item
 _NOT_PORTED = {
-    "bootstrap_moe": "weights.init_moe_from_dense and the dense / moe layer modules (ROADMAP A.10b)",
     "dp": "multi-GPU meshes (ROADMAP A.9)",
     "tp": "multi-GPU meshes (ROADMAP A.9)",
     "sequence_parallel": "parallel/sequence.py (ROADMAP A.9)",
-    "train_conf": "the conf decoder and the SegFormer sky mask (ROADMAP A.10)",
 }
 
 
@@ -101,12 +108,18 @@ def parse_args(argv=None):
     ap.add_argument("--ckpt_every", type=int, default=500)
     ap.add_argument("--keep_ckpts", type=int, default=2)
     ap.add_argument("--resume", action="store_true", help="continue from the newest checkpoint in --checkpoint_dir")
+    ap.add_argument("--bootstrap_moe", action="store_true",
+                    help="with --model_path: copy the base expert's weights into the geo expert's (reference init_moe)")
+    ap.add_argument("--train_conf", action="store_true",
+                    help="train the Pi3 conf decoder and head with the sky-gated BCE; the frozen SegFormer's sky "
+                         "masks come from --segformer_pth, the checkpoint's Pi3Loss.* keys, or random weights")
+    ap.add_argument("--segformer_pth", type=str, default=None,
+                    help="the reference's segformer.b0.512x512.ade.160k.pth for real sky supervision (a pickle: "
+                         "load only a file you trust)")
     # accepted for train.py's command lines; each raises until its module is ported
-    ap.add_argument("--bootstrap_moe", action="store_true")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--sequence_parallel", action="store_true")
-    ap.add_argument("--train_conf", action="store_true")
     args = ap.parse_args(argv)
     defaults = {"dp": 1, "tp": 1}
     for flag, waits_for in _NOT_PORTED.items():
@@ -285,24 +298,36 @@ def train(args, data_cfg=None):
     from g2vlm_tpu_torch.train import trainer
     from g2vlm_tpu_torch.train.checkpoint import CheckpointManager
     from g2vlm_tpu_torch.train.logging import StepTimer, create_logger, format_metrics, maybe_profile
-    from g2vlm_tpu_torch.weights import build_model, load_checkpoint
+    from g2vlm_tpu_torch.weights import (SEGFORMER_PREFIX, absent_optional, build_model, init_moe_from_dense,
+                                         load_checkpoint, load_safetensors, load_segformer_pth)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda (the default) needs an NVIDIA GPU; pass --device cpu for the CPU")
     device = torch.device(args.device)
     logger = create_logger()
     tokenizer = new_token_ids = None
+    segformer_from_checkpoint = False
     if args.model_path:
         from g2vlm_tpu_torch.data.tokenizer import load_tokenizer
 
-        # the checkpoint's config, whatever --tiny says, as train.py takes it
-        model, cfg = load_checkpoint(args.model_path, device=device, dtype=torch.float32)
+        # the checkpoint's config, whatever --tiny says, as train.py takes it; with --train_conf the conf
+        # decoder and head and the SegFormer it lacks are drawn from seed + 7, as train.py draws them
+        ckpt_cfg = dataclasses.replace(G2VLMConfig.from_checkpoint_dir(args.model_path),
+                                       train_conf_pi3=args.train_conf)
+        model, cfg = load_checkpoint(args.model_path, device=device, dtype=torch.float32, cfg=ckpt_cfg,
+                                     seed=args.seed + 7)
+        segformer_from_checkpoint = args.train_conf and SEGFORMER_PREFIX not in absent_optional(
+            load_safetensors(os.path.join(args.model_path, "model.safetensors")), cfg)
+        if args.bootstrap_moe:
+            init_moe_from_dense(model)
+            logger.info(f"--bootstrap_moe: geo expert copied from the base expert ({cfg.llm.layer_module} layers)")
         tokenizer, new_token_ids, _ = load_tokenizer(args.model_path)
         logger.info(f"checkpoint {args.model_path}: vocabulary of {len(tokenizer)}, special ids {new_token_ids}")
     else:
         cfg = tiny_test_config() if args.tiny else G2VLMConfig(visual_und=args.max_vit_patches > 0)
         if args.cut_depth:
             cfg = cut_depth_config(cfg, args.cut_depth)
+        cfg = dataclasses.replace(cfg, train_conf_pi3=args.train_conf)
         model = build_model(cfg, device=device, dtype=torch.float32, seed=args.seed)
         if args.tokenizer_path:
             from g2vlm_tpu_torch.data.tokenizer import load_tokenizer
@@ -310,6 +335,13 @@ def train(args, data_cfg=None):
             tokenizer, new_token_ids, _ = load_tokenizer(args.tokenizer_path)
             if len(tokenizer) > cfg.llm.vocab_size:
                 raise ValueError(f"tokenizer vocabulary {len(tokenizer)} exceeds the model's {cfg.llm.vocab_size}")
+    if args.train_conf:
+        if args.segformer_pth:
+            model.segformer.load_state_dict(load_segformer_pth(args.segformer_pth, device))
+            logger.info(f"segformer weights from {args.segformer_pth}")
+        elif not segformer_from_checkpoint:
+            logger.info("WARNING: no segformer weights (checkpoint or --segformer_pth) — sky supervision uses "
+                        "RANDOM weights")
     model.train()
     schedule = trainer.warmup_cosine_schedule(0.0, args.lr, args.warmup, max(args.steps, args.warmup + 1))
     optimizer = trainer.make_optimizer(
