@@ -110,7 +110,27 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      cut-depth parity of recon_from_frames(new_width=512) against the CPU; (b)
      the 32-view call at full size on 288x512 views (launch counts, latency,
      memory). Its K1 shape (32, 581, 16, 64) runs in phase 3's loop and its K2
-     prefill (32 views of 18 x 32 patches) in phase 4's.
+     prefill (32 views of 18 x 32 patches) in phase 4's;
+ 22. configs/joint_train.yaml's three groups (recon, recon_then_und, vlm_sft; its
+     order, weights, mandatory flags and transform arguments) over data written
+     from a seed: JSONL scenes, SPAR-style parquet rows (PNG views, 16-bit depth,
+     poses, intrinsics, markers; scannet and structured3d), image conversations
+     and a video row on a folder of PNG frames; pyarrow's version printed.
+     It runs right after phase 17: (b) takes phase 17's model and train state
+     and steps at full width and depth on packs PackedIterableDataset draws
+     from the three groups: steps fed inline, then through a one-worker
+     PrefetchLoader (a thread) and a one-worker ProcessPrefetchLoader (a spawned
+     process), whose packs equal the inline ones array for array; host ms per
+     pack, ms per step and real tokens/s each way, the time each loader hides,
+     the worker's ms per pack and, for the process, where a pack's wait goes
+     (unpickling, pickling, the rest in the pipe), peak memory, launches derived
+     per pack, frozen leaves unchanged; (a) train_torch.py --data_config at
+     phase 18's cut depth and flags: run A against run B resumed (1e-3,
+     data_status with the parquet cursor equal), then the CE of each group's
+     answer tokens on A's first pack; (c) the chat call of
+     G2VLMConfig() on 8 frames sampled (mode "middle") from a folder of 64 PNGs
+     of 294x518: TTFT, ms per token, launches, ids; then infer_chat_torch.py
+     --video on the folder.
 Every kernel is also timed beside the one PyTorch library call that computes
 the same function (a yardstick only; the port never calls it). The last line is
 {"ok": true, "device": {...}}; before it, the card's line and one JSON line
@@ -122,6 +142,7 @@ from __future__ import annotations
 import argparse
 import ast
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -130,6 +151,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from types import SimpleNamespace
 
 # the card's published peaks (H100 SXM): dense bf16 and int8 tensor-core rates and HBM3 rate
@@ -367,7 +389,9 @@ def main() -> None:
     paths_run["recon_call"], paths_run["train_step"], recon_ms = _recon_and_train_phases(env)
     paths_run.update(_chat_phases(env, recon_ms))
     paths_run["recon_entry"] = _recon_entry_phase(env)
-    paths_run["joint_step"] = _joint_step_phase(env)
+    paths_run["joint_step"], joint = _joint_step_phase(env)
+    paths_run.update(_three_group_phases(env, joint))  # 22(b) steps on phase 17's model and state
+    del joint
     _data_resume_phase(env)
     paths_run["conf_step"] = _conf_stage_phase(env)
     paths_run.update(_dense_moe_phase(env, recon_ms))
@@ -915,60 +939,95 @@ def _recon_and_train_phases(env):
     return recon_launches, train_launches, recon_ms
 
 
-def _full_size_steps(env, tag, state, step_fn, batch, real_tokens, want_launches, desc, always_frozen=()):
-    """Four steps on one repeated batch, each one's launches held to `want_launches`; the loss must
-    fall over three steps, a sample of the frozen parameters (and every parameter and buffer whose
-    name starts with one of `always_frozen`) and their EMA stay bitwise unchanged, and at least 90% of
-    a sample of the trainable ones and of their EMA move. Prints each step and ms per step (median of
-    steps 1-3), real tokens/s and peak memory; returns the launches of the last step."""
-    import numpy as np
-    import torch
+class _StepChecks:
+    """What every full-size training step of the smoke is held to. Built before the first step: copies
+    a sample of the frozen parameters (and every parameter and buffer whose name starts with one of
+    `always_frozen`) and of the trainable ones. `step` runs one step, its launches held to the count
+    derived for its batch and its loss and gradient norm finite; `frozen_unchanged` holds the frozen
+    copies and their EMA bitwise; `moved` counts the sampled trainable leaves and EMA leaves that
+    changed."""
 
-    from g2vlm_tpu_torch.ops import flash_attention as fa
+    def __init__(self, tag, state, always_frozen=()):
+        model = state.model
+        self.tag = tag
+        self.named = dict(model.named_parameters())
+        frozen_names = [n_ for n_, p in self.named.items() if not p.requires_grad]
+        self.probe = frozen_names[:: max(1, len(frozen_names) // 8)]
+        self.probe += [n_ for n_ in frozen_names if n_.startswith(always_frozen) and n_ not in self.probe]
+        self.buffers = {n_: b.detach().clone() for n_, b in model.named_buffers() if n_.startswith(always_frozen)}
+        self.before = {n_: self.named[n_].detach().clone() for n_ in self.probe}
+        self.moved_probe = {n_: p.detach().clone() for n_, p in self.named.items()
+                            if p.requires_grad and p.numel() < 5_000_000}
+        self.total = {}  # launches summed over the steps
 
-    model = state.model
-    named = dict(model.named_parameters())
-    frozen_names = [n_ for n_, p in named.items() if not p.requires_grad]
-    probe = frozen_names[:: max(1, len(frozen_names) // 8)]  # a sample of the frozen leaves, copied
-    probe += [n_ for n_ in frozen_names if n_.startswith(always_frozen) and n_ not in probe]
-    buffers = {n_: b.detach().clone() for n_, b in model.named_buffers() if n_.startswith(always_frozen)}
-    before = {n_: named[n_].detach().clone() for n_ in probe}
-    moved_probe = {n_: p.detach().clone() for n_, p in named.items() if p.requires_grad and p.numel() < 5_000_000}
-    losses, norms, times = [], [], []
-    for step in range(4):
+    def step(self, step_fn, state, batch, want_launches):
+        """Returns (state, metrics, ms)."""
+        import numpy as np
+        import torch
+
+        from g2vlm_tpu_torch.ops import flash_attention as fa
+
         fa.reset_launch_counts()
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+        ms = (time.perf_counter() - t0) * 1e3
         launches = {k: v for k, v in fa.launch_counts.items() if v}
         if launches != want_launches:
-            _fail(f"{tag} step {step}: launches {launches}, expected {want_launches}")
+            _fail(f"{self.tag} step: launches {launches}, expected {want_launches}")
+        for k, v in launches.items():
+            self.total[k] = self.total.get(k, 0) + v
+        if not (np.isfinite(metrics["loss"].item()) and np.isfinite(metrics["grad_norm"].item())):
+            _fail(f"{self.tag} step: loss {metrics['loss'].item()} grad_norm {metrics['grad_norm'].item()}")
+        return state, metrics, ms
+
+    def frozen_unchanged(self, state):
+        import torch
+
+        for n_ in self.probe:
+            if not torch.equal(self.named[n_], self.before[n_]) or not torch.equal(state.ema_params[n_],
+                                                                                    self.before[n_]):
+                _fail(f"{self.tag}: frozen parameter {n_} or its EMA changed")
+        for n_, b in state.model.named_buffers():
+            if n_ in self.buffers and not torch.equal(b, self.buffers[n_]):
+                _fail(f"{self.tag}: frozen buffer {n_} changed")
+
+    def moved(self, state):
+        import torch
+
+        return (sum(not torch.equal(self.named[n_], old) for n_, old in self.moved_probe.items()),
+                sum(not torch.equal(state.ema_params[n_], old) for n_, old in self.moved_probe.items()))
+
+
+def _full_size_steps(env, tag, state, step_fn, batch, real_tokens, want_launches, desc, always_frozen=()):
+    """Four steps on one repeated batch, held by _StepChecks; the loss must fall over three steps, and
+    at least 90% of a sample of the trainable parameters and of their EMA move. Prints each step and ms
+    per step (median of steps 1-3), real tokens/s and peak memory; returns the launches of the last
+    step."""
+    import torch
+
+    checks = _StepChecks(tag, state, always_frozen)
+    losses, times = [], []
+    for step in range(4):
+        state, metrics, ms = checks.step(step_fn, state, batch, want_launches)
+        times.append(ms)
         losses.append(metrics["loss"].item())
-        norms.append(metrics["grad_norm"].item())
-        print(f"[{tag}] step {step}: loss {losses[-1]:.5f} grad_norm {norms[-1]:.4f} "
-              + " ".join(f"{k} {val.item():.4f}" for k, val in metrics.items() if k not in ("loss", "grad_norm"))
+        print(f"[{tag}] step {step}: loss {losses[-1]:.5f} "
+              + " ".join(f"{k} {val.item():.4f}" for k, val in metrics.items() if k != "loss")
               + f" | {times[-1]:.1f} ms")
-        if not (np.isfinite(losses[-1]) and np.isfinite(norms[-1])):
-            _fail(f"{tag} step {step}: loss or grad norm is not finite")
     if not losses[2] < losses[0]:
         _fail(f"{tag}: the loss did not fall over three steps on one batch: {losses}")
-    for n_ in probe:
-        if not torch.equal(named[n_], before[n_]) or not torch.equal(state.ema_params[n_], before[n_]):
-            _fail(f"{tag}: frozen parameter {n_} or its EMA changed")
-    for n_, b in model.named_buffers():
-        if n_ in buffers and not torch.equal(b, buffers[n_]):
-            _fail(f"{tag}: frozen buffer {n_} changed")
-    n_moved = sum(not torch.equal(named[n_], old) for n_, old in moved_probe.items())
-    n_ema_moved = sum(not torch.equal(state.ema_params[n_], old) for n_, old in moved_probe.items())
-    if n_moved < 0.9 * len(moved_probe) or n_ema_moved < 0.9 * len(moved_probe):
-        _fail(f"{tag}: only {n_moved} parameters and {n_ema_moved} EMA leaves of {len(moved_probe)} changed")
+    checks.frozen_unchanged(state)
+    n_moved, n_ema_moved = checks.moved(state)
+    n_probe = len(checks.moved_probe)
+    if n_moved < 0.9 * n_probe or n_ema_moved < 0.9 * n_probe:
+        _fail(f"{tag}: only {n_moved} parameters and {n_ema_moved} EMA leaves of {n_probe} changed")
     ms = statistics.median(times[1:])
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{tag}] {desc}: {ms:.1f} ms per step (median of steps 1.. of {[round(t, 1) for t in times]}), "
           f"{real_tokens / ms * 1e3:.1f} real tokens/s, peak allocated {peak:.2f} GiB; loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}; {len(probe)} frozen leaves (a sample, and all under {always_frozen}) and their EMA "
-          f"bitwise unchanged, {len(buffers)} frozen buffers unchanged, {n_moved}/{len(moved_probe)} "
+          f"{losses[-1]:.4f}; {len(checks.probe)} frozen leaves (a sample, and all under {always_frozen}) and "
+          f"their EMA bitwise unchanged, {len(checks.buffers)} frozen buffers unchanged, {n_moved}/{n_probe} "
           f"sampled trainable leaves changed; launches per step {want_launches} ({env.card})")
 
     if env.args.profile:
@@ -978,7 +1037,7 @@ def _full_size_steps(env, tag, state, step_fn, batch, real_tokens, want_launches
             step_fn(state, batch)
             torch.cuda.synchronize()
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
-    return dict(launches)
+    return dict(want_launches)
 
 
 
@@ -1747,10 +1806,10 @@ def _joint_pack(folder, n_views, view_hw, n_vit, vit_hw, max_tokens, max_vit, vo
 
 def _joint_step_phase(env):
     """Phase 17 (16 runs with phases 7-8). Returns the kernels' launches of
-    the last full-size joint training step."""
+    the last full-size joint training step, and its config, model, optimizer
+    and train state, which phase 22(b) steps on."""
     import gc
 
-    import numpy as np
     import torch
 
     import train_torch
@@ -1845,54 +1904,14 @@ def _joint_step_phase(env):
           f"the ViT, embeddings and lm_head), optimizer and EMA on the card in {time.perf_counter() - t0:.1f} s; "
           f"state reckoned {state_gb:.1f} GB (masters + EMA of all, gradients fp32 + bf16 first moment of the "
           f"trainable) ({card})")
-    named = dict(model.named_parameters())
-    frozen_names = [n_ for n_, p in named.items() if not p.requires_grad]
-    probe = frozen_names[:: max(1, len(frozen_names) // 8)]
-    before = {n_: named[n_].detach().clone() for n_ in probe}
-    moved_probe = {n_: p.detach().clone() for n_, p in named.items() if p.requires_grad and p.numel() < 5_000_000}
-    want_launches = _step_launches(cfg, vit=True, freeze_recon=True)
-    losses, times = [], []
-    for step in range(4):
-        fa.reset_launch_counts()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        launches = {k: v for k, v in fa.launch_counts.items() if v}
-        if launches != want_launches:
-            _fail(f"joint step {step}: launches {launches}, expected {want_launches}")
-        losses.append(metrics["loss"].item())
-        print(f"[joint] step {step}: loss {losses[-1]:.5f} grad_norm {metrics['grad_norm'].item():.4f} ce "
-              f"{metrics['ce'].item():.4f} dl {metrics['dl'].item():.4f} | {times[-1]:.1f} ms")
-        if not (np.isfinite(losses[-1]) and np.isfinite(metrics["grad_norm"].item())):
-            _fail(f"joint step {step}: loss or grad norm is not finite")
-    for n_ in probe:
-        if not torch.equal(named[n_], before[n_]) or not torch.equal(state.ema_params[n_], before[n_]):
-            _fail(f"joint step: frozen parameter {n_} or its EMA changed")
-    n_moved = sum(not torch.equal(named[n_], old) for n_, old in moved_probe.items())
-    if n_moved < 0.9 * len(moved_probe):
-        _fail(f"joint step: only {n_moved} of {len(moved_probe)} sampled trainable leaves changed")
-    ms = statistics.median(times[1:])
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[joint] G2VLMConfig(), --split_layout --freeze_recon --factored_v --mu_dtype bfloat16, remat: "
-          f"{ms:.1f} ms per step (median of steps 1-3 of {[round(t, 1) for t in times]}), "
-          f"{real_tokens / ms * 1e3:.1f} real tokens/s, peak allocated {peak:.2f} GiB; {len(probe)} sampled frozen "
-          f"leaves and their EMA bitwise unchanged, {n_moved}/{len(moved_probe)} sampled trainable leaves changed; "
-          f"launches per step {launches} ({card})")
-    joint_launches = dict(launches)
-    if env.args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step_fn(state, batch)
-            torch.cuda.synchronize()
-        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
-    del model, optimizer, state, step_fn, batch, named, before, moved_probe, metrics
+    joint_launches = _full_size_steps(
+        env, "joint", state, step_fn, batch, real_tokens, _step_launches(cfg, vit=True, freeze_recon=True),
+        "G2VLMConfig(), --split_layout --freeze_recon --factored_v --mu_dtype bfloat16, remat")
+    del step_fn, batch
     gc.collect()
-    torch.cuda.empty_cache()
     shutil.rmtree(work)
     print(f"[joint] phase 17 in {time.perf_counter() - t_phase:.1f} s ({card})")
-    return joint_launches
+    return joint_launches, SimpleNamespace(cfg=cfg, model=model, optimizer=optimizer, state=state)
 
 
 def _data_resume_phase(env):
@@ -1921,64 +1940,9 @@ def _data_resume_phase(env):
               "--max_num_tokens", "16384", "--expected_num_tokens", "2000", "--image_num_range", "2", "4",
               "--split_layout", "--freeze_recon", "--factored_v", "--mu_dtype", "bfloat16", "--ckpt_every", "2",
               "--log_every", "1"]
-    runs = {"A": ["--steps", "4", "--checkpoint_dir", os.path.join(work, "ckA")],
-            "B": ["--steps", "2", "--checkpoint_dir", os.path.join(work, "ckB")],
-            "B_resumed": ["--steps", "4", "--checkpoint_dir", os.path.join(work, "ckB"), "--resume"]}
     with open(common[1], "w") as f:
         yaml.safe_dump(data_cfg, f)
-
-    def start(argv):
-        return subprocess.Popen([sys.executable, "train_torch.py", *common, *argv], cwd=REPO_ROOT, text=True,
-                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                env=dict(os.environ, PYTHONHASHSEED="0"))
-
-    def finish(procs):
-        """Waits for each run of `procs` (tag -> process); fails on a non-zero exit or a run still going
-        after 300 s, and leaves none running."""
-        out = {}
-        try:
-            for tag, proc in procs.items():
-                try:
-                    _, err = proc.communicate(timeout=300)
-                except subprocess.TimeoutExpired:
-                    _fail(f"train_torch.py run {tag} still ran after 300 s")
-                if proc.returncode != 0:
-                    _fail(f"train_torch.py run {tag} exited {proc.returncode}: {err[-2000:]}")
-                out[tag] = err
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        return out
-
-    t0 = time.perf_counter()
-    logs = finish({tag: start(runs[tag]) for tag in ("A", "B")})  # A and B's first part at once
-    logs.update(finish({"B_resumed": start(runs["B_resumed"])}))
-    t_runs = time.perf_counter() - t0
-
-    def step_metrics(log):
-        out = {}
-        for line in log.splitlines():
-            if " step " in line and "loss=" in line:
-                words = line[line.index(" step ") + 6:].split()
-                out[int(words[0])] = {k: float(v) for k, v in (w.split("=") for w in words[1:] if "=" in w)}
-        return out
-
-    got_a, got_b = step_metrics(logs["A"]), step_metrics(logs["B_resumed"])
-    if "resumed at step 2" not in logs["B_resumed"] or sorted(got_a) != [0, 1, 2, 3] or sorted(got_b) != [2, 3]:
-        _fail(f"resume: steps logged A {sorted(got_a)}, B resumed {sorted(got_b)}: {logs['B_resumed'][-1500:]}")
-    worst = 0.0
-    for step in (2, 3):
-        for k, v in got_a[step].items():
-            err = abs(got_b[step][k] - v)
-            worst = max(worst, err / (abs(v) + 1e-30))
-            if err > 1e-3 * abs(v) + 1e-4:  # 1e-4: the 4 decimals the log prints
-                _fail(f"resume: step {step} {k} {got_b[step][k]} against {v} uninterrupted (1e-3 relative)")
-    status_a = json.load(open(os.path.join(work, "ckA", "data_status_4.json")))
-    status_b = json.load(open(os.path.join(work, "ckB", "data_status_4.json")))
-    if status_a != status_b:
-        _fail("resume: the data_status of the resumed run differs from the uninterrupted one's")
+    got_a, worst, t_runs = _resume_runs(common, work, "resume")
     print(f"[data] train_torch.py --data_config (2 synthetic scenes of 84x140 views at {TRAIN_HW[1]} wide, 3 image "
           f"conversations at 448x448) --cut_depth 2 --split_layout --freeze_recon, subprocesses with PYTHONHASHSEED=0 (PyYAML "
           f"{yaml.__version__}): A 4 steps, B 2 steps "
@@ -2016,6 +1980,71 @@ def _data_resume_phase(env):
     torch.cuda.empty_cache()
     shutil.rmtree(work)
     print(f"[data] phase 18 in {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def _resume_runs(common, work, tag):
+    """train_torch.py with the flags `common`: run A takes 4 steps with checkpoints in work/ckA, run B
+    2 steps in work/ckB (both at once), then B --resume for 2 more; subprocesses with
+    PYTHONHASHSEED=0, each allowed 300 s. Fails unless B's steps 2-3 match A's within 1e-3 (relative,
+    plus the 1e-4 of the log's 4 decimals) and the final data_status files are equal. Returns (A's
+    metrics by step, the worst relative difference, seconds of the runs)."""
+    runs = {"A": ["--steps", "4", "--checkpoint_dir", os.path.join(work, "ckA")],
+            "B": ["--steps", "2", "--checkpoint_dir", os.path.join(work, "ckB")],
+            "B_resumed": ["--steps", "4", "--checkpoint_dir", os.path.join(work, "ckB"), "--resume"]}
+
+    def start(argv):
+        return subprocess.Popen([sys.executable, "train_torch.py", *common, *argv], cwd=REPO_ROOT, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                env=dict(os.environ, PYTHONHASHSEED="0"))
+
+    def finish(procs):
+        """Waits for each run of `procs` (tag -> process); fails on a non-zero exit or a run still going
+        after 300 s, and leaves none running."""
+        out = {}
+        try:
+            for run, proc in procs.items():
+                try:
+                    _, err = proc.communicate(timeout=300)
+                except subprocess.TimeoutExpired:
+                    _fail(f"{tag}: train_torch.py run {run} still ran after 300 s")
+                if proc.returncode != 0:
+                    _fail(f"{tag}: train_torch.py run {run} exited {proc.returncode}: {err[-2000:]}")
+                out[run] = err
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        return out
+
+    t0 = time.perf_counter()
+    logs = finish({run: start(runs[run]) for run in ("A", "B")})  # A and B's first part at once
+    logs.update(finish({"B_resumed": start(runs["B_resumed"])}))
+    t_runs = time.perf_counter() - t0
+
+    def step_metrics(log):
+        out = {}
+        for line in log.splitlines():
+            if " step " in line and "loss=" in line:
+                words = line[line.index(" step ") + 6:].split()
+                out[int(words[0])] = {k: float(v) for k, v in (w.split("=") for w in words[1:] if "=" in w)}
+        return out
+
+    got_a, got_b = step_metrics(logs["A"]), step_metrics(logs["B_resumed"])
+    if "resumed at step 2" not in logs["B_resumed"] or sorted(got_a) != [0, 1, 2, 3] or sorted(got_b) != [2, 3]:
+        _fail(f"{tag}: steps logged A {sorted(got_a)}, B resumed {sorted(got_b)}: {logs['B_resumed'][-1500:]}")
+    worst = 0.0
+    for step in (2, 3):
+        for k, v in got_a[step].items():
+            err = abs(got_b[step][k] - v)
+            worst = max(worst, err / (abs(v) + 1e-30))
+            if err > 1e-3 * abs(v) + 1e-4:  # 1e-4: the 4 decimals the log prints
+                _fail(f"{tag}: step {step} {k} {got_b[step][k]} against {v} uninterrupted (1e-3 relative)")
+    status_a = json.load(open(os.path.join(work, "ckA", "data_status_4.json")))
+    status_b = json.load(open(os.path.join(work, "ckB", "data_status_4.json")))
+    if status_a != status_b:
+        _fail(f"{tag}: the data_status of the resumed run differs from the uninterrupted one's")
+    return got_a, worst, t_runs
 
 
 def _step_parity(env, tag, cpu_model, cfg, batch, geo_start, groups, want_launches, freeze, details=()):
@@ -2384,6 +2413,451 @@ def _dinov3_phase(env, recon_ms):
     del model, pipe, out
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# phase 22: configs/joint_train.yaml's three groups (its order, weights, mandatory flags and transform
+# arguments) over data that `make_joint_train_data` writes from a seed: 2 scenes of 8 frames of 480x640
+# (recon); 4 SPAR rows of 2 views of 480x640 with 240x320 depth maps, scannet and structured3d in turn
+# (recon_then_und); 3 image conversations of 480x640 and a video row whose 4 <image> tags take 4 frames of
+# 294x518 from a folder of 8 (vlm_sft). The repo holds no statistics of SPAR's or LLaVA's text lengths, so
+# the texts are short: a question of 24 words and an answer of 12 (a word is a token without a tokenizer).
+# A 12,800-token pack then has room for more ViT images than 22(b)'s 23,328 slots hold (8 of 2,916 rows):
+# the port's packer closes a pack before a sample whose images would overflow them (ROADMAP C)
+THREE_GROUP_DATA = dict(target_size=518, vit_hw=(768, 768), n_scenes=2, n_frames=8, scene_hw=(480, 640),
+                        n_spar_rows=4, spar_hw=(480, 640), spar_depth_hw=(240, 320), n_chats=3, image_hw=(480, 640),
+                        n_video_frames=8, video_hw=(294, 518), frames_per_video=4, question_words=24,
+                        answer_words=12, seed=0)
+THREE_GROUP_STEPS = 4  # 22(b): steps fed inline, then as many through the loader
+VIDEO_FRAMES, VIDEO_FOLDER_FRAMES = 8, 64  # 22(c)
+
+
+def _same_tree(got, want) -> bool:
+    """Equal structure, types and values; numpy arrays bitwise with their dtypes."""
+    import numpy as np
+
+    if isinstance(want, np.ndarray):
+        return (isinstance(got, np.ndarray) and got.dtype == want.dtype and got.shape == want.shape
+                and np.array_equal(got, want))
+    if isinstance(want, dict):
+        return isinstance(got, dict) and set(got) == set(want) and all(_same_tree(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return type(got) is type(want) and len(got) == len(want) and all(map(_same_tree, got, want))
+    return type(got) is type(want) and got == want
+
+
+def _three_group_phases(env, joint):
+    """Phase 22: the three groups of configs/joint_train.yaml; (b) first, on phase 17's model and state
+    (`joint`), which it then frees. Returns the launches of 22(b)'s steps and of one 22(c) video chat
+    call."""
+    import pyarrow
+    import yaml
+
+    from g2vlm_tpu_torch.data.synthetic import make_joint_train_data
+
+    card = env.card
+    work = tempfile.mkdtemp(prefix="g2vlm_three_")
+    t_phase = time.perf_counter()
+    data = os.path.join(work, "data")
+    os.makedirs(data)
+    t0 = time.perf_counter()
+    data_cfg = make_joint_train_data(data, **THREE_GROUP_DATA)
+    with open(os.path.join(REPO_ROOT, "configs", "joint_train.yaml")) as f:
+        joint_yaml = yaml.safe_load(f)
+
+    def knobs(group):
+        return {k: v for k, v in group.items() if k not in ("dataset_names", "dataset_info")}
+
+    if list(data_cfg) != list(joint_yaml) or any(knobs(data_cfg[g]) != knobs(joint_yaml[g]) for g in joint_yaml):
+        _fail(f"three groups: the written config {data_cfg} is not configs/joint_train.yaml's {joint_yaml}")
+    print(f"[three] configs/joint_train.yaml's groups {list(joint_yaml)} (weights, mandatory flags, transform "
+          f"arguments equal) over data written from seed {THREE_GROUP_DATA['seed']} in {time.perf_counter() - t0:.1f}"
+          f" s: SPAR rows as parquet (pyarrow {pyarrow.__version__}, PyYAML {yaml.__version__}) ({card})")
+    paths = {"three_group_step": _three_group_steps(env, data_cfg, joint)}
+    _three_group_resume(env, data_cfg, work)
+    paths["video_chat"] = _video_chat(env, os.path.join(work, "video"))
+    shutil.rmtree(work)
+    print(f"[three] phase 22 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return paths
+
+
+def _three_group_resume(env, data_cfg, work):
+    """Phase 22(a): train_torch.py --data_config over the three groups at phase 18's cut depth and flags,
+    run A against run B resumed; then, in process, the CE of each group's answer tokens on run A's first
+    pack, from run A's initial weights."""
+    import dataclasses
+    import gc
+
+    import torch
+    import yaml
+
+    import train_torch
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
+    from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.weights import build_model
+
+    dev, card = env.dev, env.card
+    t_phase = time.perf_counter()
+    path = os.path.join(work, "joint.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(data_cfg, f)
+    # packs close once they hold 2,000 tokens, so a pack is the two mandatory samples and at most one drawn
+    # one: at most 6 ViT images (the two recon_then_und views, the video row's 4 frames) of 2,916 rows
+    common = ["--data_config", path, "--cut_depth", "2", "--max_vit_patches", str(6 * VIT_ROWS_PER_IMAGE),
+              "--max_num_tokens", "16384", "--expected_num_tokens", "2000", "--image_num_range", "2", "4",
+              "--split_layout", "--freeze_recon", "--factored_v", "--mu_dtype", "bfloat16", "--ckpt_every", "2",
+              "--log_every", "1"]
+    got_a, worst, t_runs = _resume_runs(common, work, "three groups resume")
+    status = json.load(open(os.path.join(work, "ckA", "data_status_4.json")))
+    cursor = status.get("tiny_spar", {}).get("0")
+    if not (isinstance(cursor, list) and len(cursor) == 3):
+        _fail(f"three groups resume: no parquet cursor [file, row group, row] in the data status: {status}")
+    print(f"[three] train_torch.py --data_config (the three groups) --cut_depth 2 --split_layout --freeze_recon "
+          f"--max_vit_patches {6 * VIT_ROWS_PER_IMAGE}, subprocesses with PYTHONHASHSEED=0: A 4 steps, B 2 steps then "
+          f"--resume for 2, all in {t_runs:.1f} s; steps 2-3 of B against A: worst metric {worst:.2e} relative "
+          f"(budget 1e-3); data_status equal, parquet cursor {cursor}; A's steps "
+          + "; ".join(f"{s}: " + " ".join(f"{k} {v}" for k, v in got_a[s].items() if k != "time") for s in range(4))
+          + f" ({card})")
+
+    # the first pack of run A's stream (its flags, seed and initial weights), each group's answer tokens alone
+    # in the CE; the text ids differ from the run's (this process's hash seed), the pack's layout does not
+    args = train_torch.parse_args(common + ["--steps", "1"])
+    cut = cut_depth_config(G2VLMConfig(visual_und=True), 2)
+    model = build_model(cut, device=dev, dtype=torch.float32, seed=args.seed).train()
+    batch, geo_start, dixs, _ = next(train_torch.packer_batches(args, data_cfg, cut, None, None, None, dev))
+    one = batch.map(lambda x: x[0])
+    group_of = {ds: g for g, gcfg in data_cfg.items() for ds in gcfg["dataset_names"]}
+    sample_group = [group_of[d["dataset_name"]] for d in dixs]
+    slot_group = [sample_group[int(s)] for s in one.doc_id[one.ce_indexes.long()].tolist()]
+    results = {}
+    with torch.no_grad():
+        for g in ["all"] + sorted(set(sample_group)):
+            keep = torch.tensor([g in ("all", sg) for sg in slot_group], device=dev)
+            w = one.ce_weights * keep
+            if not (w > 0).any():
+                results[g] = "no answer tokens"
+                continue
+            loss, det = trainer.train_forward(model, dataclasses.replace(one, ce_weights=w), cut,
+                                              compute_dtype=torch.bfloat16, geo_start=geo_start)
+            if not (torch.isfinite(loss) and torch.isfinite(det["ce"])):
+                _fail(f"three groups: group {g}: loss {loss.item()} ce {det['ce'].item()}")
+            results[g] = f"ce {det['ce'].item():.4f} over {int((w > 0).sum())} answer tokens"
+            if g == "all":
+                results[g] += ", loss " + " ".join(f"{k} {v.item():.4f}" for k, v in det.items())
+            elif g == "recon_then_und" and not det["ce"].item() > 0:
+                _fail(f"three groups: the recon_then_und answers give ce {det['ce'].item()}")
+    if "recon_then_und" not in results:
+        _fail(f"three groups: run A's first pack holds no recon_then_und sample: {sample_group}")
+    print(f"[three] run A's first pack ({len(dixs)} samples: {sample_group}), cut depth on the card, bf16: "
+          + "; ".join(f"{g}: {r}" for g, r in results.items()) + f"; 22(a) in {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    del model, batch, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class _WordIds:
+    """A tokenizer stand-in that gives every process the same ids, one a word: the datasets' tokenizer-less
+    ids, hash(word) % 5000 + 100, are salted per process, and a spawned loader worker is another process."""
+
+    def encode(self, text):
+        return [zlib.crc32(w.encode()) % 5000 + 100 for w in text.split()]
+
+
+def _three_group_stream(data_cfg, ids, packer_cfg, worker_id=0):
+    """A fresh pack stream over the three groups, its datasets built in the caller's thread or process;
+    module-level, so that a spawned loader worker can unpickle it. It touches no CUDA state."""
+    import random
+
+    from g2vlm_tpu_torch.data.packing import PackedIterableDataset
+    from g2vlm_tpu_torch.data.registry import build_groups_from_config
+
+    return iter(PackedIterableDataset(build_groups_from_config(data_cfg, tokenizer=_WordIds()), ids, packer_cfg,
+                                      group_rng=random.Random(0)))
+
+
+def _timed_three_group_stream(data_cfg, ids, packer_cfg, worker_id=0):
+    """_three_group_stream's packs as (pack, ms its worker took to build it, time.monotonic() when it was
+    built): the monotonic clock is the machine's, the same in every process."""
+    it = _three_group_stream(data_cfg, ids, packer_cfg, worker_id)
+    while True:
+        t0 = time.perf_counter()
+        pack = next(it)
+        yield pack, (time.perf_counter() - t0) * 1e3, time.monotonic()
+
+
+def _pipe_sink(conn):
+    """Receives byte strings until an empty one and answers each with its length: the far end of
+    22(b)'s probe of a bare pipe."""
+    while True:
+        blob = conn.recv_bytes()
+        if not blob:
+            return
+        conn.send(len(blob))
+
+
+def _bare_pipe_ms(blobs):
+    """ms to move each byte string through a pipe to a spawned process that does nothing else, and
+    back its length."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    here, there = ctx.Pipe()
+    sink = ctx.Process(target=_pipe_sink, args=(there,), daemon=True)
+    sink.start()
+    here.send_bytes(b"x")  # the sink is up
+    here.recv()
+    times = []
+    for blob in blobs:
+        t0 = time.perf_counter()
+        here.send_bytes(blob)
+        if here.recv() != len(blob):
+            _fail("22(b): the bare pipe lost bytes")
+        times.append((time.perf_counter() - t0) * 1e3)
+    here.send_bytes(b"")
+    sink.join(30)
+    if sink.is_alive():
+        sink.terminate()
+    return times
+
+
+def _three_group_steps(env, data_cfg, joint):
+    """Phase 22(b): phase 17's step (G2VLMConfig() at full width and depth, its flags, 12,800-row packs,
+    23,328 ViT slots) on its model and train state, on packs that PackedIterableDataset draws from the
+    three groups at joint_train.yaml's sizes, as train_torch.packer_batches configures it (text ids from
+    _WordIds): THREE_GROUP_STEPS steps fed inline (draw a pack on the host, then step), then as many fed
+    through a one-worker PrefetchLoader (a thread) and as many through a one-worker
+    ProcessPrefetchLoader (a spawned process), whose packs must equal the inline ones. Each worker times
+    its packs. For the process, the time from a pack built and asked for to received is set beside the
+    unpickling and pickling this process times on the same packs and beside one pack's bytes moved
+    through a bare pipe to a spawned process that does nothing else. Frees `joint`'s model and state;
+    returns the launches of all the steps."""
+    import gc
+    import pickle
+    from multiprocessing.reduction import ForkingPickler
+
+    import torch
+
+    import train_torch
+    from g2vlm_tpu_torch.data.packing import PackerConfig
+    from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.train.dataloader import PrefetchLoader, ProcessPrefetchLoader
+
+    dev, card = env.dev, env.card
+    t_phase = time.perf_counter()
+    cfg, state = joint.cfg, joint.state
+    v = cfg.llm.vocab_size
+    ids = dict(bos_token_id=v - 4, eos_token_id=v - 3, start_of_image=v - 2, end_of_image=v - 1)
+    cap = VIT_TRAIN_IMAGES * VIT_ROWS_PER_IMAGE
+    packer_cfg = PackerConfig(expected_num_tokens=TRAIN_TOKENS * 8 // 9, max_num_tokens_per_sample=TRAIN_TOKENS // 2,
+                              max_num_tokens=TRAIN_TOKENS, image_num_range=(2, 3), sorted_layout=True,
+                              geo_start_bucket=256, max_vit_patches=cap)
+
+    torch.cuda.reset_peak_memory_stats()
+    checks = _StepChecks("three-group", state)
+    step_fns = {}
+
+    def run_step(state, b):
+        """One step on pack `b`, its launches held to those derived from the pack; returns (state, ms,
+        metrics), ms from the upload of the pack to the step's end."""
+        gs = b["geo_start"]
+        if gs not in step_fns:  # one step function per geo_start, as train_torch.py keeps them
+            step_fns[gs] = trainer.make_train_step(cfg, compute_dtype=torch.bfloat16, ema_decay=0.9999, geo_start=gs)
+        t0 = time.perf_counter()
+        state, metrics, _ = checks.step(step_fns[gs], state, train_torch.batch_from_pack(b, dev),
+                                        _step_launches(cfg, vit=bool(b["vit_grids"]), freeze_recon=True))
+        return state, (time.perf_counter() - t0) * 1e3, metrics
+
+    def describe(b):
+        groups = {}
+        for d in b["data_indexes"]:
+            groups[d["dataset_name"]] = groups.get(d["dataset_name"], 0) + 1
+        return (f"{int((b['doc_id'] >= 0).sum())} tokens, {len(b['dino_images'])} views of "
+                f"{b['dino_images'].shape[2]}x{b['dino_images'].shape[3]}, {len(b['vit_grids'])} ViT images "
+                f"({int((b['vit_seg'] >= 0).sum())} of {cap} slots), samples {groups}")
+
+    def rounded(ts):
+        return [round(t, 1) for t in ts]
+
+    # inline: draw a pack on the host, then step
+    n = THREE_GROUP_STEPS
+    inline, host_ms, inline_ms = [], [], []
+    it = _three_group_stream(data_cfg, ids, packer_cfg)
+    torch.cuda.synchronize()
+    t_wall = time.perf_counter()
+    for i in range(n):
+        t0 = time.perf_counter()
+        inline.append(next(it))
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        state, ms, metrics = run_step(state, inline[-1])
+        inline_ms.append(ms)
+        print(f"[three] inline step {i}: pack {host_ms[-1]:.1f} ms ({describe(inline[-1])}), step {ms:.1f} ms, loss "
+              f"{metrics['loss'].item():.4f} ce {metrics['ce'].item():.4f}")
+    wall_inline = (time.perf_counter() - t_wall) * 1e3
+    real = sum(int((b["doc_id"] >= 0).sum()) for b in inline)
+    # through the loaders: one worker thread, then one spawned worker process (no interpreter lock shared with
+    # the stepping thread), packs the same stream while the card steps
+    make_iter = functools.partial(_timed_three_group_stream, data_cfg, ids, packer_cfg)
+    for name, loader in (("PrefetchLoader", PrefetchLoader(make_iter, num_workers=1, prefetch=2)),
+                         ("ProcessPrefetchLoader", ProcessPrefetchLoader(make_iter, num_workers=1, prefetch=2))):
+        packs, build_ms, wait_ms, arrive_ms, step_ms = [], [], [], [], []
+        lit = iter(loader)
+        t_wall = time.perf_counter()
+        try:
+            for i in range(n):
+                t_ask = time.monotonic()
+                pack, built_ms, built_at = next(lit)
+                t_got = time.monotonic()
+                packs.append(pack)
+                build_ms.append(built_ms)
+                wait_ms.append((t_got - t_ask) * 1e3)
+                arrive_ms.append((t_got - max(t_ask, built_at)) * 1e3)  # from built and asked for to received
+                state, ms, metrics = run_step(state, pack)
+                step_ms.append(ms)
+                print(f"[three] {name} step {i}: waited {wait_ms[-1]:.1f} ms for the pack, which the worker built in "
+                      f"{built_ms:.1f} ms and which took {arrive_ms[-1]:.1f} ms from built and asked for to received; "
+                      f"step {ms:.1f} ms, loss {metrics['loss'].item():.4f}")
+            wall = (time.perf_counter() - t_wall) * 1e3
+        finally:
+            loader.close()  # the worker ends once its current pack is built; no pack stays queued
+        if not all(_same_tree(g, w) for g, w in zip(packs, inline)):
+            _fail(f"three-group step: the packs of {name} differ from the inline packs")
+        where = ""
+        if name == "ProcessPrefetchLoader":  # a pack's crossing taken apart, on the same packs
+            blobs = [ForkingPickler.dumps(b) for b in packs]
+            dump_ms, load_ms = [], []
+            for b, blob in zip(packs, blobs):
+                t0 = time.perf_counter()
+                ForkingPickler.dumps(b)
+                dump_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                pickle.loads(blob)
+                load_ms.append((time.perf_counter() - t0) * 1e3)
+            mib = [len(blob) / 2**20 for blob in blobs]
+            bare_ms = _bare_pipe_ms(blobs[1:2])  # one pack: ~9 s for 140 MiB on the H100 host (PERF.md §6)
+            del blobs
+            rest_ms = [a - l_ for a, l_ in zip(arrive_ms, load_ms)]
+            where = (f"; a pack crosses the queue as {rounded(mib)} MiB pickled; in this process pickling it takes "
+                     f"{rounded(dump_ms)} ms (the worker's feeder thread pickles a pack before it is asked for, "
+                     f"but for the first) and unpickling {rounded(load_ms)} ms, which leaves {rounded(rest_ms)} ms "
+                     f"of each arrival to the pipe ({sum(mib[1:]) / max(sum(rest_ms[1:]), 1e-3) * 1e3:.1f} MiB/s over "
+                     f"steps 1-{n - 1}); pack 1's bytes through a bare pipe to an idle spawned process "
+                     f"{bare_ms[0]:.1f} ms ({mib[1] / bare_ms[0] * 1e3:.1f} MiB/s)")
+        print(f"[three] {name}(num_workers=1): {wall / n:.1f} ms per step wall (steps {rounded(step_ms)} ms, waits "
+              f"for a pack {rounded(wait_ms)} ms; the worker built its packs in {rounded(build_ms)} ms, inline "
+              f"{rounded(host_ms)}; from built and asked for to received {rounded(arrive_ms)} ms), "
+              f"{real / wall * 1e3:.1f} real tokens/s; it hides {wall_inline - wall:.1f} ms of {n} steps "
+              f"({(wall_inline - wall) / n:.1f} ms a step); its packs equal the inline packs array for array{where} "
+              f"({card})")
+        del packs
+    checks.frozen_unchanged(state)
+    print(f"[three] G2VLMConfig(), phase 17's model, state and flags, {n} packs of {TRAIN_TOKENS} rows from the three "
+          f"groups ({real} real tokens): host {statistics.median(host_ms):.1f} ms per pack (median of "
+          f"{rounded(host_ms)}); inline {wall_inline / n:.1f} ms per step wall (steps {rounded(inline_ms)} ms), "
+          f"{real / wall_inline * 1e3:.1f} real tokens/s; peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB; {len(checks.probe)} sampled frozen leaves and their EMA bitwise unchanged; launches of the {3 * n} "
+          f"steps {checks.total}, each step's as derived from its pack: K3 {2 * cfg.llm.num_hidden_layers} at head "
+          f"dim {cfg.llm.hidden_size // cfg.llm.num_attention_heads} + {2 * cfg.vit.depth} at "
+          f"{cfg.vit.embed_dim // cfg.vit.num_heads}, K5 {cfg.llm.num_hidden_layers} + {cfg.vit.depth} dq and dkv at "
+          f"the same, K6 / K7 in the Pi3 heads, K1 in the frozen DINOv2 ({card})")
+    total = checks.total
+    joint.model = joint.optimizer = joint.state = None  # phase 17's state, freed for 22(a) and 22(c)
+    del state, step_fns, checks, inline, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[three] 22(b) in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return total
+
+
+def _video_chat(env, folder):
+    """Phase 22(c): G2VLMConfig() with random bf16 weights answers on VIDEO_FRAMES frames that
+    sample_video_frames takes (mode="middle") from a folder of VIDEO_FOLDER_FRAMES PNGs of 294x518, for 32
+    new tokens; then infer_chat_torch.py --video on the folder. Returns one call's launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.data.video import read_frames_folder, sample_frame_indices, sample_video_frames
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+    from g2vlm_tpu_torch.models import qwen_vit
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.weights import build_model
+
+    dev, card = env.dev, env.card
+    t_phase = time.perf_counter()
+    os.makedirs(folder)
+    rng = np.random.default_rng(22)
+    for i in range(VIDEO_FOLDER_FRAMES):
+        Image.fromarray(rng.integers(0, 256, (294, 518, 3), dtype=np.uint8)).save(os.path.join(folder, f"{i:04d}.png"))
+    t0 = time.perf_counter()
+    frames = sample_video_frames(folder, VIDEO_FRAMES, mode="middle")
+    t_frames = (time.perf_counter() - t0) * 1e3
+    picked = sample_frame_indices(VIDEO_FRAMES, VIDEO_FOLDER_FRAMES, "middle")
+    direct = [np.asarray(Image.open(os.path.join(folder, f"{i:04d}.png")).convert("RGB")) for i in picked]
+    again = read_frames_folder(folder, VIDEO_FRAMES, "middle")
+    if not all(np.array_equal(np.asarray(a), b) and np.array_equal(np.asarray(c), b)
+               for a, b, c in zip(frames, direct, again)) or len(frames) != VIDEO_FRAMES:
+        _fail("video chat: the sampled frames are not read_frames_folder's / the PNGs at the bin centres")
+
+    cfg = G2VLMConfig()
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    pipe = G2VLMPipeline(model, cfg)
+    vocab = cfg.llm.vocab_size
+    # the host path: 8 ViT images of 54 x 54 patch rows, in the row chunks packed_row_chunks picks
+    rows = VIDEO_FRAMES * VIT_ROWS_PER_IMAGE
+    vit_chunks = qwen_vit.packed_row_chunks(np.repeat(np.arange(VIDEO_FRAMES), VIT_ROWS_PER_IMAGE))
+    K1, K2 = "flash_batched_attention", "flash_segment_attention"
+    want = {K1: cfg.dino.num_hidden_layers, K2: cfg.vit.depth * vit_chunks + cfg.llm.num_hidden_layers}
+    torch.cuda.reset_peak_memory_stats()
+    infos, walls = [], []
+    for _ in range(4):  # a cold call, then three
+        fa.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, info = pipe.chat(frames, QUESTION, max_new_tokens=32, return_info=True)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        launches = {k: n for k, n in fa.launch_counts.items() if n}
+        ids = info["token_ids"]
+        if launches != want:
+            _fail(f"video chat: launches {launches}, expected {want}")
+        if not ids or not all(0 <= t < vocab for t in ids):
+            _fail(f"video chat: token ids {ids}")
+        infos.append(info)
+    if any(i["token_ids"] != infos[1]["token_ids"] for i in infos[1:]):
+        _fail(f"video chat: the warm calls gave other ids: {[i['token_ids'] for i in infos]}")
+
+    def med(key):
+        return statistics.median(i[key] for i in infos[1:]) * 1e3
+
+    host = statistics.median(w - (i["t_prefill_s"] + i["t_decode_s"]) * 1e3 for w, i in zip(walls[1:], infos[1:]))
+    n_tok = infos[1]["num_tokens"]
+    print(f"[video] {VIDEO_FRAMES} frames (mode=middle, indices {picked}) of a folder of {VIDEO_FOLDER_FRAMES} PNGs of "
+          f"294x518, sampled in {t_frames:.1f} ms, equal to read_frames_folder's and to the PNGs; G2VLMConfig() "
+          f"random bf16, the host preprocess (PIL), prefill {infos[1]['prefill_len']} rows ({rows} ViT patch rows in "
+          f"{vit_chunks} row chunks), medians of 3 warm calls: TTFT {med('t_prefill_s'):.1f} ms = upload "
+          f"{med('t_upload_s'):.1f} + prefill forward {med('t_forward_s'):.1f} + cache build {med('t_cache_s'):.1f}, "
+          f"after {host:.1f} ms of host preprocess (call wall {statistics.median(walls[1:]):.1f} ms); decode "
+          f"{med('t_decode_s') / n_tok:.3f} ms per token ({n_tok} tokens); peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches per call {launches} (K2: "
+          f"{cfg.vit.depth * vit_chunks} at head dim {cfg.vit.embed_dim // cfg.vit.num_heads} in the ViT, "
+          f"{cfg.llm.num_hidden_layers} at {cfg.llm.hidden_size // cfg.llm.num_attention_heads} in the prefill); "
+          f"ids in the vocabulary, repeatable: {infos[1]['token_ids'][:8]}... ({card})")
+    del model, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the entry point at full size (the tiny config's head dim of 16 has no kernel on the card)
+    (t_cli, out), = _run_tools(["infer_chat_torch.py", "--video", folder, "--num_frames", str(VIDEO_FRAMES),
+                                "--max_length", "8"])
+    answer = out.strip().splitlines()[-1] if out.strip() else ""
+    if not answer or not all(w.isdigit() for w in answer.split()):
+        _fail(f"infer_chat_torch.py --video: no answer in {out[-1000:]}")
+    print(f"[video] infer_chat_torch.py --video <folder of {VIDEO_FOLDER_FRAMES}> --num_frames {VIDEO_FRAMES} "
+          f"--max_length 8 (G2VLMConfig(), random bf16 weights): exit 0 in {t_cli:.1f} s wall, answer {answer!r}; "
+          f"22(c) in {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches
 
 

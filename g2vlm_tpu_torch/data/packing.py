@@ -7,7 +7,10 @@ can be resumed exactly (`group_rng`, `resume_status`, `resume`); it draws
 each sample's group from its own generator where the JAX package uses
 Python's global one, so the two agree when both are seeded alike. A second:
 where the JAX packer loops forever on samples that are all too long to fit a
-pack alone, the port raises after `MAX_TOO_LONG_IN_A_ROW` of them.
+pack alone, the port raises after `MAX_TOO_LONG_IN_A_ROW` of them. A third:
+where the JAX packer raises in `to_batch` once a pack's ViT images hold more
+patch rows than `max_vit_patches`, the port closes the pack before the sample
+that would overflow them, as it does for tokens.
 
 Behavioral spec: reference data/dataset_base.py:30-795 (PackedDataset):
 weighted sampling over dataset groups with mandatory groups, per-step RNG
@@ -133,6 +136,28 @@ class SequencePacker:
         hi = np.tile(np.repeat(np.arange(h, dtype=np.int64), w), t)
         wi = np.tile(np.arange(w, dtype=np.int64), t * h)
         return np.stack([ti, hi, wi]) + self.rope
+
+    @property
+    def vit_rows(self) -> int:
+        """ViT patch rows packed so far."""
+        return sum(p.shape[0] for p in self.vit_patches)
+
+    def vit_rows_added(self, sample: Dict, rng: random.Random) -> int:
+        """The ViT patch rows that add_sample(sample, rng) would pack: its
+        conditioning-dropout draws replayed on a copy of rng's state."""
+        replay = random.Random()
+        replay.setstate(rng.getstate())
+        vit_iter = iter(sample.get("vit_views", []))
+        rows = 0
+        for item in sample["plan"]:
+            if item["type"] == "text" and item.get("enable_cfg"):
+                replay.random()
+            elif item["type"] == "vit_image":
+                view = next(vit_iter)
+                if item.get("enable_cfg") and replay.random() < self.cfg.vit_cond_dropout_prob:
+                    continue
+                rows += view["patches"].shape[0]
+        return rows
 
     # -- packing ------------------------------------------------------------
     def add_sample(self, sample: Dict, rng: random.Random) -> None:
@@ -499,7 +524,7 @@ class PackedIterableDataset:
                         sample = self._pull(iters[gi])
                         if sample is None:
                             continue
-                        if self._fits_alone(sample, g):
+                        if self._fits_alone(sample, g, packer, step_rng, packer.vit_rows):
                             packer.add_sample(sample, step_rng)
                             break
 
@@ -509,10 +534,13 @@ class PackedIterableDataset:
             sample = self._pull(iters[gi])
             if sample is None:
                 continue
-            if not self._fits_alone(sample, self.groups[gi]):
+            if not self._fits_alone(sample, self.groups[gi], packer, step_rng):
                 continue
 
-            if packer.curr + sample["num_tokens"] > self.cfg.max_num_tokens:
+            cap = self.cfg.max_vit_patches
+            if packer.curr + sample["num_tokens"] > self.cfg.max_num_tokens or (
+                cap and packer.vit_rows + packer.vit_rows_added(sample, step_rng) > cap
+            ):
                 yield self._emit(packer, step_rng)
                 random_image_num = random_ar = None
                 continue
@@ -530,19 +558,24 @@ class PackedIterableDataset:
         packer.reset()
         return batch
 
-    def _fits_alone(self, sample, group) -> bool:
-        """Whether the sample is short enough to pack; raises once
+    def _fits_alone(self, sample, group, packer, step_rng, packed_vit_rows: int = 0) -> bool:
+        """Whether the sample is short enough to pack: fewer tokens than
+        max_num_tokens_per_sample, and ViT patch rows that fit the
+        max_vit_patches slots beside `packed_vit_rows`. Raises once
         MAX_TOO_LONG_IN_A_ROW samples in a row were not, since the pack's draws
         (view count, aspect ratio) stay fixed until it is emitted, and the JAX
         packer would then draw forever."""
-        if sample["num_tokens"] < self.cfg.max_num_tokens_per_sample:
+        cap = self.cfg.max_vit_patches
+        rows = packer.vit_rows_added(sample, step_rng) if cap else 0
+        if sample["num_tokens"] < self.cfg.max_num_tokens_per_sample and (not cap or packed_vit_rows + rows <= cap):
             self.too_long_in_a_row = 0
             return True
         self.too_long_in_a_row += 1
         if self.too_long_in_a_row >= MAX_TOO_LONG_IN_A_ROW:
             raise ValueError(
                 f"PackedIterableDataset: {self.too_long_in_a_row} samples in a row were too long to pack alone, "
-                f"the last of {sample['num_tokens']} tokens from group {group['name']!r}, with "
-                f"max_num_tokens_per_sample {self.cfg.max_num_tokens_per_sample} (train_torch.py sets it to "
-                f"min(16384, --max_num_tokens // 2)): raise it, or make the samples smaller")
+                f"the last of {sample['num_tokens']} tokens and {rows} ViT patch rows (beside {packed_vit_rows} "
+                f"packed) from group {group['name']!r}, with max_num_tokens_per_sample "
+                f"{self.cfg.max_num_tokens_per_sample} (train_torch.py sets it to min(16384, --max_num_tokens // 2)) "
+                f"and max_vit_patches {cap}: raise them, or make the samples smaller")
         return False

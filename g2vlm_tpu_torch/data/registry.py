@@ -2,8 +2,7 @@
 
 The port's own copy of g2vlm_tpu/data/registry.py, which it does not import;
 tests/test_torch_data_path.py holds the groups it builds equal to the JAX
-package's. The `recon_then_und` group raises NotImplementedError: its dataset
-reads parquet files through pyarrow (ROADMAP A.8).
+package's.
 
 Behavioral spec: reference data/dataset_info.py:1-37 (name -> class + disk
 locations) and data/configs/{pretrain,joint_train}.yaml consumed by
@@ -15,17 +14,12 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 from .recon_dataset import JsonlReconDataset
+from .recon_then_und_dataset import ReconThenUndDataset
 from .vlm_dataset import JsonlVlmDataset
-
-_RECON_THEN_UND_WAITS = (
-    "the recon_then_und group is not ported yet: it waits for data/parquet_dataset.py, data/draw_marker.py and "
-    "data/recon_then_und_dataset.py (ROADMAP A.8; they need pyarrow)"
-)
-
 
 DATASET_REGISTRY = {
     "vlm_sft": JsonlVlmDataset,
-    "recon_then_und": None,  # build_groups_from_config raises _RECON_THEN_UND_WAITS
+    "recon_then_und": ReconThenUndDataset,
     "recon": JsonlReconDataset,
 }
 
@@ -95,7 +89,18 @@ def build_groups_from_config(
                         vargs.get("image_size_w", vargs["image_size_h"]),
                     )
             elif gname == "recon_then_und":
-                raise NotImplementedError(_RECON_THEN_UND_WAITS)
+                # data_dir may be a local path or any fs URI (hdfs://,
+                # s3://, or a register_fs_factory scheme); num_used_data
+                # mirrors the reference's repeat-to-count weighting
+                from .parquet_dataset import get_parquet_data_paths
+
+                pq_dir = info.get("data_dir", "")
+                kwargs["parquet_files"] = get_parquet_data_paths(
+                    [pq_dir], repeats=[int(info.get("num_used_data", 1))]
+                )
+                dargs = gcfg.get("dino_image_transform_args", {})
+                if "target_size" in dargs:
+                    kwargs["img_size"] = dargs["target_size"]
             groups.append(
                 dict(
                     name=gname,

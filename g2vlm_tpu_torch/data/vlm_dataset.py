@@ -1,9 +1,7 @@
-"""VLM SFT dataset (LLaVA-style JSONL conversations with images).
+"""VLM SFT dataset (LLaVA-style JSONL conversations with images or video).
 
 The port's own copy of g2vlm_tpu/data/vlm_dataset.py, which it does not
-import; tests/test_torch_data_path.py holds the two equal. Images only: a row
-with a video raises NotImplementedError (ROADMAP A.8, `--video`), and the
-retry-and-skip does not swallow it.
+import; tests/test_torch_data_path.py holds the two equal.
 
 Behavioral spec: reference data/vlm_dataset.py:16-214 (SftJSONLIterableDataset):
 JSONL rows with {"image": path|list | "video": path, "conversations":
@@ -86,8 +84,12 @@ class JsonlVlmDataset(DistributedIterable):
         from PIL import Image
 
         if "video" in item:
-            raise NotImplementedError(
-                "video rows are not ported yet: they wait for data/video.py (ROADMAP A.8, --video)")
+            from .video import sample_video_frames
+
+            return sample_video_frames(
+                os.path.join(self.image_root, item["video"]),
+                self.num_video_frames,
+            )
         images = item.get("image", [])
         if isinstance(images, str):
             images = [images]
@@ -134,8 +136,6 @@ class JsonlVlmDataset(DistributedIterable):
                                 {"type": "vit_image", "enable_cfg": 0,
                                  "loss": 0, "special_token_loss": 0}
                             )
-                except NotImplementedError:
-                    raise
                 except Exception:
                     if self.allow_skip:
                         continue

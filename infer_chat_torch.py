@@ -4,6 +4,7 @@ image(s) + question -> answer, with the 3D reconstruction natively in context.
 
 Usage:
   python infer_chat_torch.py --image a.jpg b.jpg --question "Which point is closer?"
+  python infer_chat_torch.py --video clip.mp4 --num_frames 8         # or a folder of JPG / PNG frames
   python infer_chat_torch.py --tiny --device cpu --synthetic 2      # CPU smoke, no image file
 
 With --model_path the weights and the vocabulary come from the checkpoint
@@ -19,7 +20,10 @@ def parse_args(argv=None):
     ap.add_argument("--image", type=str, nargs="+", default=None)
     ap.add_argument("--synthetic", type=int, default=0, metavar="N",
                     help="N random 294x518 uint8 frames from --seed instead of --image")
-    ap.add_argument("--video", type=str, default=None, help="not ported yet")
+    ap.add_argument("--video", type=str, default=None,
+                    help="video file or frame dir (navigation-style demo, mirrors inference_chat.ipynb); a video "
+                         "file needs PyAV or the ffmpeg command-line tool")
+    ap.add_argument("--num_frames", type=int, default=8)
     ap.add_argument(
         "--question", type=str,
         default="The red point and blue point in the image mark two positions. Which one is closer to the camera?",
@@ -55,19 +59,20 @@ def build_pipeline(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.video:
-        raise NotImplementedError("--video: the video frame sampler is not ported yet")
-
     import numpy as np
 
     pipe = build_pipeline(args)
     if args.synthetic:
         rng = np.random.default_rng(args.seed)
         inputs = list(rng.integers(0, 256, (args.synthetic, 294, 518, 3), dtype=np.uint8))
+    elif args.video:
+        from g2vlm_tpu_torch.data.video import sample_video_frames
+
+        inputs = sample_video_frames(args.video, args.num_frames)
     elif args.image:
         inputs = args.image
     else:
-        raise SystemExit("--image or --synthetic required")
+        raise SystemExit("--image, --video or --synthetic required")
     answer = pipe.chat(
         inputs, args.question, max_new_tokens=args.max_length, do_sample=args.do_sample,
         temperature=args.temperature, seed=args.seed, quantized_kv=args.quantized_kv,

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import infer_chat_torch
 from g2vlm_tpu.config import tiny_test_config
@@ -69,14 +70,19 @@ def test_weight_round_trip_carries_the_vit(models):
     assert abs(w.std().item() / 0.02 - 1.0) < 0.1 and (again["vit_model.blocks.0.attn.qkv.bias"] == 0).all()
 
 
-def test_build_model_defaults_to_the_card_and_raises_without_one():
+def test_build_model_defaults_to_the_card_and_raises_without_one(tmp_path, capsys):
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(CFG)
     with pytest.raises(RuntimeError, match="--device cpu"):
         infer_chat_torch.main(["--tiny", "--synthetic", "1"])
-    with pytest.raises(NotImplementedError):
-        infer_chat_torch.main(["--tiny", "--device", "cpu", "--video", "x.mp4"])
+    # --video on a folder of frames answers on the CPU
+    rng = np.random.default_rng(0)
+    for i in range(5):
+        Image.fromarray(rng.integers(0, 256, (60, 80, 3), dtype=np.uint8)).save(tmp_path / f"frame_{i}.png")
+    answer = infer_chat_torch.main(["--tiny", "--device", "cpu", "--dtype", "float32", "--video", str(tmp_path),
+                                    "--num_frames", "2", "--max_length", "3"])
+    assert answer in capsys.readouterr().out and all(tok.isdigit() for tok in answer.split())
 
 
 @pytest.mark.parametrize("with_dino", [True, False], ids=["split", "mixed"])

@@ -3,9 +3,8 @@ on the same files and seeds: rank / worker sharding, cropping and frame
 ranking, `JsonlReconDataset`, `JsonlVlmDataset`, `SequencePacker.to_batch`
 (MIXED and sorted, with and without ViT slots), `PackedIterableDataset`,
 `fold_data_status` and the registry's YAML glue; and the port's additions:
-a packer stream resumed from its status continues the uninterrupted one, a
-video row and the `recon_then_und` group raise. The scenes and PNGs are
-written by the port's `make_tiny_joint_data`. CPU only."""
+a packer stream resumed from its status continues the uninterrupted one. The
+scenes and PNGs are written by the port's `make_tiny_joint_data`. CPU only."""
 
 import json
 import random
@@ -127,10 +126,22 @@ def test_vlm_dataset_samples_match_and_a_video_row_raises(data, tmp_path):
             assert_same(next(ti), next(ji), f"sample {i}")
     conv = [{"from": "human", "value": "<image> a <image>"}, {"from": "gpt", "value": "b"}]
     assert_same(tvlm.conversations_to_elements(conv), jvlm.conversations_to_elements(conv))
+    # a video row: a folder of 20 frames, of which the row's three <image> tags take three of the
+    # eight sampled (one random frame per bin, from the global generator, seeded alike)
+    rng = np.random.default_rng(0)
+    (tmp_path / "clip").mkdir()
+    for i in range(20):
+        Image.fromarray(rng.integers(0, 256, (40, 52, 3), dtype=np.uint8)).save(tmp_path / "clip" / f"{i:03d}.png")
     video = tmp_path / "video.jsonl"
-    video.write_text(json.dumps({"video": "clip.mp4", "conversations": conv}) + "\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        next(iter(tvlm.JsonlVlmDataset("videos", [str(video)])))
+    conv = [{"from": "human", "value": "<image><image><image> Where next?"}, {"from": "gpt", "value": "Left."}]
+    video.write_text(json.dumps({"video": "clip", "conversations": conv}) + "\n")
+    samples = []
+    for mod in (tvlm, jvlm):
+        random.seed(5)
+        samples.append(next(iter(mod.JsonlVlmDataset("videos", [str(video)], image_root=str(tmp_path),
+                                                       target_hw=(56, 56)))))
+    assert_same(*samples)
+    assert len(samples[0]["vit_views"]) == 3
 
 
 def _samples(cfg, n_vlm):
@@ -216,6 +227,36 @@ def test_packed_iterable_dataset_raises_when_no_sample_fits(data, mandatory):
     assert packed.too_long_in_a_row == tpack.MAX_TOO_LONG_IN_A_ROW
 
 
+@pytest.mark.parametrize("cap", [48, 64])
+def test_packed_iterable_dataset_closes_the_pack_when_its_vit_slots_are_full(data, cap):
+    """ViT images of 16 patch rows into `cap` slots: where a pack's images would hold more rows than
+    the slots, the JAX packer fails in to_batch and the port closes the pack before the sample that
+    would overflow them; every pack the JAX packer does emit is the port's too."""
+    _, cfg = data
+
+    def packer_cfg(pack):
+        return pack.PackerConfig(expected_num_tokens=150, max_num_tokens=256, max_num_tokens_per_sample=200,
+                                 image_num_range=(2, 3), max_vit_patches=cap, sorted_layout=True,
+                                 geo_start_bucket=16, max_ce_slots=128)
+
+    random.seed(11)
+    jax_packs = iter(jpack.PackedIterableDataset(_groups(jreg, cfg), TOKEN_IDS, packer_cfg(jpack)))
+    want = []
+    try:
+        want += [next(jax_packs) for _ in range(12)]
+    except AssertionError as e:  # the JAX pack_views asserts n <= pad_to
+        assert e.args[0][1] == cap and e.args[0][0] > cap
+    packed = tpack.PackedIterableDataset(_groups(treg, cfg), TOKEN_IDS, packer_cfg(tpack),
+                                         group_rng=random.Random(11))
+    it = iter(packed)
+    got = [next(it) for _ in range(12)]
+    assert_same(got[:len(want)], want)
+    rows = [int((b["vit_seg"] >= 0).sum()) for b in got]
+    assert all(len(b["vit_patches"]) == cap for b in got) and max(rows) == cap, rows
+    assert len(want) == (12 if cap == 64 else 0), len(want)  # 64 fits every pack the JAX packer draws here
+    assert packed.too_long_in_a_row == 0
+
+
 def test_fold_data_status_matches():
     dixs = [{"dataset_name": "a", "worker_id": 0, "data_indexes": 3}, {"dataset_name": "b", "worker_id": 1,
                                                                        "data_indexes": 0},
@@ -242,8 +283,21 @@ def test_registry_builds_the_same_groups_from_yaml(data, tmp_path, monkeypatch):
         assert {k: getattr(g["dataset"], k, None) for k in keys} == {k: getattr(w["dataset"], k, None) for k in keys}
     treg.register_dataset("recon", "registered", jsonl_path=cfg["recon"]["dataset_info"]["tiny_scenes"]["jsonl_path"])
     assert treg.build_groups_from_config({"recon": {"dataset_names": ["registered"]}})[0]["dataset"].img_size == 518
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        treg.build_groups_from_config({"recon_then_und": {"dataset_names": ["spatial"]}})
+    # a recon_then_und group over a parquet directory, with its DINOv2 target size
+    from g2vlm_tpu_torch.data.synthetic import spar_row, write_spar_parquet
+
+    (tmp_path / "spar").mkdir()
+    write_spar_parquet(str(tmp_path / "spar" / "rows.parquet"), [spar_row(np.random.default_rng(0), "scannet",
+                                                                          "nav")])
+    rtu = {"recon_then_und": {"dataset_names": ["spatial"], "dino_image_transform_args": {"target_size": 56},
+                              "is_mandatory": True, "dataset_info": {"spatial": {"data_dir": str(tmp_path / "spar"),
+                                                                                 "num_used_data": 2}}}}
+    got, want = treg.build_groups_from_config(rtu), jreg.build_groups_from_config(rtu)
+    assert [(g["name"], g["weight"], g["is_mandatory"]) for g in got] == [
+        (g["name"], g["weight"], g["is_mandatory"]) for g in want] == [("recon_then_und", 1.0, True)]
+    keys = ("dataset_name", "img_size", "vit_target_hw", "data_paths", "data_paths_per_rank")
+    assert {k: getattr(got[0]["dataset"], k) for k in keys} == {k: getattr(want[0]["dataset"], k) for k in keys}
+    assert got[0]["dataset"].img_size == 56 and len(got[0]["dataset"].data_paths) == 2
     monkeypatch.setitem(sys.modules, "yaml", None)
     with pytest.raises(ImportError, match="PyYAML"):
         treg.load_yaml_config(str(path))
