@@ -130,7 +130,17 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      answer tokens on A's first pack; (c) the chat call of
      G2VLMConfig() on 8 frames sampled (mode "middle") from a folder of 64 PNGs
      of 294x518: TTFT, ms per token, launches, ids; then infer_chat_torch.py
-     --video on the folder.
+     --video on the folder;
+ 23. the multi-GPU layer (parallel/mesh.py, parallel/sequence.py) on the card: (a) phase 10's step at full
+     width through FSDP2 / DTensor on a one-rank NCCL group (make_mesh(1, dp=1, fsdp=1, tp=1), shard_model):
+     the first loss within 1e-3 of phase 10's (and whether bitwise), phase 10's launch counts exactly, frozen
+     leaves and their EMA bitwise unchanged, ms per step, real tokens/s and peak memory beside phase 10's;
+     (b) K3 and K5 at the shapes sequence parallelism gives them, a query shard of S / n rows against the
+     whole K / V for each rank of n in {2, 4}, on phase 10's 12,800-row pack, and K2 so on the 25,088-row
+     recon prefill: the shards' outputs and lse (2e-3 of max|ref|, and whether bitwise) and their summed
+     dk / dv and concatenated dq (1e-2) against the unsharded launch, each shard's ms beside the unsharded;
+     (c) with two cards or more, the cut-depth step on 2 NCCL ranks (fsdp=2, sequence parallel) against
+     one rank.
 Every kernel is also timed beside the one PyTorch library call that computes
 the same function (a yardstick only; the port never calls it). The last line is
 {"ok": true, "device": {...}}; before it, the card's line and one JSON line
@@ -380,7 +390,7 @@ def main() -> None:
 
     mixed = make_token_info([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "noise"],
                             pad_to=320, device=dev)
-    env = SimpleNamespace(args=args, dev=dev, card=card, gen=gen, rnd=rnd, sdpa=sdpa, kernels=kernels,
+    env = SimpleNamespace(args=args, dev=dev, card=card, gen=gen, rnd=rnd, sdpa=sdpa, kernels=kernels, steps={},
                           entry_for=entry_for, visible_pairs=visible_pairs, live_pairs=live_pairs,
                           gqa_mask_call=gqa_mask_call, mixed=mixed)
 
@@ -396,6 +406,7 @@ def main() -> None:
     paths_run["conf_step"] = _conf_stage_phase(env)
     paths_run.update(_dense_moe_phase(env, recon_ms))
     paths_run["recon_dinov3"] = _dinov3_phase(env, recon_ms)
+    paths_run.update(_parallel_phase(env))
 
     for kname, e in kernels.items():
         for path, counts in paths_run.items():
@@ -948,15 +959,20 @@ class _StepChecks:
     changed."""
 
     def __init__(self, tag, state, always_frozen=()):
+        from g2vlm_tpu_torch.parallel.comm import local
+
         model = state.model
         self.tag = tag
-        self.named = dict(model.named_parameters())
-        frozen_names = [n_ for n_, p in self.named.items() if not p.requires_grad]
+        named = dict(model.named_parameters())
+        frozen_names = [n_ for n_, p in named.items() if not p.requires_grad]
+        # the local shards of a sharded model's parameters (views: the steps' updates show in them)
+        self.named = {n_: local(p.detach()) for n_, p in named.items()}
+        self.ema = {n_: local(e) for n_, e in state.ema_params.items()}
         self.probe = frozen_names[:: max(1, len(frozen_names) // 8)]
         self.probe += [n_ for n_ in frozen_names if n_.startswith(always_frozen) and n_ not in self.probe]
         self.buffers = {n_: b.detach().clone() for n_, b in model.named_buffers() if n_.startswith(always_frozen)}
         self.before = {n_: self.named[n_].detach().clone() for n_ in self.probe}
-        self.moved_probe = {n_: p.detach().clone() for n_, p in self.named.items()
+        self.moved_probe = {n_: self.named[n_].clone() for n_, p in named.items()
                             if p.requires_grad and p.numel() < 5_000_000}
         self.total = {}  # launches summed over the steps
 
@@ -985,8 +1001,7 @@ class _StepChecks:
         import torch
 
         for n_ in self.probe:
-            if not torch.equal(self.named[n_], self.before[n_]) or not torch.equal(state.ema_params[n_],
-                                                                                    self.before[n_]):
+            if not torch.equal(self.named[n_], self.before[n_]) or not torch.equal(self.ema[n_], self.before[n_]):
                 _fail(f"{self.tag}: frozen parameter {n_} or its EMA changed")
         for n_, b in state.model.named_buffers():
             if n_ in self.buffers and not torch.equal(b, self.buffers[n_]):
@@ -996,7 +1011,7 @@ class _StepChecks:
         import torch
 
         return (sum(not torch.equal(self.named[n_], old) for n_, old in self.moved_probe.items()),
-                sum(not torch.equal(state.ema_params[n_], old) for n_, old in self.moved_probe.items()))
+                sum(not torch.equal(self.ema[n_], old) for n_, old in self.moved_probe.items()))
 
 
 def _full_size_steps(env, tag, state, step_fn, batch, real_tokens, want_launches, desc, always_frozen=()):
@@ -1008,8 +1023,23 @@ def _full_size_steps(env, tag, state, step_fn, batch, real_tokens, want_launches
 
     checks = _StepChecks(tag, state, always_frozen)
     losses, times = [], []
+    # step 0's memory split: the peak up to the optimizer's update (forward and backward), and in it
+    opt, split = state.optimizer, {}
+
+    def update_with_peaks(update=opt.step):
+        split["through_backward"] = torch.cuda.max_memory_allocated()
+        split["held_before_update"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = update()
+        split["in_update"] = torch.cuda.max_memory_allocated()
+        return out
+
     for step in range(4):
+        if step == 0:
+            opt.step = update_with_peaks
         state, metrics, ms = checks.step(step_fn, state, batch, want_launches)
+        if step == 0:
+            del opt.step
         times.append(ms)
         losses.append(metrics["loss"].item())
         print(f"[{tag}] step {step}: loss {losses[-1]:.5f} "
@@ -1023,7 +1053,11 @@ def _full_size_steps(env, tag, state, step_fn, batch, real_tokens, want_launches
     if n_moved < 0.9 * n_probe or n_ema_moved < 0.9 * n_probe:
         _fail(f"{tag}: only {n_moved} parameters and {n_ema_moved} EMA leaves of {n_probe} changed")
     ms = statistics.median(times[1:])
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(torch.cuda.max_memory_allocated(), split["through_backward"]) / 2**30
+    env.steps[tag] = dict(losses=losses, ms=ms, tokens_per_s=real_tokens / ms * 1e3, peak_gib=peak)
+    print(f"[{tag}] memory of step 0: peak through the backward {split['through_backward'] / 2**30:.2f} GiB, "
+          f"held at the update {split['held_before_update'] / 2**30:.2f} GiB, peak in the update "
+          f"{split['in_update'] / 2**30:.2f} GiB; state reckoned by tests/check_open_items.py conf_state")
     print(f"[{tag}] {desc}: {ms:.1f} ms per step (median of steps 1.. of {[round(t, 1) for t in times]}), "
           f"{real_tokens / ms * 1e3:.1f} real tokens/s, peak allocated {peak:.2f} GiB; loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}; {len(checks.probe)} frozen leaves (a sample, and all under {always_frozen}) and "
@@ -2860,6 +2894,243 @@ def _video_chat(env, folder):
           f"22(c) in {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches
 
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        return s_.getsockname()[1]
+
+
+def _parallel_phase(env):
+    """Phase 23: the multi-GPU layer on the card. (a) Phase 10's step at full width through FSDP2 on a
+    one-rank NCCL group (`make_mesh(1, dp=1, fsdp=1, tp=1)`, `shard_model`): the first loss against phase
+    10's, launches, frozen leaves; (b) K3 / K5 at the shapes sequence parallelism gives them (a query shard
+    of S / n rows against the whole K / V, for each rank r of n in {2, 4}) and K2 at the recon prefill's,
+    held against the unsharded launch (`_sp_shard_kernels`); (c) with two cards or more, the cut-depth step on
+    2 NCCL ranks (fsdp=2, --sequence_parallel) against one rank. Returns the launches of (a) and of (b)'s shards."""
+    import torch
+    import torch.distributed as dist
+
+    import train_torch
+    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.parallel.mesh import make_mesh, shard_model
+    from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.weights import build_model
+
+    dev, card = env.dev, env.card
+    t_phase = time.perf_counter()
+    cfg = G2VLMConfig(visual_und=False)
+    batch, geo_start = train_torch.full_size_batch(cfg, TRAIN_VIEWS, TRAIN_HW, TRAIN_TOKENS, 0, dev)
+    real_tokens = int((batch.doc_id[0] >= 0).sum().item())
+
+    # ---- (a) phase 10's step through FSDP2 on one NCCL rank ----
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=dev, dtype=torch.float32, seed=0).train()
+        shard_model(model, make_mesh(1, dp=1, fsdp=1, tp=1, device_type="cuda"))
+        optimizer = trainer.make_optimizer(
+            model, schedule=trainer.warmup_cosine_schedule(0.0, 1e-4, 0, 1000), weight_decay=0.05,
+            freeze_und=True, mu_dtype=torch.bfloat16, factored_v=True)
+        state = trainer.init_train_state(model, optimizer, ema=True)
+        step_fn = trainer.make_train_step(cfg, compute_dtype=torch.bfloat16, ema_decay=0.9999, geo_start=geo_start)
+        torch.cuda.synchronize()
+        print(f"[fsdp] fp32 init, fully_shard (28 decoder layers + the root) on a one-rank NCCL mesh, optimizer "
+              f"and EMA in {time.perf_counter() - t0:.1f} s")
+        fsdp_launches = _full_size_steps(
+            env, "train-fsdp", state, step_fn, batch, real_tokens, _step_launches(cfg),
+            f"phase 10's step through FSDP2 / DTensor on one NCCL rank, {TRAIN_VIEWS} views "
+            f"{TRAIN_HW[0]}x{TRAIN_HW[1]}, {TRAIN_TOKENS}-row pack")
+        del model, optimizer, state, step_fn
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    ref, got = env.steps["train"], env.steps["train-fsdp"]
+    rel = abs(got["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0])
+    print(f"[fsdp] first loss {got['losses'][0]!r} against phase 10's {ref['losses'][0]!r}: rel {rel:.3e} "
+          f"(budget 1e-3), bitwise equal: {got['losses'][0] == ref['losses'][0]}; losses {got['losses']} against "
+          f"{ref['losses']}; {got['ms']:.1f} ms per step against {ref['ms']:.1f} ({got['ms'] / ref['ms']:.3f}x), "
+          f"{got['tokens_per_s']:.1f} real tokens/s against {ref['tokens_per_s']:.1f}, peak {got['peak_gib']:.2f} GiB "
+          f"against {ref['peak_gib']:.2f} ({card})")
+    if not rel <= 1e-3:
+        _fail(f"phase 23(a): the FSDP step's first loss is off phase 10's by {rel} (budget 1e-3)")
+
+    # ---- (b) the kernels at sequence-parallel shapes ----
+    shard_counts = _sp_shard_kernels(env, cfg, batch)
+
+    # ---- (c) two NCCL ranks, where the machine has two cards ----
+    if torch.cuda.device_count() >= 2:
+        _two_rank_step()
+    else:
+        print(f"[phase 23c] not run: {torch.cuda.device_count()} GPU")
+    print(f"[parallel] phase 23 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"train_step_fsdp": fsdp_launches, "sp_shards": shard_counts}
+
+
+def _sp_shard_kernels(env, cfg, batch):
+    """Phase 23(b): for each rank r of n in {2, 4}, the body `sp_attender` runs on it, on one card: the public
+    wrapper (`segment_attention` with `segment_plan(shard, whole)`) on query shard r of phase 10's pack against
+    its whole K / V, K3 and then K5 under autograd, and K2 on a shard of the recon prefill; held against the
+    kernels' unsharded launch. Returns the shards' launches."""
+    import torch
+
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.ops.attention import segment_attention
+    from g2vlm_tpu_torch.ops.masks import TokenInfo
+
+    dev, card, rnd, kernels = env.dev, env.card, env.rnd, env.kernels
+    k2e, k3e = kernels["flash_segment_attention"], kernels["flash_segment_attention_lse"]
+    k5q, k5kv = kernels["flash_segment_attention_bwd_dq"], kernels["flash_segment_attention_bwd_dkv"]
+    one = batch.map(lambda x: x[0])
+    train_info = TokenInfo(one.doc_id, one.fn_id, one.noise_id, one.pos)
+    recon_info = G2VLMPipeline(None, cfg).build_recon_prefill(32, 21, 37).token_info(dev)
+    shard_counts = {}
+
+    def counted(fn):
+        """fn() with its launches added to the shards' path."""
+        before = dict(fa.launch_counts)
+        out = fn()
+        for k_, v_ in fa.launch_counts.items():
+            shard_counts[k_] = shard_counts.get(k_, 0) + v_ - before.get(k_, 0)
+        return out
+
+    def rel_err(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    for tag, info, with_bwd, iters in (("train_pack_16_views", train_info, True, 5),
+                                       ("recon_prefill_32_views", recon_info, False, 3)):
+        s_, h, kvh, d = info.seq_len, 12, 2, 128
+        q, k, v, dout = rnd(s_, h, d), rnd(s_, kvh, d), rnd(s_, kvh, d), rnd(s_, h, d)
+        meta = info.packed()
+        codes = fa.block_codes(meta, meta)
+        # the reference: the kernels' unsharded launch
+        want_out, want_lse = fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=with_bwd)
+        whole_ms = _time_ms(lambda: fa._segment_forward_cuda(q, k, v, meta, meta, codes, None, with_lse=with_bwd),
+                            iters)
+        if with_bwd:
+            want = fa._segment_backward_cuda(q, k, v, want_out, want_lse, dout, meta, meta, codes, None)
+            whole_bwd_ms = _time_ms(lambda: fa._segment_backward_cuda(q, k, v, want_out, want_lse, dout, meta, meta,
+                                                                      codes, None), iters)
+        for n in (2, 4):
+            rows = s_ // n
+            if s_ % n or rows % fa.TILE:
+                _fail(f"phase 23(b) {tag}: {s_} rows do not cut into {n} shards of whole {fa.TILE}-row tiles")
+            outs, lses, dqs, dk, dv, fwd_ms, bwd_ms = [], [], [], 0.0, 0.0, [], []
+            for r in range(n):
+                # rank r's body in `sp_attender`: the public wrapper on its query rows against the whole K / V,
+                # under autograd where the step trains (K3, then K5 from the autograd call)
+                sl = slice(r * rows, (r + 1) * rows)
+                info_r = TokenInfo(*(f[sl] for f in info))
+                plan = fa.segment_plan(info_r, info)
+                q_r, k_r, v_r = (t.detach().requires_grad_(with_bwd) for t in (q[sl], k, v))
+                dout_r = dout[sl].contiguous()
+
+                def fwd():
+                    return segment_attention(q_r, k_r, v_r, info_r, info, plan=plan)
+
+                out_r = counted(fwd)
+                fwd_ms.append(_time_ms(fwd, iters))
+                outs.append(out_r.detach())
+                if with_bwd:
+                    lses.append(out_r.grad_fn.saved_tensors[4])  # the lse K3 saved for K5
+
+                    def bwd():
+                        return torch.autograd.grad(out_r, (q_r, k_r, v_r), dout_r, retain_graph=True)
+
+                    dq_r, dk_r, dv_r = counted(bwd)
+                    bwd_ms.append(_time_ms(bwd, iters))
+                    dqs.append(dq_r)
+                    dk, dv = dk + dk_r.float(), dv + dv_r.float()
+            out = torch.cat(outs)
+            bitwise = torch.equal(out, want_out)
+            errs = {"out": rel_err(out, want_out)}
+            if with_bwd:
+                lse = torch.cat(lses, dim=1)
+                bitwise = bitwise and torch.equal(lse, want_lse)
+                errs["lse"] = rel_err(lse, want_lse)
+                grads = {"dq": (torch.cat(dqs), want[0]), "dk": (dk, want[1]), "dv": (dv, want[2])}
+                errs.update({g: rel_err(a, b) for g, (a, b) in grads.items()})
+            print(f"[sp-shards] {tag} n={n}: {n} shards of {rows} query rows against {s_} keys; "
+                  + ("K3" if with_bwd else "K2") + f" out (and lse) bitwise equal to the unsharded launch: {bitwise}; "
+                  f"max|err|/max|ref| {', '.join(f'{g} {e:.3e}' for g, e in errs.items())}; forward per shard "
+                  f"{[round(t, 3) for t in fwd_ms]} ms against {whole_ms:.3f} unsharded"
+                  + (f"; K5 (dq + dkv) per shard {[round(t, 3) for t in bwd_ms]} ms against {whole_bwd_ms:.3f}"
+                     if with_bwd else "") + f" ({card})")
+            if max(errs[g] for g in errs if g in ("out", "lse")) > 2e-3:
+                _fail(f"phase 23(b) {tag} n={n}: the shards' forward is off the unsharded launch: {errs}")
+            if with_bwd and max(errs[g] for g in ("dq", "dk", "dv")) > 1e-2:
+                _fail(f"phase 23(b) {tag} n={n}: the shards' K5 is off the unsharded launch: {errs}")
+            row = dict(shape=f"q({rows},{h},{d}) kv({s_},{kvh},{d})", ms=statistics.mean(fwd_ms),
+                       unsharded_ms=whole_ms, bitwise=bitwise, max_rel_err=errs)
+            (k3e if with_bwd else k2e).setdefault("at", {})[f"sp{n}_shard_{tag}"] = row
+            if with_bwd:
+                for e in (k5q, k5kv):
+                    e.setdefault("at", {})[f"sp{n}_shard_{tag}"] = dict(
+                        shape=row["shape"], dq_dk_dv_ms=statistics.mean(bwd_ms), unsharded_ms=whole_bwd_ms,
+                        max_rel_err={g: errs[g] for g in ("dq", "dk", "dv")})
+        del q, k, v, dout, want_out, want_lse
+        torch.cuda.empty_cache()
+
+    return shard_counts
+
+
+def _two_rank_worker(rank, port, queue):
+    """One rank of 23(c): the cut-depth phase 10 step on a (1, 2, 1) mesh, attention sequence-parallel."""
+    import torch
+    import torch.distributed as dist
+
+    import train_torch
+    from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
+    from g2vlm_tpu_torch.parallel.mesh import FSDP, make_mesh, shard_model
+    from g2vlm_tpu_torch.train import trainer
+    from g2vlm_tpu_torch.weights import build_model
+
+    world = 2 if rank >= 0 else 1  # rank -1: the one-rank run
+    torch.cuda.set_device(max(rank, 0))
+    dev = torch.device("cuda", max(rank, 0))
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=max(rank, 0), world_size=world)
+    try:
+        cut = cut_depth_config(G2VLMConfig(visual_und=False), 2)
+        mesh = make_mesh(world, dp=1, fsdp=world, tp=1, device_type="cuda")
+        model = build_model(cut, device=dev, dtype=torch.float32, seed=0).train()
+        shard_model(model, mesh)
+        opt = trainer.make_optimizer(model, learning_rate=1e-4, freeze_und=True, mu_dtype=torch.bfloat16,
+                                     factored_v=True)
+        state = trainer.init_train_state(model, opt, ema=True)
+        batch, geo_start = train_torch.full_size_batch(cut, 2, TRAIN_HW, 1792, 1, dev)
+        step = trainer.make_train_step(cut, geo_start=geo_start, sp=mesh[FSDP].get_group() if world > 1 else None)
+        _, metrics = step(state, batch)
+        queue.put((rank, metrics["loss"].item()))
+    finally:
+        dist.destroy_process_group()
+
+
+def _two_rank_step():
+    """23(c): 2 spawned ranks against one; losses within 1e-3 (the sequence-parallel attention's dK / dV sums
+    and the sharded moments round differently)."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    losses = {}
+    for ranks in ((-1,), (0, 1)):
+        queue, port = ctx.Queue(), _free_port()
+        procs = [ctx.Process(target=_two_rank_worker, args=(r, port, queue)) for r in ranks]
+        for p_ in procs:
+            p_.start()
+        got = dict(queue.get(timeout=300) for _ in procs)
+        for p_ in procs:
+            p_.join(timeout=60)
+        losses[len(ranks)] = got
+    rel = abs(losses[2][0] - losses[1][-1]) / abs(losses[1][-1])
+    print(f"[phase 23c] cut-depth step, 2 NCCL ranks (fsdp=2, sequence parallel): loss {losses[2]} against one "
+          f"rank's {losses[1][-1]!r}, rel {rel:.3e} (budget 1e-3)")
+    if not rel <= 1e-3 or losses[2][0] != losses[2][1]:
+        _fail(f"phase 23(c): two ranks' loss {losses[2]} against one rank's {losses[1][-1]}")
 
 if __name__ == "__main__":
     main()

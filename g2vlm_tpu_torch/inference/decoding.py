@@ -22,6 +22,12 @@ and runs eagerly.
 
 `generate_batched` advances B independent sequences, the batch as a written-out
 leading axis of every cache leaf.
+
+Across ranks (a `torch.distributed` group): `generate_tp` splits the cache's
+context axis, each rank holding a contiguous C / n rows and the whole model,
+and merges each layer's softmax statistics exactly (a max, then sums: the
+flash-decoding merge of the JAX package's tp_axis); `generate_batched_dp`
+gives each rank its own sequences of the batch and gathers their tokens.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..config import LLMConfig
@@ -115,7 +122,7 @@ def build_cache(
     return fill_cache(cache, prefill_kv, valid_len, consume=True)
 
 
-def _attend(q, k_all, v_all, k_scale, v_scale, visible, hd, k_self, v_self):
+def _attend(q, k_all, v_all, k_scale, v_scale, visible, hd, k_self, v_self, group=None, self_here=None):
     """Softmax attention of one query token per sequence over its cache plus
     the token's own fresh K/V row, which is not in the cache yet.
 
@@ -123,19 +130,32 @@ def _attend(q, k_all, v_all, k_scale, v_scale, visible, hd, k_self, v_self):
     or None; visible (B, C) bool; k_self / v_self (B, KVH, HD) fp32. The
     dequantisation is folded after the products: the K scale multiplies the
     logits and the V scale the probabilities, head_dim times less work than
-    scaling the cache itself. Returns (B, KVH, G, HD) fp32."""
+    scaling the cache itself. Returns (B, KVH, G, HD) fp32.
+
+    With `group` the cache is this rank's context shard: the row max is
+    merged with an all-reduce MAX, the sums l and acc with an all-reduce SUM
+    (softmax is shift-invariant, so the merge is exact), and the self term
+    counts only on the rank whose shard holds the position (`self_here`, (B,)
+    bool), so that the sums take it once."""
     logits = torch.einsum("bngd,bncd->bngc", q, k_all.float()) * (hd ** -0.5)
     if k_scale is not None:
         logits = logits * k_scale[:, :, None, :]
     vis = visible[:, None, None, :]
     logits = logits.masked_fill(~vis, float("-inf"))
     s_self = torch.einsum("bngd,bnd->bng", q, k_self) * (hd ** -0.5)
+    if group is not None:
+        s_self = s_self.masked_fill(~self_here[:, None, None], float("-inf"))
     m = torch.maximum(logits.amax(-1), s_self)  # the self term is always visible, so m is finite
+    if group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
     p = torch.exp(logits - m[..., None])
     p_self = torch.exp(s_self - m)
     l = p.sum(-1) + p_self
     pv = p if v_scale is None else p * v_scale[:, :, None, :]
     acc = _probs_times_values(pv, v_all.float()) + p_self[..., None] * v_self[:, :, None, :]
+    if group is not None:
+        dist.all_reduce(l, group=group)
+        dist.all_reduce(acc, group=group)
     return acc / l.clamp_min(1e-30)[..., None]
 
 
@@ -175,14 +195,23 @@ def _rope_inv_freq(cfg: LLMConfig, device) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([inv_freq, inv_freq])).to(device)
 
 
+def _owned(owns: Optional[torch.Tensor], new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """`new` where this rank's context shard holds the position (`owns` (B,)
+    bool; None: the whole cache), else `old`."""
+    return new if owns is None else torch.where(owns.view(-1, *[1] * (new.dim() - 1)), new, old)
+
+
 def _decode_step(
     lm: MoTForCausalLM, cache: KVCache, token: torch.Tensor, rope_pos: torch.Tensor, cfg: LLMConfig,
-    dt: torch.dtype, inv_freq2: torch.Tensor, active: Optional[torch.Tensor] = None,
+    dt: torch.dtype, inv_freq2: torch.Tensor, active: Optional[torch.Tensor] = None, group=None,
 ) -> torch.Tensor:
     """One step of B sequences on a batched cache: token, rope_pos (B,) int64;
     `active` (B,) bool gates the advance of each cache's length. Writes the
     new K/V rows of every layer at each sequence's `length` in place and
-    returns the logits (B, V) fp32."""
+    returns the logits (B, V) fp32. With `group` the cache holds this rank's
+    contiguous context shard (rows [rank * C, (rank + 1) * C) of the whole,
+    C its capacity here) and `length` the whole's; the rank that owns the
+    position writes the rows."""
     model = lm.model
     nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     b = token.shape[0]
@@ -193,9 +222,13 @@ def _decode_step(
 
     cur = cache.length  # (B,)
     cap = cache.k.shape[3]
+    offset, owns = 0, None
+    if group is not None:
+        offset = dist.get_rank(group) * cap
+        owns = (cur >= offset) & (cur < offset + cap)
     # the cache row at the current position is stale: only strictly older rows
     # are visible, the current token's K/V enters through the self term
-    visible = torch.arange(cap, device=x.device)[None, :] < cur[:, None]
+    visible = torch.arange(offset, offset + cap, device=x.device)[None, :] < cur[:, None]
     quantized = cache.k_scale is not None
 
     k_rows, v_rows = [], []
@@ -213,7 +246,7 @@ def _decode_step(
         attn = _attend(
             q.float().view(b, kvh, nh // kvh, hd), cache.k[:, i], cache.v[:, i],
             cache.k_scale[:, i] if quantized else None, cache.v_scale[:, i] if quantized else None,
-            visible, hd, k_row, v_row,
+            visible, hd, k_row, v_row, group, owns,
         )
         x = x + linear(attn.reshape(b, nh * hd).to(dt), at.o_proj, dt)
         h = layer.post_attention_layernorm(x).to(dt)
@@ -224,7 +257,7 @@ def _decode_step(
 
     # one indexed store of all layers' rows at each sequence's position
     n_layers = len(model.layers)
-    pos = cur.clamp_max(cap - 1)
+    pos = (cur - offset).clamp(0, cap - 1)
     bi = torch.arange(b, device=x.device)[:, None, None]
     li = torch.arange(n_layers, device=x.device)[None, :, None]
     hi = torch.arange(kvh, device=x.device)[None, None, :]
@@ -233,8 +266,8 @@ def _decode_step(
         rows = torch.stack(rows, dim=1)  # (B, L, KVH, HD) fp32
         if quantized:
             rows, sc = _quant(rows)
-            scales[bi, li, hi, pi] = sc
-        buf[bi, li, hi, pi] = rows.to(buf.dtype)
+            scales[bi, li, hi, pi] = _owned(owns, sc, scales[bi, li, hi, pi])
+        buf[bi, li, hi, pi] = _owned(owns, rows.to(buf.dtype), buf[bi, li, hi, pi])
     cache.length.add_(1 if active is None else active.to(cache.length.dtype))
 
     h = model.norm(x)
@@ -288,10 +321,13 @@ _DONE_CHECK_EVERY = 8  # steps between reads of `done` on the host (a finished s
 def _generate_loop(
     lm, cache: KVCache, start_tokens, rope_pos, eos_token_id: int, cfg: LLMConfig, max_new_tokens: int,
     do_sample: bool, temperature: float, generator: Optional[torch.Generator], dt: torch.dtype,
-    cuda_graph: Optional[bool],
+    cuda_graph: Optional[bool], group=None,
 ):
     """The loop over a batched cache; returns (tokens (B, max_new_tokens)
-    padded with eos, num_generated (B,))."""
+    padded with eos, num_generated (B,)). `group`: the cache is context-sharded
+    over its ranks (`generate_tp`, which runs the loop without a CUDA graph:
+    one would have to capture the step's collectives, and the sharded loop
+    has not been timed on cards)."""
     dev = cache.k.device
     b = cache.k.shape[0]
     tokens = torch.full((b, max_new_tokens), eos_token_id, dtype=torch.int64, device=dev)
@@ -303,7 +339,7 @@ def _generate_loop(
     inv_freq2 = _rope_inv_freq(cfg, dev)
 
     def step():
-        logits = _decode_step(lm, cache, tok, pos, cfg, dt, inv_freq2, active=~done)
+        logits = _decode_step(lm, cache, tok, pos, cfg, dt, inv_freq2, active=~done, group=group)
         if do_sample:
             nxt = torch.multinomial(torch.softmax(logits / temperature, dim=-1), 1, generator=generator)[:, 0]
         else:
@@ -363,6 +399,56 @@ def generate_batched(
     tokens, num = _generate_loop(lm, caches, start_tokens, rope_pos, eos_token_id, cfg, max_new_tokens,
                                  do_sample, temperature, generator, compute_dtype, cuda_graph)
     return tokens, num, caches
+
+
+def shard_cache(cache: KVCache, group) -> KVCache:
+    """This rank's contiguous context shard of a whole cache (leaves copied;
+    `length` is the whole's): rows [rank * C / n, (rank + 1) * C / n) of the
+    capacity C, which must divide the group's n ranks."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    cap = cache.k.shape[-2]
+    assert cap % n == 0, f"cache capacity {cap} must divide the group's {n} ranks"
+    c = cap // n
+
+    def rows(t, axis):
+        return None if t is None else t.narrow(axis, r * c, c).clone()
+
+    return KVCache(rows(cache.k, -2), rows(cache.v, -2), rows(cache.k_scale, -1), rows(cache.v_scale, -1),
+                   cache.length.clone())
+
+
+@torch.inference_mode()
+def generate_tp(
+    lm: MoTForCausalLM, cache: KVCache, start_token, rope_pos, eos_token_id: int, cfg: LLMConfig, group,
+    max_new_tokens: int = 100, do_sample: bool = False, temperature: float = 1.0,
+    generator: Optional[torch.Generator] = None, compute_dtype: torch.dtype = torch.bfloat16,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """Context-sharded generation (flash decoding across ranks; the port of
+    g2vlm_tpu's `generate_tp`): `cache` is this rank's shard (`shard_cache`),
+    the model whole on every rank, and every rank runs the same step, merging
+    each layer's softmax statistics over `group`. Token for token equal to
+    one-process `generate`. Sampling needs one generator state on every rank.
+    Returns (tokens, num_generated, this rank's shard, extended in place)."""
+    tokens, num = _generate_loop(lm, _batched(cache), start_token, rope_pos, eos_token_id, cfg, max_new_tokens,
+                                 do_sample, temperature, generator, compute_dtype, False, group=group)
+    return tokens[0], num[0], cache
+
+
+@torch.inference_mode()
+def generate_batched_dp(
+    lm: MoTForCausalLM, caches: KVCache, start_tokens, rope_pos, eos_token_id: int, cfg: LLMConfig, group,
+    max_new_tokens: int = 100, **kwargs,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """Data-parallel batched decoding: each rank of `group` advances its own
+    sequences (`caches` with a leading batch axis, as `generate_batched`
+    takes; every rank the same number) and the tokens and counts are
+    all-gathered in rank order. Returns (tokens (B, max_new_tokens),
+    num_generated (B,), this rank's caches) for the whole batch B."""
+    from ..parallel.comm import gather_values
+
+    tokens, num, caches = generate_batched(lm, caches, start_tokens, rope_pos, eos_token_id, cfg,
+                                           max_new_tokens=max_new_tokens, **kwargs)
+    return gather_values(tokens.contiguous(), group), gather_values(num.contiguous(), group), caches
 
 
 def stack_caches(caches: Sequence[KVCache]) -> KVCache:

@@ -23,6 +23,7 @@ below), and `attn_pipe` (the two-stage schedule of the segment kernel).
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 import zlib
@@ -42,6 +43,7 @@ from ..models import qwen_vit
 from ..models.g2vlm import (
     G2VLM, PackedPrefill, SequenceBuilder, encode_dino_to_llm, encode_vit_to_llm, prefill_hidden, recon_forward,
 )
+from ..parallel.mesh import model_mesh
 from . import decoding
 
 RECON_PROMPT = "Reconstruct the 3D scene."
@@ -61,6 +63,19 @@ class ChatSession(NamedTuple):
     pending_token: int  # emitted but not yet consumed (eos on a clean stop)
     capacity: int
     quantized_kv: bool
+
+
+def _inference(fn):
+    """`torch.inference_mode` around a recon call, `torch.no_grad` on a
+    sharded model (`parallel.mesh.shard_model`): FSDP2's parameter gathers
+    need version counters, which inference tensors lack."""
+
+    @functools.wraps(fn)
+    def run(self, *args, **kwargs):
+        with torch.no_grad() if model_mesh(self.model) is not None else torch.inference_mode():
+            return fn(self, *args, **kwargs)
+
+    return run
 
 
 class G2VLMPipeline:
@@ -131,7 +146,7 @@ class G2VLMPipeline:
         n, _, h, w = normed.shape
         p = self.cfg.dino_patch_size
         prefill = self.build_recon_prefill(n, h // p, w // p, prompt)
-        return recon_forward(self.model, prefill, normed.to(self.model.dtype), self.cfg, **self._attn)
+        return self.model(recon_forward, prefill, normed.to(self.model.dtype), self.cfg, **self._attn)
 
     def recon(self, images: Sequence, prompt: str = RECON_PROMPT, new_width: int = 518) -> Dict[str, np.ndarray]:
         """Image paths / PIL images / HWC uint8 arrays -> dict(points,
@@ -143,13 +158,13 @@ class G2VLMPipeline:
         out["images"] = views
         return out
 
-    @torch.inference_mode()
+    @_inference
     def recon_from_views(self, views: np.ndarray, prompt: str = RECON_PROMPT) -> Dict[str, torch.Tensor]:
         """Recon on preloaded [0, 1] views (N, 3, H, W); outputs stay on the device."""
         normed = torch.as_tensor(resnet_normalize(views), dtype=torch.float32).to(self.model.device)
         return self._recon(normed, prompt)
 
-    @torch.inference_mode()
+    @_inference
     def recon_from_frames(
         self,
         frames,  # (N, H0, W0, 3) uint8 decoded frames, numpy or tensor

@@ -207,6 +207,12 @@ class G2VLM(nn.Module):
         if cfg.visual_und:
             self.vit_model = qwen_vit.QwenVit(cfg.vit)
 
+    def forward(self, fn, *args, **kwargs):
+        """`fn(self, *args, **kwargs)`: a whole-model computation (`recon_forward`,
+        `trainer.train_forward`) called through the module, where a sharded
+        model's root (`parallel.mesh.shard_model`) gathers its parameters."""
+        return fn(self, *args, **kwargs)
+
     @property
     def segformer(self) -> segformer.Segformer:
         return self.Pi3Loss.point_loss.segformer

@@ -23,6 +23,8 @@ backward with `torch.utils.checkpoint`. In every mode the RMS norms, the
 per-head qk-norm and mRoPE run in fp32. With `return_kv` a forward also gives
 each layer's roped K and V (`LayerKV`), which the decode cache is built from;
 `attn_impl` and `attn_pipe` are the serving options of `ops.attention`.
+Sharded by `parallel.mesh.shard_model`, a tensor-parallel rank holds a slice
+of the projections' heads: the layers take head counts from the tensors.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..ops.linear import linear as _lin
 from ..ops.masks import TokenInfo
 from ..ops.norms import rms_norm
 from ..ops.rope import mrope_cos_sin, rotate_half
+from ..parallel.comm import is_dtensor
 
 
 class LayerKV(NamedTuple):
@@ -91,7 +94,7 @@ class Mlp(nn.Module):
         self.down_proj = nn.Linear(inter, d, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return _mlp(x, self, x.dtype)
 
 
 class MoTAttention(nn.Module):
@@ -111,10 +114,24 @@ class MoTAttention(nn.Module):
             setattr(self, "k_norm" + sfx, RMSNorm(hd, cfg.rms_norm_eps))
 
 
-def _head_norm(x: torch.Tensor, norm: RMSNorm) -> torch.Tensor:
-    """Per-head fp32 RMS norm of (S, heads, hd); returns fp32."""
+def _head_norm(x: torch.Tensor, norm: RMSNorm, weight: torch.Tensor) -> torch.Tensor:
+    """Per-head fp32 RMS norm of (S, heads, hd) by `weight` (norm's, as
+    `_head_weights` gives it); returns fp32."""
     xf = x.float()
-    return xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + norm.eps) * norm.weight.float()
+    return xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + norm.eps) * weight.float()
+
+
+def _head_weights(at: MoTAttention, *names: str):
+    """The qk-norm weights `names` of `at`. Under tensor parallelism they
+    scale this rank's heads only, so each rank's gradient is its heads' part:
+    `comm.copy_to` sums them over the group in the backward."""
+    ws = [getattr(at, n).weight for n in names]
+    if not is_dtensor(at.q_proj.weight):
+        return ws
+    from ..parallel import comm
+
+    group = at.q_proj.weight.device_mesh.get_group()
+    return [comm.copy_to(w, group) for w in ws]
 
 
 LAYER_MODULES = ("mot", "moe", "dense")
@@ -152,25 +169,30 @@ class MoTDecoderLayer(nn.Module):
         return_kv: bool = False,
     ):
         cfg = self.cfg
-        nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        hd, dt = cfg.head_dim, x.dtype
         s = x.shape[0]
         at = self.self_attn
 
+        def proj(geo, und):  # heads from the tensors: a tensor-parallel rank holds nh / tp and kvh / tp
+            return _lin(h_geo, geo, dt).index_copy_(0, und_idx, _lin(h_und, und, dt)).view(s, -1, hd)
+
         h_geo = self.input_layernorm_moe_geo(x)
         h_und = self.input_layernorm(x[und_idx])
-        q = at.q_proj_moe_geo(h_geo).index_copy_(0, und_idx, at.q_proj(h_und)).view(s, nh, hd)
-        k = at.k_proj_moe_geo(h_geo).index_copy_(0, und_idx, at.k_proj(h_und)).view(s, kvh, hd)
-        v = at.v_proj_moe_geo(h_geo).index_copy_(0, und_idx, at.v_proj(h_und)).view(s, kvh, hd)
+        q = proj(at.q_proj_moe_geo, at.q_proj)
+        k = proj(at.k_proj_moe_geo, at.k_proj)
+        v = proj(at.v_proj_moe_geo, at.v_proj)
         if cfg.qk_norm:
-            q = _head_norm(q, at.q_norm_moe_geo).index_copy_(0, und_idx, _head_norm(q[und_idx], at.q_norm))
-            k = _head_norm(k, at.k_norm_moe_geo).index_copy_(0, und_idx, _head_norm(k[und_idx], at.k_norm))
+            wq, wk, wq_g, wk_g = _head_weights(at, "q_norm", "k_norm", "q_norm_moe_geo", "k_norm_moe_geo")
+            q = _head_norm(q, at.q_norm_moe_geo, wq_g).index_copy_(0, und_idx, _head_norm(q[und_idx], at.q_norm, wq))
+            k = _head_norm(k, at.k_norm_moe_geo, wk_g).index_copy_(0, und_idx, _head_norm(k[und_idx], at.k_norm, wk))
         q, k = q.float(), k.float()
         c, sn = cos[:, None, :], sin[:, None, :]
         q = (q * c + rotate_half(q) * sn).to(x.dtype)
         k = (k * c + rotate_half(k) * sn).to(x.dtype)
 
-        attn = attend(q, k, v).reshape(s, nh * hd)
-        out = (at.o_proj_moe_geo(attn) * self.ls1.gamma).index_copy_(0, und_idx, at.o_proj(attn[und_idx]))
+        attn = attend(q, k, v).reshape(s, -1)
+        out = (_lin(attn, at.o_proj_moe_geo, dt) * self.ls1.gamma).index_copy_(
+            0, und_idx, _lin(attn[und_idx], at.o_proj, dt))
         x = x + out
 
         m = self.mlp_moe_geo(self.post_attention_layernorm_moe_geo(x)) * self.ls2.gamma
@@ -188,7 +210,7 @@ class MoTDecoderLayer(nn.Module):
         return_kv: bool = False,
     ):
         cfg = self.cfg
-        nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        hd = cfg.head_dim
         s, dt, eps = x.shape[0], x.dtype, cfg.rms_norm_eps
         at = self.self_attn
         if cfg.layer_module != "mot":
@@ -210,25 +232,27 @@ class MoTDecoderLayer(nn.Module):
             return both(lambda t: _lin(ln_und(t), und, dt), lambda t: _lin(ln_geo(t), geo, dt), x)
 
         ln_u, ln_g = self.input_layernorm, self.input_layernorm_moe_geo
-        q = proj(at.q_proj, at.q_proj_moe_geo, ln_u, ln_g).view(s, nh, hd)
-        k = proj(at.k_proj, at.k_proj_moe_geo, ln_u, ln_g).view(s, kvh, hd)
-        v = proj(at.v_proj, at.v_proj_moe_geo, ln_u, ln_g).view(s, kvh, hd)
+        q = proj(at.q_proj, at.q_proj_moe_geo, ln_u, ln_g).view(s, -1, hd)
+        k = proj(at.k_proj, at.k_proj_moe_geo, ln_u, ln_g).view(s, -1, hd)
+        v = proj(at.v_proj, at.v_proj_moe_geo, ln_u, ln_g).view(s, -1, hd)
         if not cfg.qk_norm:
             q, k = _norm_rope(q, None, cos, sin, eps, dt), _norm_rope(k, None, cos, sin, eps, dt)
-        elif geo_start is None:
-            gm = is_geo[:, None, None]
-            q = _norm_rope(q, torch.where(gm, at.q_norm_moe_geo.weight, at.q_norm.weight), cos, sin, eps, dt)
-            k = _norm_rope(k, torch.where(gm, at.k_norm_moe_geo.weight, at.k_norm.weight), cos, sin, eps, dt)
         else:
-            def nr(t, g_und, g_geo):
-                return torch.cat([
-                    _norm_rope(t[:b], g_und.weight, cos[:b], sin[:b], eps, dt),
-                    _norm_rope(t[b:], g_geo.weight, cos[b:], sin[b:], eps, dt),
-                ], dim=0)
+            wq, wk, wq_g, wk_g = _head_weights(at, "q_norm", "k_norm", "q_norm_moe_geo", "k_norm_moe_geo")
+            if geo_start is None:
+                gm = is_geo[:, None, None]
+                q = _norm_rope(q, torch.where(gm, wq_g, wq), cos, sin, eps, dt)
+                k = _norm_rope(k, torch.where(gm, wk_g, wk), cos, sin, eps, dt)
+            else:
+                def nr(t, g_und, g_geo):
+                    return torch.cat([
+                        _norm_rope(t[:b], g_und, cos[:b], sin[:b], eps, dt),
+                        _norm_rope(t[b:], g_geo, cos[b:], sin[b:], eps, dt),
+                    ], dim=0)
 
-            q, k = nr(q, at.q_norm, at.q_norm_moe_geo), nr(k, at.k_norm, at.k_norm_moe_geo)
+                q, k = nr(q, wq, wq_g), nr(k, wk, wk_g)
 
-        attn = attend(q, k, v).reshape(s, nh * hd)
+        attn = attend(q, k, v).reshape(s, -1)
         # LayerScale on the geo expert's rows only
         x = x + both(lambda t: _lin(t, at.o_proj, dt), lambda t: _lin(t, at.o_proj_moe_geo, dt) * ls1, attn)
         x = x + both(
@@ -242,15 +266,15 @@ class MoTDecoderLayer(nn.Module):
         """The "dense" and "moe" layers in MIXED routing: one attention for
         every row and no LayerScale; "moe" takes `mlp_moe_geo` on the geo rows."""
         cfg = self.cfg
-        nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+        hd = cfg.head_dim
         s, dt, eps = x.shape[0], x.dtype, cfg.rms_norm_eps
         at = self.self_attn
         h = self.input_layernorm(x)
-        q, k = _lin(h, at.q_proj, dt).view(s, nh, hd), _lin(h, at.k_proj, dt).view(s, kvh, hd)
-        v = _lin(h, at.v_proj, dt).view(s, kvh, hd)
-        gq, gk = (at.q_norm.weight, at.k_norm.weight) if cfg.qk_norm else (None, None)
+        q, k = _lin(h, at.q_proj, dt).view(s, -1, hd), _lin(h, at.k_proj, dt).view(s, -1, hd)
+        v = _lin(h, at.v_proj, dt).view(s, -1, hd)
+        gq, gk = _head_weights(at, "q_norm", "k_norm") if cfg.qk_norm else (None, None)
         q, k = _norm_rope(q, gq, cos, sin, eps, dt), _norm_rope(k, gk, cos, sin, eps, dt)
-        x = x + _lin(attend(q, k, v).reshape(s, nh * hd), at.o_proj, dt)
+        x = x + _lin(attend(q, k, v).reshape(s, -1), at.o_proj, dt)
         h = self.post_attention_layernorm(x)
         m = _mlp(h, self.mlp, dt)
         if cfg.layer_module == "moe":
@@ -323,13 +347,17 @@ def decoder_forward_train(
     attn_impl: str = "auto",
     attn_pipe: bool = False,
     return_kv: bool = False,
+    sp=None,
 ):
     """All layers in MIXED or SPLIT routing plus the final norm; returns the
     hidden states (S, D) in the compute dtype, with `return_kv` (the chat
     prefill: no checkpointing) also the layers' `LayerKV`s. With `remat` every layer is
     recomputed in the backward; `remat_group` > 1 checkpoints groups of that
     many layers instead (one saved carry per group), with the per-layer
-    checkpoint nested inside unless `remat_inner` is off."""
+    checkpoint nested inside unless `remat_inner` is off. `sp`, a process
+    group, runs the attention sequence-parallel over its ranks
+    (`parallel.sequence.sp_attender`) when the length divides their number,
+    and ordinary attention otherwise, as the JAX dispatch does."""
     cfg = model.cfg
     if geo_start is not None and cfg.layer_module != "mot":
         raise ValueError(f"--split_layout (SPLIT routing) needs the 'mot' layer module; this model's is "
@@ -343,7 +371,12 @@ def decoder_forward_train(
 
     if return_kv and remat:
         raise ValueError("return_kv is the inference prefill: it does not checkpoint")
-    attend = self_attender(info, attn_impl, attn_pipe)
+    attend = None
+    if sp is not None:
+        from ..parallel.sequence import sp_attender
+
+        attend = sp_attender(info, sp, attn_impl)
+    attend = attend or self_attender(info, attn_impl, attn_pipe)
     kvs: List[LayerKV] = []
 
     def run_layer(layer, h):
@@ -380,4 +413,10 @@ def lm_head(lm: MoTForCausalLM, hidden: torch.Tensor, out_dtype: torch.dtype = t
     `out_dtype`."""
     w = lm.lm_head.weight
     ct = torch.promote_types(hidden.dtype, w.dtype)
+    if is_dtensor(w):  # the vocabulary split over tensor-parallel ranks: local logits, gathered
+        from ..parallel import comm
+
+        group = w.device_mesh.get_group()
+        local = F.linear(comm.copy_to(hidden, group).to(ct), w.to_local().to(ct))
+        return comm.gather(local, group, dim=-1).to(out_dtype)
     return F.linear(hidden.to(ct), w.to(ct)).to(out_dtype)

@@ -25,11 +25,14 @@ from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import G2VLMConfig
 from ..models import g2vlm as tg
 from ..models import mot_decoder, qwen_vit, segformer
 from ..ops.masks import TokenInfo
+from ..parallel import comm
+from ..parallel.mesh import model_mesh
 from . import loss as losses
 
 
@@ -95,12 +98,14 @@ def train_forward(
     remat_group: int = 1,
     dino_remat_group: int = 1,
     remat_inner: bool = True,
+    sp=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One packed sample -> scalar loss + details.
 
     geo_start: the static [und | geo] boundary of a sorted pack; it switches
     the MoT to the SPLIT expert mode (contiguous single-expert matmuls
-    instead of MIXED's two experts on every row)."""
+    instead of MIXED's two experts on every row). sp: a process group over
+    which the decoder's attention runs sequence-parallel."""
     lm = model.language_model
     s = batch.doc_id.shape[0]
     dev = batch.doc_id.device
@@ -132,7 +137,7 @@ def train_forward(
     hidden = mot_decoder.decoder_forward_train(
         lm.model, seq, batch.is_geo, batch.position_ids, info,
         geo_start=geo_start, compute_dtype=compute_dtype,
-        remat=remat, remat_group=remat_group, remat_inner=remat_inner,
+        remat=remat, remat_group=remat_group, remat_inner=remat_inner, sp=sp,
     )
 
     details: Dict[str, torch.Tensor] = {}
@@ -238,6 +243,26 @@ def _factorable(p: torch.Tensor, min_dim: int) -> bool:
     return p.dim() >= 2 and p.shape[-1] >= min_dim and p.shape[-2] >= min_dim
 
 
+def split_dims(p: torch.Tensor) -> Dict[int, list]:
+    """{tensor dim: the process groups it is split over} of a sharded
+    (DTensor) parameter; {} for a whole one. Mesh axes of one rank split
+    nothing."""
+    if not comm.is_dtensor(p):
+        return {}
+    out: Dict[int, list] = {}
+    for i, pl in enumerate(p.placements):
+        d = getattr(pl, "dim", None)  # Shard and FSDP2's _StridedShard
+        if d is not None and p.device_mesh.size(i) > 1:
+            out.setdefault(d, []).append(p.device_mesh.get_group(i))
+    return out
+
+
+def _sum_over(t: torch.Tensor, groups) -> torch.Tensor:
+    for g in groups:
+        dist.all_reduce(t, group=g)
+    return t
+
+
 class Optimizer:
     """Global-norm clip, then Adam moments, decoupled weight decay and the
     learning rate, in optax's order:
@@ -256,6 +281,13 @@ class Optimizer:
     factoring: nu ~ row x col / mean(row)), which takes the second moment from
     4 bytes per parameter to almost nothing; smaller leaves keep the full nu.
     Only the parameters given here are touched.
+
+    Sharded parameters (DTensors of `parallel.mesh.shard_model`) are updated
+    on their local shards, and the moments are local shards alike (`nu`'s row
+    and column means of the local rows and columns): the elementwise work is
+    the same, and what reduces over a split dim (the global norm, the
+    factored means) sums its local parts over the groups that split it
+    (`split_dims`), so that each parameter's squares count once.
     """
 
     def __init__(
@@ -275,20 +307,36 @@ class Optimizer:
         self.lr, self.wd, self.b1, self.b2, self.eps, self.clip = learning_rate, weight_decay, b1, b2, eps, grad_clip
         self.factored_v = factored_v
         self.count = 0
-        self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in self.params]
-        # per leaf: (nu,) full, or (nu_row, nu_col) factored
+        self.split = [split_dims(p) for p in self.params]
+        self.sharded = any(self.split)
+        with torch.no_grad():
+            local = [comm.local(p) for p in self.params]
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype or p.dtype) for p in local]
+        # per leaf: (nu,) full, or (nu_row, nu_col) factored; factoring goes by the global shape
         self.nu: List[Tuple[torch.Tensor, ...]] = []
-        for p in self.params:
+        for p, pl in zip(self.params, local):
             if factored_v and _factorable(p, min_dim_size_to_factor):
                 self.nu.append((
-                    torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device),
-                    torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=torch.float32, device=p.device),
+                    torch.zeros(pl.shape[:-1], dtype=torch.float32, device=pl.device),
+                    torch.zeros(pl.shape[:-2] + pl.shape[-1:], dtype=torch.float32, device=pl.device),
                 ))
             else:
-                self.nu.append((torch.zeros_like(p, dtype=torch.float32),))
+                self.nu.append((torch.zeros_like(pl, dtype=torch.float32),))
 
     def learning_rate_at(self, count: int) -> float:
         return self.lr(count) if callable(self.lr) else self.lr
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """||g|| over every leaf: each leaf's local squares, summed over the
+        groups that split it (one all-reduce per set of groups)."""
+        if not self.sharded:
+            return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        buckets: Dict[tuple, list] = {}
+        for g, split in zip(grads, self.split):
+            groups = [grp for gs in split.values() for grp in gs]
+            buckets.setdefault(tuple(map(id, groups)), [groups, []])[1].append(g.float().square().sum())
+        total = sum(_sum_over(torch.stack(parts).sum(), groups) for groups, parts in buckets.values())
+        return total.sqrt()
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -296,14 +344,15 @@ class Optimizer:
         the gradients before clipping."""
         # a trainable leaf the loss never reached (DINOv2's mask token) has a zero
         # gradient and still decays, as under optax
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.params]
-        grad_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        params = [comm.local(p) for p in self.params]
+        grads = [torch.zeros_like(p) if q.grad is None else comm.local(q.grad) for p, q in zip(params, self.params)]
+        grad_norm = self._global_norm(grads)
         clip_scale = torch.where(grad_norm < self.clip, torch.ones_like(grad_norm), self.clip / grad_norm)
         lr = self.learning_rate_at(self.count)
         self.count += 1
         bc1 = 1.0 - self.b1 ** self.count
         bc2 = 1.0 - self.b2 ** self.count
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for p, g, mu, nu, whole, split in zip(params, grads, self.mu, self.nu, self.params, self.split):
             g = g.float() * clip_scale
             if mu.dtype == torch.float32:
                 m = mu.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
@@ -321,9 +370,15 @@ class Optimizer:
                 v_hat = nu[0].mul_(self.b2).add_(g2, alpha=1.0 - self.b2) / bc2
             else:
                 row, col = nu
-                row.mul_(self.b2).add_(g2.mean(-1), alpha=1.0 - self.b2)
-                col.mul_(self.b2).add_(g2.mean(-2), alpha=1.0 - self.b2)
-                denom = row.mean(-1, keepdim=True).clamp_min(1e-30)
+                if split:  # means over split dims: local sums, summed over the groups, over the global size
+                    last, prev = split.get(g.dim() - 1, []), split.get(g.dim() - 2, [])
+                    row.mul_(self.b2).add_(_sum_over(g2.sum(-1), last) / whole.shape[-1], alpha=1.0 - self.b2)
+                    col.mul_(self.b2).add_(_sum_over(g2.sum(-2), prev) / whole.shape[-2], alpha=1.0 - self.b2)
+                    denom = (_sum_over(row.sum(-1, keepdim=True), prev) / whole.shape[-2]).clamp_min(1e-30)
+                else:
+                    row.mul_(self.b2).add_(g2.mean(-1), alpha=1.0 - self.b2)
+                    col.mul_(self.b2).add_(g2.mean(-2), alpha=1.0 - self.b2)
+                    denom = row.mean(-1, keepdim=True).clamp_min(1e-30)
                 v_hat = (row[..., :, None] * col[..., None, :] / denom[..., None]) / bc2
             update = (m / bc1) / v_hat.sqrt_().add_(self.eps)
             update.add_(p, alpha=self.wd)
@@ -384,13 +439,22 @@ def make_train_step(
     remat_group: int = 1,
     dino_remat_group: int = 1,
     remat_inner: bool = True,
+    sp=None,
 ):
     """Returns train_step(state, batch) -> (state, metrics). `batch` carries a
     leading batch axis, walked by a Python loop; the loss is the mean over it
     and the gradients accumulate to the gradient of that mean. The state is
     updated in place (parameters, moments, EMA) and returned. Metrics: `loss`,
     `grad_norm` (before clipping) and the loss details, as 0-d tensors on the
-    device."""
+    device.
+
+    On a sharded model (`parallel.mesh.shard_model`) each data-parallel rank
+    steps on its own batch and every rank of its group on the same one, as the
+    JAX mesh's devices do; FSDP2 averages the gradients over the ranks, which
+    is the gradient of the mean over the dp batches, and the metrics are
+    averaged alike. `sp`, the fsdp group, runs the decoder's attention
+    sequence-parallel over it (the Python loop over the batch is the JAX
+    trainer's rule for a sequence-parallel step)."""
 
     def train_step(state: TrainState, batch: TrainBatch):
         model, opt = state.model, state.optimizer
@@ -399,28 +463,34 @@ def make_train_step(
             p.grad = None
         sums: Dict[str, torch.Tensor] = {}
         for i in range(n):
-            total, details = train_forward(
-                model, batch.map(lambda x: x[i]), cfg, compute_dtype=compute_dtype, remat=remat,
+            total, details = model(
+                train_forward, batch.map(lambda x: x[i]), cfg, compute_dtype=compute_dtype, remat=remat,
                 geo_start=geo_start, head_view_chunk=head_view_chunk, remat_group=remat_group,
-                dino_remat_group=dino_remat_group, remat_inner=remat_inner,
+                dino_remat_group=dino_remat_group, remat_inner=remat_inner, sp=sp,
             )
             (total / n).backward()
             for key, val in {**details, "loss": total}.items():
                 sums[key] = sums.get(key, 0.0) + val.detach() / n
         grad_norm = opt.step()
         if state.ema_params is not None:
-            # EMA e*d + p*(1-d) of the trainable parameters; a frozen parameter
-            # equals its EMA for ever, so it is left untouched (bitwise)
+            # EMA e*d + p*(1-d) of the trainable parameters (their local shards where sharded); a
+            # frozen parameter equals its EMA for ever, so it is left untouched (bitwise)
             with torch.no_grad():
                 trainable = {id(p) for p in opt.params}
                 for name, p in model.named_parameters():
                     if id(p) in trainable:
-                        e = state.ema_params[name]
-                        e.mul_(ema_decay).add_(p.detach().to(e.dtype), alpha=1.0 - ema_decay)
+                        e = comm.local(state.ema_params[name])
+                        e.mul_(ema_decay).add_(comm.local(p).to(e.dtype), alpha=1.0 - ema_decay)
         for p in opt.params:
             p.grad = None
         state.step += 1
         metrics = dict(sums)
+        if model_mesh(model) is not None and dist.get_world_size() > 1:
+            # every rank of a dp group holds its group's values: the world's mean is the mean over dp
+            keys = sorted(metrics)
+            vals = torch.stack([metrics[k].float() for k in keys])
+            dist.all_reduce(vals)
+            metrics = dict(zip(keys, vals / dist.get_world_size()))
         metrics["grad_norm"] = grad_norm
         return state, metrics
 

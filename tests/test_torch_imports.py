@@ -39,7 +39,7 @@ def test_every_port_module_and_script_imports_without_jax():
                  "data.vlm_dataset", "data.packing", "data.registry", "train.checkpoint", "models.dinov3",
                  "models.segformer", "models.modeling_utils", "data.parquet_dataset", "data.draw_marker",
                  "data.recon_then_und_dataset", "data.video", "data.token_utils", "data.dataset_utils",
-                 "data.corruption", "train.dataloader"):
+                 "data.corruption", "train.dataloader", "parallel.mesh", "parallel.sequence", "parallel.comm"):
         assert "g2vlm_tpu_torch." + name in modules
     code = (
         "import importlib, sys\n"

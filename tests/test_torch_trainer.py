@@ -376,10 +376,11 @@ def test_train_torch_model_path_matches_jax_train_py(tmp_path):
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--train_conf"], ["--bootstrap_moe"], []])
 def test_train_torch_flags_that_wait_for_a_module_raise(flags):
-    """--dp (multi-GPU, ROADMAP A.9) still raises; --train_conf and
-    --bootstrap_moe are ported: parse_args takes them and sets what train.py
+    """No flag of train.py waits for a module any more: --dp (with --tp and
+    --sequence_parallel, the multi-GPU mesh; tests/test_torch_parallel.py
+    runs them), --train_conf and --bootstrap_moe parse and set what train.py
     sets (tests/test_torch_conf_head.py and tests/test_torch_dense_moe.py run
-    them against train.py)."""
+    them against train.py); without data, parse_args raises."""
     sys.path.insert(0, str(REPO))
     try:
         import train_torch
@@ -389,10 +390,9 @@ def test_train_torch_flags_that_wait_for_a_module_raise(flags):
         with pytest.raises(ValueError, match="--data_config.*--synthetic"):
             train_torch.parse_args([])
         return
-    if flags[0] == "--dp":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-            train_torch.parse_args(["--synthetic"] + flags)
-        return
     args = train_torch.parse_args(["--synthetic"] + flags)
+    if flags[0] == "--dp":
+        assert args.dp == 2 and args.tp == 1 and args.sequence_parallel is False
+        return
     assert getattr(args, flags[0][2:]) is True and args.segformer_pth is None
-    assert set(train_torch._NOT_PORTED) == {"dp", "tp", "sequence_parallel"}
+    assert not hasattr(train_torch, "_NOT_PORTED")

@@ -32,22 +32,21 @@ checkpoint's `Pi3Loss.*` keys, or random weights drawn from the seed:
       --split_layout --freeze_und --factored_v --mu_dtype bfloat16 --train_conf [--segformer_pth seg.pth]
 
 Runs on `cuda` unless `--device cpu` is given, and raises when `cuda` is
-asked for and absent. Multi-GPU meshes are not ported yet: their flags raise
-NotImplementedError.
+asked for and absent.
+
+On several GPUs (or CPU processes), under torchrun: the world's ranks form
+train.py's mesh, fsdp = world / (dp * tp) (parallel/mesh.py: FSDP2 over dp and
+fsdp, tensor parallelism in the decoder over tp), NCCL on `cuda` and gloo on
+`--device cpu`; `--sequence_parallel` splits the decoder's attention over the
+fsdp ranks. Rank 0 logs and writes the checkpoints. A process started without
+torchrun is a world of one and builds no process group:
+  torchrun --nproc_per_node 4 train_torch.py --tiny --synthetic --device cpu --tp 2 --sequence_parallel --steps 2
 """
 
 import argparse
 import dataclasses
 import itertools
 import os
-
-
-# flags of train.py that wait for modules of the port, with the ROADMAP item
-_NOT_PORTED = {
-    "dp": "multi-GPU meshes (ROADMAP A.9)",
-    "tp": "multi-GPU meshes (ROADMAP A.9)",
-    "sequence_parallel": "parallel/sequence.py (ROADMAP A.9)",
-}
 
 
 # the vocabulary the tokenizer-less text ids (hash(word) % 5000 + 100) and the four special tokens above
@@ -116,25 +115,23 @@ def parse_args(argv=None):
     ap.add_argument("--segformer_pth", type=str, default=None,
                     help="the reference's segformer.b0.512x512.ade.160k.pth for real sky supervision (a pickle: "
                          "load only a file you trust)")
-    # accepted for train.py's command lines; each raises until its module is ported
-    ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--sequence_parallel", action="store_true")
+    ap.add_argument("--dp", type=int, default=1, help="data-parallel replicas (the mesh's dp axis)")
+    ap.add_argument("--tp", type=int, default=1, help="tensor-parallel ranks in the decoder (the mesh's tp axis)")
+    ap.add_argument("--sequence_parallel", action="store_true",
+                    help="split the decoder's attention over the fsdp ranks (ignored when fsdp is 1)")
     args = ap.parse_args(argv)
-    defaults = {"dp": 1, "tp": 1}
-    for flag, waits_for in _NOT_PORTED.items():
-        if getattr(args, flag) not in (None, False, defaults.get(flag)):
-            raise NotImplementedError(f"--{flag} is not ported yet: it waits for {waits_for}")
     if not args.synthetic and not args.data_config:
         raise ValueError("no data: pass --data_config <yaml> for real data or --synthetic for synthetic packs")
     return args
 
 
-def synthetic_batches(cfg, seed=0, device=None, start=0):
+def synthetic_batches(cfg, seed=0, device=None, start=0, dp=1, dp_rank=0):
     """Endless stream of (TrainBatch with a leading batch axis of 1, geo_start
     None): the tiny two-view pack of train.py's `synthetic_batches`, in the
     unsorted layout (MIXED expert mode), from step `start` on (a resumed run
-    continues the stream, where train.py's starts it over)."""
+    continues the stream, where train.py's starts it over). Data-parallel
+    rank `dp_rank` of `dp` takes train.py's batch row `dp_rank` of each step,
+    drawn from seed + step * dp + dp_rank."""
     import numpy as np
 
     from g2vlm_tpu_torch.models.g2vlm import SequenceBuilder
@@ -143,7 +140,7 @@ def synthetic_batches(cfg, seed=0, device=None, start=0):
     n, h, w = 2, 56, 56
     hp = wp = h // cfg.dino_patch_size
     for step in itertools.count(start):
-        rng = np.random.default_rng(seed + step)
+        rng = np.random.default_rng(seed + step * dp + dp_rank)
         b = SequenceBuilder(11, 12)
         b.add_text([7, 23, 45])
         b.add_dino_images(n, hp, wp)
@@ -288,6 +285,32 @@ def main(argv=None):
     return train(args, data_cfg)
 
 
+def init_distributed(args):
+    """(world size, rank, device, whether the group was made here): under
+    torchrun (WORLD_SIZE > 1 in the environment) the process group, NCCL on
+    `cuda` (one card per LOCAL_RANK) or gloo on the CPU, unless the caller
+    made it; otherwise a world of one and no process group."""
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda (the default) needs an NVIDIA GPU; pass --device cpu for the CPU")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        return 1, 0, torch.device(args.device), False
+    import torch.distributed as dist
+
+    rank, local_rank = int(os.environ["RANK"]), int(os.environ.get("LOCAL_RANK", "0"))
+    if args.device == "cuda":
+        torch.cuda.set_device(local_rank)
+        device = torch.device("cuda", local_rank)
+    else:
+        device = torch.device("cpu")
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl" if args.device == "cuda" else "gloo", rank=rank, world_size=world)
+    return world, rank, device, made
+
+
 def train(args, data_cfg=None):
     """The training loop of `main`, after the data config (if any) was read
     into `data_cfg`. Returns the final TrainState."""
@@ -301,10 +324,14 @@ def train(args, data_cfg=None):
     from g2vlm_tpu_torch.weights import (SEGFORMER_PREFIX, absent_optional, build_model, init_moe_from_dense,
                                          load_checkpoint, load_safetensors, load_segformer_pth)
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda (the default) needs an NVIDIA GPU; pass --device cpu for the CPU")
-    device = torch.device(args.device)
-    logger = create_logger()
+    world, rank, device, made_group = init_distributed(args)
+    logger = create_logger(rank=rank)
+    if world % (args.dp * args.tp):
+        raise ValueError(f"--dp {args.dp} x --tp {args.tp} does not divide the world of {world} processes")
+    fsdp = world // (args.dp * args.tp)
+    dp_rank = rank // (fsdp * args.tp)  # the mesh's ranks run (dp, fsdp, tp), tp fastest
+    if world > 1:
+        logger.info(f"mesh: dp={args.dp} fsdp={fsdp} tp={args.tp} over {world} processes")
     tokenizer = new_token_ids = None
     segformer_from_checkpoint = False
     if args.model_path:
@@ -343,6 +370,16 @@ def train(args, data_cfg=None):
             logger.info("WARNING: no segformer weights (checkpoint or --segformer_pth) — sky supervision uses "
                         "RANDOM weights")
     model.train()
+    mesh = sp = None
+    if world > 1:
+        from g2vlm_tpu_torch.parallel.mesh import FSDP, make_mesh, shard_model
+
+        mesh = make_mesh(world, dp=args.dp, fsdp=fsdp, tp=args.tp, device_type=device.type)
+        shard_model(model, mesh)
+        if args.sequence_parallel and fsdp > 1:
+            sp = mesh[FSDP].get_group()
+    if args.sequence_parallel and sp is None:
+        logger.info("--sequence_parallel ignored: fsdp axis is 1")
     schedule = trainer.warmup_cosine_schedule(0.0, args.lr, args.warmup, max(args.steps, args.warmup + 1))
     optimizer = trainer.make_optimizer(
         model, schedule=schedule, weight_decay=args.weight_decay,
@@ -351,7 +388,7 @@ def train(args, data_cfg=None):
         factored_v=args.factored_v,
     )
     state = trainer.init_train_state(model, optimizer, ema=True)
-    n_train = sum(p.numel() for p in optimizer.params)
+    n_train = sum(p.numel() for p in optimizer.params)  # global shapes, where sharded
     n_all = sum(p.numel() for p in model.parameters())
     logger.info(f"device {device}; {n_all / 1e9:.3f} B parameters, {n_train / 1e9:.3f} B trainable")
     mgr = CheckpointManager(args.checkpoint_dir, keep=args.keep_ckpts)
@@ -366,17 +403,21 @@ def train(args, data_cfg=None):
             f"the four special tokens above them they need a vocabulary of at least {_HASH_VOCAB}, and this "
             f"model's is {cfg.llm.vocab_size} (pass --tokenizer_path, or --cut_depth for a model of 5,120)")
     if data_cfg is not None:
+        # train.py's packer batches have a leading axis of 1 whatever --dp says, so its whole mesh
+        # trains on each pack; here every rank draws the same packs from the seeded packer
+        if args.dp > 1:
+            logger.info(f"--data_config: one pack a step for all {args.dp} dp replicas, as train.py takes it")
         batches = packer_batches(args, data_cfg, cfg, new_token_ids, tokenizer, data_status, device)
     elif args.views is not None:
-        batch, geo_start = full_size_batch(cfg, args.views, tuple(args.hw), args.tokens, args.seed, device)
+        batch, geo_start = full_size_batch(cfg, args.views, tuple(args.hw), args.tokens, args.seed + dp_rank, device)
         if not args.split_layout:
             geo_start = None
         batches = ((batch, geo_start, [], {}) for _ in itertools.count())
     else:
         if args.split_layout:
             raise ValueError("--split_layout needs the sorted full-size pack: pass --views")
-        batches = ((batch, geo_start, [], {})
-                   for batch, geo_start in synthetic_batches(cfg, args.seed, device, start=state.step))
+        batches = ((batch, geo_start, [], {}) for batch, geo_start in synthetic_batches(
+            cfg, args.seed, device, start=state.step, dp=args.dp, dp_rank=dp_rank))
 
     step_fns = {}  # one step function per geo_start, as train.py caches one program per bucket
 
@@ -386,7 +427,7 @@ def train(args, data_cfg=None):
                 cfg, compute_dtype=torch.float32 if args.tiny else torch.bfloat16,
                 ema_decay=args.ema_decay, geo_start=geo_start, head_view_chunk=args.head_view_chunk,
                 remat_group=args.remat_group, dino_remat_group=args.dino_remat_group,
-                remat_inner=not args.no_inner_remat,
+                remat_inner=not args.no_inner_remat, sp=sp,
             )
         return step_fns[geo_start]
 
@@ -412,6 +453,10 @@ def train(args, data_cfg=None):
     mgr.save(state.step, state, data_status=status or None)
     mgr.wait()
     logger.info("done")
+    if made_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return state
 
 
