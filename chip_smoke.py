@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py             # from the repository root; needs one card
     python3 chip_smoke.py --profile   # also prints torch.profiler kernel tables
+    python3 chip_smoke.py --tracing   # phases 1, 2 and 24 alone (~3 min)
 
 Phases (each prints its result; any failure raises and the exit code is 1):
   1. device: the card's name and power limit;
@@ -140,7 +141,15 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      recon prefill: the shards' outputs and lse (2e-3 of max|ref|, and whether bitwise) and their summed
      dk / dv and concatenated dq (1e-2) against the unsharded launch, each shard's ms beside the unsharded;
      (c) with two cards or more, the cut-depth step on 2 NCCL ranks (fsdp=2, sequence parallel) against
-     one rank.
+     one rank;
+ 24. the program's spans (g2vlm_tpu_torch/utils/tracing.py) at full width: one 32-view recon call
+     (294x518) and one 4-view chat request (480x640, the host preprocess) under torch.profiler, each
+     span tree with host and device ms; recon's four stage spans (input, dino, decoder, heads) against
+     the profiler's busy time for the call plus the idle inside them (90-110%); every idle gap of 10 us
+     or more attributed by time overlap to the innermost span open over it; the `upload.bytes` counter
+     against the trace's host-to-device copies; the chat request again with `return_info` (its stage
+     syncs); then the recorder on (`tracing.record()`) against off in turns, recon x6 and chat x6 (and
+     chat with `return_info` x6), the cost when on. `--tracing` runs phases 1, 2 and 24 alone.
 Every kernel is also timed beside the one PyTorch library call that computes
 the same function (a yardstick only; the port never calls it). The last line is
 {"ok": true, "device": {...}}; before it, the card's line and one JSON line
@@ -323,6 +332,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="profile one recon call, one training step and one chat call")
+    ap.add_argument("--tracing", action="store_true", help="run phases 1, 2 and 24 (the program's spans) alone")
     args = ap.parse_args()
 
     import torch
@@ -396,17 +406,19 @@ def main() -> None:
 
     # launches of each main path's run: counts set to 0 just before it, read just after
     paths_run = {}
-    paths_run["recon_call"], paths_run["train_step"], recon_ms = _recon_and_train_phases(env)
-    paths_run.update(_chat_phases(env, recon_ms))
-    paths_run["recon_entry"] = _recon_entry_phase(env)
-    paths_run["joint_step"], joint = _joint_step_phase(env)
-    paths_run.update(_three_group_phases(env, joint))  # 22(b) steps on phase 17's model and state
-    del joint
-    _data_resume_phase(env)
-    paths_run["conf_step"] = _conf_stage_phase(env)
-    paths_run.update(_dense_moe_phase(env, recon_ms))
-    paths_run["recon_dinov3"] = _dinov3_phase(env, recon_ms)
-    paths_run.update(_parallel_phase(env))
+    if not args.tracing:
+        paths_run["recon_call"], paths_run["train_step"], recon_ms = _recon_and_train_phases(env)
+        paths_run.update(_chat_phases(env, recon_ms))
+        paths_run["recon_entry"] = _recon_entry_phase(env)
+        paths_run["joint_step"], joint = _joint_step_phase(env)
+        paths_run.update(_three_group_phases(env, joint))  # 22(b) steps on phase 17's model and state
+        del joint
+        _data_resume_phase(env)
+        paths_run["conf_step"] = _conf_stage_phase(env)
+        paths_run.update(_dense_moe_phase(env, recon_ms))
+        paths_run["recon_dinov3"] = _dinov3_phase(env, recon_ms)
+        paths_run.update(_parallel_phase(env))
+    _tracing_phase(env)
 
     for kname, e in kernels.items():
         for path, counts in paths_run.items():
@@ -3131,6 +3143,154 @@ def _two_rank_step():
           f"rank's {losses[1][-1]!r}, rel {rel:.3e} (budget 1e-3)")
     if not rel <= 1e-3 or losses[2][0] != losses[2][1]:
         _fail(f"phase 23(c): two ranks' loss {losses[2]} against one rank's {losses[1][-1]}")
+
+# ---------------------------------------------------------------------------
+# phase 24: the program's spans
+# ---------------------------------------------------------------------------
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _span_lines(span, depth=0):
+    """The span tree as lines: name, host ms, device ms, counters."""
+    dev = span.device_ms
+    line = (f"{'  ' * depth}{span.name}: host {span.host_s * 1e3:.3f} ms, device "
+            + ("not measured" if dev is None else f"{dev:.3f} ms")
+            + (f", {span.counters}" if span.counters else ""))
+    return [line] + [x for c in span.children for x in _span_lines(c, depth + 1)]
+
+
+def _idle_by_span(events, names, min_gap_us=10.0):
+    """From a chrome trace of one call (its top-level span among `names`): the window (the top span's
+    start to the later of its end and the last device event), the device's busy us in it, and the idle
+    us by the innermost span in `names` open over each part of each gap of `min_gap_us` or more (time
+    overlap; "(no span)" where none is open), gaps under it summed apart; and the host-to-device copies'
+    bytes."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]) for e in events
+                   if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e.get("name") in names)
+    dev = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))) for e in events
+                 if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    htod = sum(int(e.get("args", {}).get("bytes", 0)) for e in events
+               if e.get("ph") == "X" and e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+    top = max(spans, key=lambda s_: s_[1] - s_[0])
+    w0, w1 = top[0], max([top[1]] + [b for _, b in dev])
+    merged = []
+    for a, b in dev:
+        a, b = max(a, w0), min(b, w1)
+        if b <= a:
+            continue
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    edges = [w0] + [x for ab in merged for x in ab] + [w1]
+    idle = {}
+    for a, b in ((edges[i], edges[i + 1]) for i in range(0, len(edges), 2)):
+        if b - a < min_gap_us:
+            idle["(gaps under 10 us)"] = idle.get("(gaps under 10 us)", 0.0) + max(b - a, 0.0)
+            continue
+        inside = [s_ for s_ in spans if s_[0] < b and s_[1] > a]
+        cuts = sorted({a, b} | {x for s_ in inside for x in s_[:2] if a < x < b})
+        for c0, c1 in zip(cuts, cuts[1:]):
+            cover = [s_ for s_ in inside if s_[0] <= c0 and s_[1] >= c1]
+            label = min(cover, key=lambda s_: s_[1] - s_[0])[2] if cover else "(no span)"
+            idle[label] = idle.get(label, 0.0) + (c1 - c0)
+    return (w1 - w0), busy, idle, htod
+
+
+def _tracing_phase(env):
+    """Phase 24: the program's spans on the card at full width (module docstring)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+    from g2vlm_tpu_torch.utils import tracing
+    from g2vlm_tpu_torch.weights import build_model
+
+    card = env.card
+    t_phase = time.perf_counter()
+    cfg = G2VLMConfig()
+    pipe = G2VLMPipeline(build_model(cfg, device=env.dev, dtype=torch.bfloat16, seed=0), cfg)
+    rng = np.random.default_rng(24)
+    recon_frames = rng.integers(0, 256, (32, 294, 518, 3), dtype=np.uint8)
+    chat_frames = list(rng.integers(0, 256, (4, 480, 640, 3), dtype=np.uint8))
+
+    def recon():
+        pipe.recon_from_frames(recon_frames)
+        torch.cuda.synchronize()
+
+    def chat(return_info=False):
+        pipe.chat(chat_frames, QUESTION, max_new_tokens=32, return_info=return_info)
+        torch.cuda.synchronize()
+
+    for fn in (recon, recon, chat, chat):
+        fn()
+    if tracing.span("probe") is not tracing.OFF or tracing.requests():
+        _fail("phase 24: the recorder recorded with neither a profiler nor tracing.record()")
+
+    def profiled(tag, fn):
+        tracing.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+        [req] = tracing.requests()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        window, busy, idle, htod = _idle_by_span(events, {s_.name for s_ in req.walk()})
+        print(f"[tracing] {tag}: span tree (host ms, device ms):\n    " + "\n    ".join(_span_lines(req)))
+        print(f"[tracing] {tag}: window {window / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle "
+              f"{(window - busy) / 1e3:.3f} ms ({100 * (1 - busy / window):.1f}%); idle by the innermost span "
+              "open over it (ms): " + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in sorted(idle.items(), key=lambda kv: -kv[1]))
+              + f"; host-to-device copies in the trace {htod} bytes, upload.bytes {req.counters.get('upload.bytes', 0)}")
+        return req, busy, idle
+
+    req, busy, idle = profiled("recon, 32 views of 294x518", recon)
+    stages = {c.name: c.device_ms for c in req.children}
+    if set(stages) != {"input", "dino", "decoder", "heads"} or None in stages.values():
+        _fail(f"phase 24: the recon call's stage spans are {stages}")
+    # a span's device ms runs from event to event, so it holds the idle while the card waits for the
+    # host inside it: held against the busy time plus the idle that the trace puts inside the stages
+    spans_ms, idle_in = sum(stages.values()), sum(idle.get(k, 0.0) for k in stages) / 1e3
+    share = spans_ms / (busy / 1e3 + idle_in)
+    print(f"[tracing] recon: stage spans' device ms {spans_ms:.3f} = {100 * spans_ms / (busy / 1e3):.1f}% of the "
+          f"profiler's busy {busy / 1e3:.3f} ms, {share * 100:.1f}% of it plus the {idle_in:.3f} ms of idle inside "
+          f"the stage spans (the recon span's own {req.device_ms:.3f} ms)")
+    if not 0.9 <= share <= 1.1:
+        _fail(f"phase 24: recon's device spans cover {share * 100:.1f}% of the busy time and the idle inside "
+              "them, outside 90-110%")
+    profiled("chat, 4 views of 480x640, 32 tokens", chat)
+    profiled("chat with return_info (stage syncs)", lambda: chat(return_info=True))
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def recorded(fn):
+        def run():
+            with tracing.record():
+                fn()
+        return run
+
+    for tag, variants in (("recon", {"off": recon, "on": recorded(recon)}),
+                          ("chat", {"off": chat, "on": recorded(chat), "return_info": lambda: chat(True)})):
+        times = {k: [] for k in variants}
+        for i in range(6):
+            for k in (list(variants) if i % 2 == 0 else list(variants)[::-1]):
+                times[k].append(ms(variants[k]))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        print(f"[tracing] {tag} in turns x6, median ms: "
+              + ", ".join(f"{k} {med[k]:.3f} ({[round(t, 1) for t in times[k]]})" for k in variants)
+              + "; on - off " + ", ".join(f"{k} {med[k] - med['off']:+.3f} ms ({100 * (med[k] / med['off'] - 1):+.2f}%)"
+                                          for k in variants if k != "off") + f" ({card})")
+    tracing.clear()
+    print(f"[tracing] phase 24 in {time.perf_counter() - t_phase:.1f} s ({card})")
+
 
 if __name__ == "__main__":
     main()

@@ -45,6 +45,7 @@ from ..models.mot_decoder import LayerKV, MoTForCausalLM
 from ..ops.linear import linear
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_mrope
+from ..utils import tracing
 
 
 class KVCache(NamedTuple):
@@ -356,13 +357,16 @@ def _generate_loop(
         cuda_graph = dev.type == "cuda" and not do_sample and max_new_tokens > 2
     graph = None
     for i in range(max_new_tokens):
-        if not cuda_graph or i == 0:
-            step()  # eager; with a graph this is the warm-up, and a real step
+        if i == 0:
+            with tracing.span("decode.first"):
+                step()  # eager; with a graph this is the warm-up, and a real step
+                if cuda_graph and max_new_tokens > 1:
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        step()  # captured, not run
+        elif graph is None:
+            step()
         else:
-            if graph is None:
-                graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph):
-                    step()  # captured, not run
             graph.replay()
         if ((i + 1) % _DONE_CHECK_EVERY == 0 or i + 1 == max_new_tokens) and bool(done.all()):
             break

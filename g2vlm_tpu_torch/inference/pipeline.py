@@ -23,9 +23,9 @@ below), and `attn_pipe` (the two-stage schedule of the segment kernel).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
-import time
 import zlib
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
@@ -44,6 +44,7 @@ from ..models.g2vlm import (
     G2VLM, PackedPrefill, SequenceBuilder, encode_dino_to_llm, encode_vit_to_llm, prefill_hidden, recon_forward,
 )
 from ..parallel.mesh import model_mesh
+from ..utils import tracing
 from . import decoding
 
 RECON_PROMPT = "Reconstruct the 3D scene."
@@ -161,8 +162,10 @@ class G2VLMPipeline:
     @_inference
     def recon_from_views(self, views: np.ndarray, prompt: str = RECON_PROMPT) -> Dict[str, torch.Tensor]:
         """Recon on preloaded [0, 1] views (N, 3, H, W); outputs stay on the device."""
-        normed = torch.as_tensor(resnet_normalize(views), dtype=torch.float32).to(self.model.device)
-        return self._recon(normed, prompt)
+        with tracing.span("recon"):
+            with tracing.span("input"):
+                normed = self._upload(resnet_normalize(views), torch.float32)
+            return self._recon(normed, prompt)
 
     @_inference
     def recon_from_frames(
@@ -175,10 +178,13 @@ class G2VLMPipeline:
         cast -> antialiased bilinear resize -> RESNET normalisation -> packed
         prefill -> heads on the device. Returns points, local_points,
         camera_poses and global_points on the device."""
-        frames = torch.as_tensor(frames).to(self.model.device)
-        n, h0, w0, _ = frames.shape
-        th, tw = target_hw(h0, w0, new_width, self.cfg.dino_patch_size)
-        return self._recon(preprocess_views_device(frames, (th, tw)), prompt)
+        with tracing.span("recon"):
+            with tracing.span("input"):
+                frames = self._upload(frames)
+                n, h0, w0, _ = frames.shape
+                th, tw = target_hw(h0, w0, new_width, self.cfg.dino_patch_size)
+                normed = preprocess_views_device(frames, (th, tw))
+            return self._recon(normed, prompt)
 
     # ------------------------------------------------------------------
     # chat with the reconstruction in context
@@ -195,6 +201,16 @@ class G2VLMPipeline:
     def _sync(self) -> None:
         if self.model.device.type == "cuda":
             torch.cuda.synchronize(self.model.device)
+
+    def _upload(self, x, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Request data (an array or tensor) -> the model's device, in `dtype`
+        (default: its own), counted in `upload.bytes` when it comes from host
+        memory: its elements at the dtype it is sent in (a blocking copy casts
+        on the host first)."""
+        t = torch.as_tensor(x)
+        if t.device.type == "cpu":
+            tracing.count("upload.bytes", t.numel() * (dtype or t.dtype).itemsize)
+        return t.to(device=self.model.device, dtype=dtype)
 
     @staticmethod
     def _uniform_frames(images) -> Optional[np.ndarray]:
@@ -214,30 +230,24 @@ class G2VLMPipeline:
             a.dtype == np.uint8 and a.ndim == 3 and a.shape[-1] == 3 for a in arrs)
         return np.stack(arrs) if ok else None
 
-    def _encode_frames(self, frames: np.ndarray, hw, return_info: bool):
+    def _encode_frames(self, frames: np.ndarray, hw):
         """Upload uniform uint8 frames and encode both towers, in UPLOAD_CHUNKS
-        view chunks when the view count allows: (dino_emb, vit_emb, seconds of
-        upload + towers or None)."""
-        model, dev, dt = self.model, self.model.device, self.model.dtype
+        view chunks when the view count allows: (dino_emb, vit_emb)."""
+        model, dt = self.model, self.model.dtype
         n = frames.shape[0]
         chunks = UPLOAD_CHUNKS if n % UPLOAD_CHUNKS == 0 and n >= 2 * UPLOAD_CHUNKS else 1
         nc = n // chunks
         grid = vit_device_grid()
         coords = np.concatenate([qwen_vit.merge_permuted_hw_coords(grid)] * nc)
         seg = np.repeat(np.arange(nc, dtype=np.int32), int(np.prod(grid)))
-        t0 = time.perf_counter()
         dino_embs, vit_embs = [], []
         for i in range(chunks):
-            part = torch.as_tensor(frames[i * nc : (i + 1) * nc]).to(dev)
+            part = self._upload(frames[i * nc : (i + 1) * nc])
             views = preprocess_views_device(part, hw)
             dino_embs.append(encode_dino_to_llm(model, views.to(dt)))
             patches = preprocess_vit_frames_device(part, out_dtype=dt)
             vit_embs.append(encode_vit_to_llm(model, patches, coords, seg, **self._attn))
-        seconds = None
-        if return_info:
-            self._sync()
-            seconds = time.perf_counter() - t0
-        return torch.cat(dino_embs), torch.cat(vit_embs), seconds
+        return torch.cat(dino_embs), torch.cat(vit_embs)
 
     @torch.inference_mode()
     def chat_prefill(
@@ -252,42 +262,42 @@ class G2VLMPipeline:
         and one packed forward. Returns (prefill, hidden (S, D) in logical row
         order, the layers' LayerKV list in sorted row order, n_views,
         (t_upload_s, t_forward_s)); the two times are None unless `timed`,
-        which synchronises the device after each stage."""
-        model, dev, dt = self.model, self.model.device, self.model.dtype
+        which records the call's spans (`tracing.record()`), synchronises the
+        device at the end of the `upload` and `prefill` stages and returns
+        their host durations."""
+        model, dt = self.model, self.model.dtype
         p = self.cfg.dino_patch_size
         frames = self._uniform_frames(images) if device_preprocess else None
-        kw = dict(return_kv=True, **self._attn)
-        if frames is not None:
-            n, h0, w0, _ = frames.shape
-            h, w = target_hw(h0, w0, new_width, p)
-            prefill = self.build_chat_prefill(n, h // p, w // p, [vit_device_grid()] * n, prompt)
-            dino_emb, vit_emb, t_upload = self._encode_frames(frames, (h, w), timed)
-            t0 = time.perf_counter()
-            hidden, kv = prefill_hidden(model, prefill, None, self.cfg, dino_emb=dino_emb, vit_emb=vit_emb, **kw)
-            del dino_emb, vit_emb
-        else:
-            views = load_views(images, new_width=new_width)
-            n, _, h, w = views.shape
-            vit_inputs = [preprocess_vit_image(im) for im in images]
-            n_pat = sum(int(np.prod(g)) for _, g in vit_inputs)
-            vit_patches, vit_coords, vit_seg, _ = qwen_vit.pack_views(
-                [{"patches": pats, "grid_thw": grid} for pats, grid in vit_inputs], pad_to=_round_up(n_pat, 8))
-            prefill = self.build_chat_prefill(n, h // p, w // p, [g for _, g in vit_inputs], prompt)
-            t0 = time.perf_counter()
-            normed = torch.as_tensor(resnet_normalize(views)).to(dev, dt)
-            vit_patches = torch.as_tensor(vit_patches).to(dev, dt)
-            t_upload = None
-            if timed:
-                self._sync()
-                t_upload = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            hidden, kv = prefill_hidden(model, prefill, normed, self.cfg, vit_patches=vit_patches,
-                                        vit_coords=vit_coords, vit_seg=vit_seg, **kw)
-        t_forward = None
-        if timed:
-            self._sync()
-            t_forward = time.perf_counter() - t0
-        return prefill, hidden, kv, n, (t_upload, t_forward)
+        normed = None
+        with tracing.record() if timed else contextlib.nullcontext():
+            if frames is not None:
+                n, h0, w0, _ = frames.shape
+                h, w = target_hw(h0, w0, new_width, p)
+                prefill = self.build_chat_prefill(n, h // p, w // p, [vit_device_grid()] * n, prompt)
+                with tracing.span("upload") as upload:
+                    towers = dict(zip(("dino_emb", "vit_emb"), self._encode_frames(frames, (h, w))))
+                    if timed:
+                        self._sync()
+            else:
+                with tracing.span("host_images"):
+                    views = load_views(images, new_width=new_width)
+                    vit_inputs = [preprocess_vit_image(im) for im in images]
+                    n_pat = sum(int(np.prod(g)) for _, g in vit_inputs)
+                    vit_patches, vit_coords, vit_seg, _ = qwen_vit.pack_views(
+                        [{"patches": pats, "grid_thw": grid} for pats, grid in vit_inputs], pad_to=_round_up(n_pat, 8))
+                n, _, h, w = views.shape
+                prefill = self.build_chat_prefill(n, h // p, w // p, [g for _, g in vit_inputs], prompt)
+                with tracing.span("upload") as upload:
+                    normed = self._upload(resnet_normalize(views), dt)
+                    towers = dict(vit_patches=self._upload(vit_patches, dt), vit_coords=vit_coords, vit_seg=vit_seg)
+                    if timed:
+                        self._sync()
+            with tracing.span("prefill") as forward:
+                hidden, kv = prefill_hidden(model, prefill, normed, self.cfg, return_kv=True, **towers, **self._attn)
+                del normed, towers
+                if timed:
+                    self._sync()
+        return prefill, hidden, kv, n, (upload.host_s, forward.host_s) if timed else (None, None)
 
     @torch.inference_mode()
     def chat(
@@ -307,60 +317,60 @@ class G2VLMPipeline:
     ):
         """Images + question -> answer text (the token ids joined by spaces
         when there is no tokenizer). With `return_session` (text, ChatSession);
-        else with `return_info` (text, info) where info has the token ids and
-        the stage times, each ending in a device synchronisation: upload (+
-        towers on the device-preprocess path), the prefill forward, the cache
-        build, and the decode loop.
+        else with `return_info` (text, info) where info has the token ids, the
+        id of the call's request in `tracing` (`tracing.record()` is on for the
+        call) and the host durations of its stage spans, each stage ending in
+        a device synchronisation: upload (+ towers on the device-preprocess
+        path), the prefill forward, the cache build, and the decode loop.
 
         `device_preprocess`: upload raw uint8 frames once and run both image
         preprocesses on the device; needs uniform uint8 frames (else the host
         path runs), and deviates from the PIL host path at serving tolerance."""
         model, dev, dt = self.model, self.model.device, self.model.dtype
-        prefill, _, kv, n, (t_upload, t_forward) = self.chat_prefill(
-            images, prompt, new_width, device_preprocess, timed=return_info)
-        t0 = time.perf_counter()
-
-        reserve = session_reserve if return_session else 0
-        capacity = max(_round_up(prefill.seq_len + max_new_tokens + reserve + 8, 128), len(prefill.doc_id))
-        # only the first seq_len rows are valid K/V (the padding sits at the tail and the length
-        # hides it); build_cache consumes the list, so the prefill K/V is freed layer by layer
-        cache = decoding.build_cache(kv, prefill.seq_len, self.cfg.llm, capacity, dtype=dt, quantized=quantized_kv)
-        del kv
-        if return_info:
-            self._sync()
-            t_cache = time.perf_counter() - t0
-            t0 = time.perf_counter()
-
-        start_token = self._start_token()
-        eos = self.new_token_ids["eos_token_id"]
-        generator = torch.Generator(device=dev).manual_seed(seed) if do_sample else None
-        toks, num, cache = decoding.generate(
-            model.language_model, cache, start_token, prefill.next_rope_pos, eos, self.cfg.llm,
-            max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature,
-            generator=generator, compute_dtype=dt,
-        )
-        num = int(num)  # reads the device: the loop is over
-        if return_info:
-            t_decode = time.perf_counter() - t0
-        ids = toks[:num].tolist()
-        session = None
-        if return_session:
-            # the position advanced by the consumed tokens: the start token and
-            # num - 1 generated ones; the last emitted token (eos on a clean
-            # stop) was never consumed, chat_continue feeds it first
-            session = ChatSession(cache, int(prefill.next_rope_pos) + num, ids[-1] if ids else start_token,
-                                  capacity, quantized_kv)
-        if ids and ids[-1] == eos:
-            ids = ids[:-1]
-        text = self._decode_text(ids)
+        with tracing.record() if return_info else contextlib.nullcontext(), tracing.span("chat") as call:
+            prefill, _, kv, n, (t_upload, t_forward) = self.chat_prefill(
+                images, prompt, new_width, device_preprocess, timed=return_info)
+            with tracing.span("cache") as cache_span:
+                reserve = session_reserve if return_session else 0
+                capacity = max(_round_up(prefill.seq_len + max_new_tokens + reserve + 8, 128), len(prefill.doc_id))
+                # only the first seq_len rows are valid K/V (the padding sits at the tail and the length
+                # hides it); build_cache consumes the list, so the prefill K/V is freed layer by layer
+                cache = decoding.build_cache(kv, prefill.seq_len, self.cfg.llm, capacity, dtype=dt,
+                                             quantized=quantized_kv)
+                del kv
+                if return_info:
+                    self._sync()
+            with tracing.span("decode") as decode_span:
+                start_token = self._start_token()
+                eos = self.new_token_ids["eos_token_id"]
+                generator = torch.Generator(device=dev).manual_seed(seed) if do_sample else None
+                toks, num, cache = decoding.generate(
+                    model.language_model, cache, start_token, prefill.next_rope_pos, eos, self.cfg.llm,
+                    max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature,
+                    generator=generator, compute_dtype=dt,
+                )
+                num = int(num)  # reads the device: the loop is over
+            ids = toks[:num].tolist()
+            session = None
+            if return_session:
+                # the position advanced by the consumed tokens: the start token and
+                # num - 1 generated ones; the last emitted token (eos on a clean
+                # stop) was never consumed, chat_continue feeds it first
+                session = ChatSession(cache, int(prefill.next_rope_pos) + num, ids[-1] if ids else start_token,
+                                      capacity, quantized_kv)
+            if ids and ids[-1] == eos:
+                ids = ids[:-1]
+            text = self._decode_text(ids)
         if return_session:
             return text, session
         if return_info:
+            t_cache, t_decode = cache_span.host_s, decode_span.host_s
             return text, {
                 "token_ids": toks[:num].tolist(),
                 "num_tokens": num,
                 "prefill_len": int(prefill.seq_len),
                 "n_views": int(n),
+                "request_id": call.rid,
                 "t_prefill_s": t_upload + t_forward + t_cache,
                 "t_upload_s": t_upload,
                 "t_forward_s": t_forward,

@@ -34,6 +34,7 @@ from ..config import G2VLMConfig, SegformerConfig
 
 from ..ops.linear import linear
 from ..ops.masks import TokenInfo
+from ..utils import tracing
 from ..utils.geometry import homogenize_points
 from . import dinov2, dinov3, mot_decoder, pi3_heads, qwen_vit, segformer
 
@@ -236,12 +237,13 @@ def encode_dino_to_llm(
     """dino_images (N, 3, H, W) RESNET-normalized -> (N*hw, D_llm), in
     `compute_dtype` (default: the parameters' dtype). DINOv3 takes no
     `remat_group`, as in the JAX package."""
-    if model.cfg.use_dinov3:
-        tokens = dinov3.encode(model.dino_model, dino_images, compute_dtype, remat=remat)
-    else:
-        tokens = dinov2.encode(model.dino_model, dino_images, compute_dtype, remat=remat, remat_group=remat_group)
-    n, hw, _ = tokens.shape
-    return linear(tokens.reshape(n * hw, -1), model.dino2llm, tokens.dtype)
+    with tracing.span("dino"):
+        if model.cfg.use_dinov3:
+            tokens = dinov3.encode(model.dino_model, dino_images, compute_dtype, remat=remat)
+        else:
+            tokens = dinov2.encode(model.dino_model, dino_images, compute_dtype, remat=remat, remat_group=remat_group)
+        n, hw, _ = tokens.shape
+        return linear(tokens.reshape(n * hw, -1), model.dino2llm, tokens.dtype)
 
 
 def _geo_dominant(cfg: G2VLMConfig, prefill: PackedPrefill) -> bool:
@@ -277,11 +279,13 @@ def encode_vit_to_llm(
     over rows by `packed_row_chunks` so that the tower's live activations stay
     bounded for many-image prefills."""
     dev = model.device
-    seg_np = vit_seg.cpu().numpy() if isinstance(vit_seg, torch.Tensor) else np.asarray(vit_seg)
-    return qwen_vit.encode_packed(
-        model.vit_model, vit_patches.to(dev), torch.as_tensor(vit_coords).to(dev), torch.as_tensor(seg_np).to(dev),
-        model.dtype, attn_impl, attn_pipe, row_chunks=qwen_vit.packed_row_chunks(seg_np),
-    )
+    with tracing.span("vit"):
+        seg_np = vit_seg.cpu().numpy() if isinstance(vit_seg, torch.Tensor) else np.asarray(vit_seg)
+        return qwen_vit.encode_packed(
+            model.vit_model, vit_patches.to(dev), torch.as_tensor(vit_coords).to(dev),
+            torch.as_tensor(seg_np).to(dev), model.dtype, attn_impl, attn_pipe,
+            row_chunks=qwen_vit.packed_row_chunks(seg_np),
+        )
 
 
 def prefill_hidden(
@@ -337,7 +341,8 @@ def prefill_hidden(
             if vit_coords is not None:
                 vit_emb = encode_vit_to_llm(model, vit_patches, vit_coords, vit_seg, attn_impl, attn_pipe)
             else:
-                vit_emb = qwen_vit.encode(model.vit_model, vit_patches.to(dev), vit_grid_hw, dt)
+                with tracing.span("vit"):
+                    vit_emb = qwen_vit.encode(model.vit_model, vit_patches.to(dev), vit_grid_hw, dt)
         if vit_emb is not None:
             seq[rows(prefill.vit_indexes)] = vit_emb[:n_vit].to(dt)
 
@@ -345,7 +350,8 @@ def prefill_hidden(
     position_ids = torch.as_tensor(prefill.position_ids).to(dev)
     kw = dict(attn_impl=attn_impl, attn_pipe=attn_pipe, return_kv=return_kv)
     if _geo_dominant(cfg, prefill):
-        return mot_decoder.decoder_forward(lm, seq, position_ids, info, und_idx=text_idx, **kw)
+        with tracing.span("decoder"):
+            return mot_decoder.decoder_forward(lm, seq, position_ids, info, und_idx=text_idx, **kw)
     is_geo = np.asarray(prefill.is_geo)
     perm = geo_start = None
     if cfg.llm.layer_module == "mot" and 0 < int(is_geo.sum()) < int((prefill.doc_id >= 0).sum()):
@@ -354,9 +360,10 @@ def prefill_hidden(
         seq, position_ids = seq[perm_t], position_ids[:, perm_t]
         info = TokenInfo(*(f[perm_t] for f in info))
         is_geo = is_geo[perm]
-    out = mot_decoder.decoder_forward_train(
-        lm, seq, torch.as_tensor(is_geo).to(dev), position_ids, info, geo_start=geo_start, compute_dtype=dt, **kw
-    )
+    with tracing.span("decoder"):
+        out = mot_decoder.decoder_forward_train(
+            lm, seq, torch.as_tensor(is_geo).to(dev), position_ids, info, geo_start=geo_start, compute_dtype=dt, **kw
+        )
     hidden, kvs = out if return_kv else (out, None)
     if perm is not None:
         hidden = hidden[rows(np.argsort(perm, kind="stable"))]
@@ -447,4 +454,5 @@ def recon_forward(
     hidden = prefill_hidden(model, prefill, dino_images, cfg, attn_impl, attn_pipe)
     dino_idx = torch.as_tensor(prefill.dino_indexes, dtype=torch.long).to(hidden.device)
     dino_hidden = hidden[dino_idx].reshape(n, hw, -1)
-    return pi3_predict(model, dino_hidden, (h, w), cfg)
+    with tracing.span("heads"):
+        return pi3_predict(model, dino_hidden, (h, w), cfg)
