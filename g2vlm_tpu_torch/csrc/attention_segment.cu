@@ -39,18 +39,58 @@
 // - the exponentials, one a pair on the special-function units;
 // - the K/V copies from L2: every block reads all live K/V tiles of its KV head.
 //
-// The design (hopper_common.cuh has the building blocks):
+// Two schedules of one template (hopper_common.cuh has the building blocks).
+//
+// K2 and K3 at head dim 128 (the decoder's: the recon and chat prefills, the
+// training pack) run the warp-specialised schedule, `segment_fwd_ws`:
+// - What bounds it: the products, and beside them the softmax. Per 64-key
+//   tile a warpgroup's S and P V take ~512 cycles of the tensor cores at
+//   their peak, its softmax (32 exponentials, the row maxima and sums, the
+//   packing of P) about as long again, and S = Q K^T with both operands in
+//   shared memory reads 128 bytes a cycle at that peak, all that shared
+//   memory gives. The L2 does not bound it: a build whose blocks all read the
+//   same 8 K/V tiles measured no faster (PERF.md).
+// - A block is three warpgroups: a producer (warpgroup 2) and two consumers
+//   (0 and 1) of 64 query rows each. At an even GQA group G (the decoder's
+//   12:2) the consumers hold two query heads of one KV head on the same rows
+//   and share every stage, its codes and its mask; at G odd they hold two
+//   consecutive query tiles of one head. `segment_fwd_grid` reckons the grid
+//   from the two warpgroups that g2_segment_attention_warpgroups reports.
+// - The producer: one thread fills a ring of 5 K/V stages of 64 keys by TMA
+//   (k and v as tensor maps whose 64 x 64 boxes land as the column blocks of
+//   a swizzled tile; rows past Skv arrive as zeros), and its four warps build
+//   the PARTIAL masks of each stage from the metadata, as the lockstep fill
+//   does. Tiles that are SKIP for both consumers never enter the ring.
+// - The consumers issue only wgmma: S of tile t + 1 and P V of tile t
+//   together (K4's order, so K2's arithmetic: the outputs are bitwise the
+//   lockstep schedule's), then tile t + 1's softmax under them. They take
+//   turns on the tensor cores on two named barriers (4 + wg), so that one
+//   warpgroup's softmax runs under the other's products. A warp whose rows'
+//   running maxima all stood still on a tile skips the rescale of O (a
+//   multiplication by 1).
+// - Key tiles of 64: the softmax keeps K2's running maximum per 64 keys, so
+//   K2, K3 and K4 stay bitwise equal; a 128-key tile would round P
+//   elsewhere.
+// - Registers (ptxas, PERF.md): a block of 384 threads is compiled to 168
+//   registers a thread whatever setmaxnreg asks, as attention_bwd.cu found
+//   for its kernels. The consumers' state (O 64, S 32, P 16 and the
+//   statistics) fits in 143 with no spill, so no setmaxnreg is used; Q as a
+//   register operand of S (32 more) spills and serialises the wgmma, whatever
+//   the block's size.
+//
+// K4, K8 and every head dim below 128 run the lockstep schedule,
+// `segment_fwd_lockstep`: there the products are smaller against the fill
+// and the softmax (D 64 / 80 / 96), K8's int8 S takes another ring, and K4 is
+// by its definition the two-stage schedule that K2 is compared against.
 // - GQA heads share K/V stages, as the TPU kernel packs a group into one step.
 //   A block is kWgs = 3 consumer warpgroups of 64 query rows each. Where the
 //   group G is a multiple of 3, the warpgroups hold 3 query heads of one KV
 //   head on the same 64 token rows: they share every K/V stage, its tile code
 //   and its mask. Otherwise (the ViT's 16:16, G = 1) they hold 3 consecutive
 //   query tiles of one head, as K1's blocks do, and each reads its own code.
-//   The host reckons the grid (`segment_fwd_grid` in ops/flash_attention.py,
-//   from the kWgs that g2_segment_attention_warpgroups reports) and
-//   `block_plan` decodes a block's share of it. One block per item: a block
-//   walks up to 756 tiles at the main path's shapes, so a persistent grid
-//   would save little (PERF.md).
+//   `block_plan` decodes a block's share of the grid. One block per item: a
+//   block walks up to 756 tiles at the main path's shapes, so a persistent
+//   grid would save little (PERF.md).
 // - Products on wgmma: S = Q K^T with both operands K-major in swizzled shared
 //   memory; O += P V with P packed to T in registers as the A operand and V
 //   read MN-major from the same stage. Head dim 80 (160-byte rows fit neither
@@ -67,13 +107,11 @@
 //   s32 accumulator has the fp32 one's ownership, so the scales apply in
 //   registers before K2's softmax (with the scale already in qs).
 // - A ring of kStages K/V stages, filled by 16-byte cp.async completing on an
-//   mbarrier, kAhead tiles ahead of the products, by every thread of the block
-//   (a producer warp would cap the block's registers, as attention_bwd.cu
-//   found). A stage is released on a second mbarrier once every warp is done
+//   mbarrier, kAhead tiles ahead of the products, by every thread of the
+//   block. A stage is released on a second mbarrier once every warp is done
 //   with it. SKIP tiles (SKIP for every warpgroup) never enter the ring: the
-//   fill steps over them.
-//   cp.async and not TMA: q/k/v arrive as strided views of the qkv projection,
-//   and the ragged tail (a pack of 333 rows) is zero-filled per thread.
+//   fill steps over them. The ragged tail (a pack of 333 rows) is
+//   zero-filled per thread.
 // - The mask of a PARTIAL tile is built once per block and stage, not once
 //   per head: the fill evaluates the rule for the rows of each PARTIAL query
 //   tile of the block against the tile's 64 keys, one pair a lane, and packs
@@ -81,24 +119,25 @@
 //   stage's mbarrier. A consumer reads four words a tile and selects with one
 //   AND per element. The key metadata comes from device memory (L2) at fill
 //   time, so the stage holds the bits and not the metadata.
-// - Softmax in registers in exp2 units: scale log2(e) folded into one FFMA per
-//   element (for a positive scale), the hardware ex2 (fast_exp2), K2's exact
-//   running maximum, one warp-uniform branch per tile (FULL or PARTIAL) and
-//   branch-free selects inside. A row with nothing visible yet shifts by 0; a
-//   row that sees no key is written as 0 (lse kLseEmpty).
-// - Two schedules of one template. Serial: S, softmax, P V on each tile; the
-//   fill of a later stage runs under S. Pipelined (kPipe): tile t + 1's S and
-//   tile t's P V are issued together, and tile t + 1's exponentials run while
-//   they are in flight. K2 and K3 run the serial form, K4 the pipelined one:
-//   with three warpgroups a block (one an SM: 186 KB of shared memory at D 128)
-//   the serial form holds 156-168 registers (12 bytes spilled at D 128), the
-//   pipelined one spills more at 168, and the serial one measured faster, as
-//   did 4 stages against 3 and 3 warpgroups against 2 (PERF.md). K8 runs the
-//   serial form (131 KB at D 128).
+// - Serial (K2 / K3, K8): S, softmax, P V on each tile; the fill of a later
+//   stage runs under S. Pipelined (K4, kPipe): tile t + 1's S and tile t's
+//   P V are issued together, and tile t + 1's exponentials run while they are
+//   in flight. With three warpgroups a block (one an SM: 186 KB of shared
+//   memory at D 128) the serial form holds 156-168 registers, the pipelined
+//   one spills at 168 (PERF.md). K8 runs the serial form (131 KB at D 128).
 //   A warpgroup whose own code is SKIP on a stage that another warpgroup needs
 //   first finishes its pending P V, so that it never holds a stage while the
 //   ring laps it.
-// - No atomics: every output row has one owner, two launches are bitwise equal.
+//
+// Both schedules: softmax in registers in exp2 units: scale log2(e) folded
+// into one FFMA per element (for a positive scale), the hardware ex2
+// (fast_exp2), K2's exact running maximum, one warp-uniform branch per tile
+// (FULL or PARTIAL) and branch-free selects inside. A row with nothing
+// visible yet shifts by 0; a row that sees no key is written as 0 (lse
+// kLseEmpty). No atomics: every output row has one owner, two launches are
+// bitwise equal.
+
+#include <cuda.h>
 
 #include <type_traits>
 
@@ -109,10 +148,20 @@ namespace {
 
 constexpr int kRows = 64;  // rows of every tile: a warpgroup's query rows, a stage's keys
 
-// The block and the ring, the same at every head dim and in both schedules.
+// The lockstep schedules' block and ring, the same at every head dim.
 constexpr int kWgs = 3;  // consumer warpgroups
 constexpr int kSegThreads = kWgs * 128;
 constexpr int kSegWarps = kSegThreads / 32;
+
+// The warp-specialised schedule (K2 and K3 at head dim 128): two consumer warpgroups and a producer one.
+constexpr int kWsWgs = 2;  // the stage's info holds a code for each
+constexpr int kWsProducerWarps = 4;
+constexpr int kWsThreads = kWsWgs * 128 + kWsProducerWarps * 32;
+constexpr int kBarProducer = 1 + kWsWgs;  // named barriers: 1 + wg the Q tiles, then the producer's, then the turns
+constexpr int kBarTurn = kBarProducer + 1;
+
+template <int D, bool kPipe, bool kInt8>
+constexpr bool kWarpSpecialised = D == 128 && !kPipe && !kInt8;
 
 template <int D, bool kInt8>
 struct SegSmem {
@@ -135,6 +184,23 @@ struct SegSmem {
   static_assert(kBytes <= 232448, "the block's shared memory exceeds the H100's 227 KB");
 };
 
+// The warp-specialised schedule's shared memory at head dim 128: its stages are filled by TMA, whose
+// 64 x 64 boxes land as the column blocks of a swizzled T tile.
+struct WsSmem {
+  static constexpr int kStages = 5;
+  static constexpr int kTile = kRows * 128 * 2;               // a 64 x 128 T tile
+  static constexpr int kQ = 0;                                // [kWsWgs] Q tiles
+  static constexpr int kK = kQ + kWsWgs * kTile;              // [kStages] K tiles
+  static constexpr int kV = kK + kStages * kTile;             // [kStages] V tiles
+  static constexpr int kMaskStage = kWsWgs * kRows * 8;       // [query tile][row][2] uint32 of a stage
+  static constexpr int kMask = kV + kStages * kTile;          // [kStages] masks
+  static constexpr int kQMeta = kMask + kStages * kMaskStage;  // [kWsWgs * 64] int4 query metadata
+  static constexpr int kInfo = kQMeta + kWsWgs * kRows * 16;  // [kStages] int4 (kv tile, code per query tile)
+  static constexpr int kBar = kInfo + kStages * 16;           // full[kStages], empty[kStages]
+  static constexpr int kBytes = kBar + 2 * kStages * 8 + 1024;  // + alignment slack
+  static_assert(kBytes <= 232448, "the block's shared memory exceeds the H100's 227 KB");
+};
+
 struct SegmentArgs {
   const void* q;
   const void* k;
@@ -151,20 +217,21 @@ struct SegmentArgs {
   float* lse;  // contiguous (H, Sq), or null
   const float* qs = nullptr;  // K8: (H, Sq) query scales, folded with scale log2(e)
   const float* ks = nullptr;  // K8: (KVH, Skv) key scales
+  CUtensorMap k_map{}, v_map{};  // the warp-specialised schedule: k and v as 64-row boxes of 64 columns
 };
 
 // A block's share of the launch, as `segment_fwd_grid` reckons the grid: hb
-// query heads times qb query tiles, hb * qb = kWgs. Warpgroup w holds head
-// head0 + w % hb and query tile qt0 + w / hb.
+// query heads times qb query tiles, hb * qb = wgs (the consumer warpgroups).
+// Warpgroup w holds head head0 + w % hb and query tile qt0 + w / hb.
 struct BlockPlan {
   int hb, qb, kv_h, head0, qt0;
 };
 
-__device__ __forceinline__ BlockPlan block_plan(const SegmentArgs& a) {
+__device__ __forceinline__ BlockPlan block_plan(const SegmentArgs& a, int wgs) {
   const int group = a.h / a.kvh;
   BlockPlan p;
-  p.hb = group % kWgs == 0 ? kWgs : 1;
-  p.qb = kWgs / p.hb;
+  p.hb = group % wgs == 0 ? wgs : 1;
+  p.qb = wgs / p.hb;
   const int n_hg = group / p.hb;
   const int n_qtb = cdiv(cdiv(a.sq, kRows), p.qb);
   int x = blockIdx.x;
@@ -280,8 +347,40 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], int code, const uin
   }
 }
 
+// A warpgroup's 64 output rows (and their lse) from its accumulator: O / l, 0 for a row that sees no key
+template <typename T, int D, int kDs, bool kLse>
+__device__ __forceinline__ void store_rows(const SegmentArgs& a, const float (&acc)[kDs / 2], const float (&m_run)[2],
+                                           const float (&l_run)[2], int h, int q0, int n_rows) {
+  if (n_rows <= 0) return;
+  const int tid = threadIdx.x % 128;
+  const int g = (tid & 31) >> 2;
+  const int qd = tid & 3;
+  const long long o_ss = static_cast<long long>(a.h) * D;
+  T* o = static_cast<T*>(a.o) + static_cast<long long>(q0) * o_ss + h * D;
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    float l = l_run[row];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = l > 0.f ? 1.f / l : 0.f;  // a row that sees no key is written as 0
+    const int rr = (tid >> 5) * 16 + g + row * 8;
+    if (rr < n_rows) {
+      if (kLse && qd == 0) {
+        a.lse[static_cast<long long>(h) * a.sq + q0 + rr] = l > 0.f ? m_run[row] * kLn2 + logf(l) : kLseEmpty;
+      }
+      T* dst = o + rr * o_ss + qd * 2;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dst + j * 8) =
+            pack2<T>(acc[4 * j + 2 * row] * inv, acc[4 * j + 2 * row + 1] * inv);
+      }
+    }
+  }
+}
+
+// The lockstep schedules: three consumer warpgroups that also fill the ring
 template <typename T, int D, bool kLse, bool kPipe, bool kInt8>
-__global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const SegmentArgs a) {
+__device__ __forceinline__ void segment_fwd_lockstep(const SegmentArgs& a) {
   using L = SegSmem<D, kInt8>;
   using QK = std::conditional_t<kInt8, int8_t, T>;  // the type of q and k
   constexpr int kDs = L::kDs;
@@ -295,7 +394,7 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* empty = full + L::kStages;
 
-  const BlockPlan bp = block_plan(a);
+  const BlockPlan bp = block_plan(a, kWgs);
   const int wg = threadIdx.x / 128;
   const int tid = threadIdx.x % 128;
   const int warp = threadIdx.x / 32;
@@ -406,8 +505,6 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
   named_barrier(1 + wg, 128);  // the warpgroup's Q tile is in place
 
   const float scale_log2 = a.scale_log2;
-  const int g = (tid & 31) >> 2;
-  const int qd = tid & 3;
   float acc[kDs / 2];
 #pragma unroll
   for (int i = 0; i < kDs / 2; ++i) acc[i] = 0.f;
@@ -421,7 +518,7 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
   if constexpr (kInt8) {
 #pragma unroll
     for (int row = 0; row < 2; ++row) {
-      const int rr = (tid >> 5) * 16 + g + row * 8;
+      const int rr = (tid >> 5) * 16 + ((tid & 31) >> 2) + row * 8;
       if (rr < n_rows) qs[row] = a.qs[static_cast<long long>(h) * a.sq + q0 + rr];
     }
   }
@@ -532,40 +629,273 @@ __global__ void __launch_bounds__(kSegThreads, 1) segment_fwd_kernel(const Segme
     if (st_p >= 0) flush();
   }
 
-  if (n_rows > 0) {
-    const long long o_ss = static_cast<long long>(a.h) * D;
-    T* o = static_cast<T*>(a.o) + static_cast<long long>(q0) * o_ss + h * D;
+  store_rows<T, D, kDs, kLse>(a, acc, m_run, l_run, h, q0, n_rows);
+  cp_async_wait_all();
+}
+
+// The warp-specialised schedule of K2 and K3 at head dim 128. Warpgroups 0 and 1 are consumers: each
+// holds 64 query rows (two heads of a GQA group on the same rows, or two query tiles of one head), its
+// own S, P and O, and issues only wgmma. Warpgroup 2 is the producer: one thread fills the ring by TMA,
+// the four warps build the PARTIAL masks. The consumers take turns on the tensor cores (named barriers
+// 4 and 5): each issues S of its next tile with P V of its last one and passes the turn, so that one
+// warpgroup's softmax runs under the other's products.
+template <typename T, bool kLse>
+__device__ __forceinline__ void segment_fwd_ws(const SegmentArgs& a) {
+  constexpr int D = 128;
+  using L = WsSmem;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  const uint32_t sb = smem_u32(smem);
+  uint32_t* s_mask = reinterpret_cast<uint32_t*>(smem + L::kMask);
+  int4* s_qmeta = reinterpret_cast<int4*>(smem + L::kQMeta);
+  int4* s_info = reinterpret_cast<int4*>(smem + L::kInfo);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + L::kStages;
+
+  const BlockPlan bp = block_plan(a, kWsWgs);
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // warp-uniform to the compiler too
+  const int lane = threadIdx.x & 31;
+  const int n_q_tiles = cdiv(a.sq, kRows);
+  const int n_kv_tiles = cdiv(a.skv, kRows);
+  auto tile_code = [&](int j, int t) {  // code of the block's query tile j against kv tile t
+    const int qt = bp.qt0 + j;
+    return j < bp.qb && qt < n_q_tiles ? static_cast<int>(a.codes[static_cast<long long>(qt) * n_kv_tiles + t])
+                                       : kSkip;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < L::kStages; ++st) {
+      mbar_init(&full[st], kWsProducerWarps + 1);  // the TMA's bytes with one arrival, and one per producer warp
+      mbar_init(&empty[st], kWsWgs * 4);           // one release per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kWsWgs) {
+    // The producer: each live K / V tile by TMA into the next free stage, and the mask of a PARTIAL one;
+    // tiles that are SKIP for both query tiles of the block never enter the ring.
+    const int ptid = threadIdx.x - kWsWgs * 128;
+    const int pwarp = ptid / 32;
+    // the query metadata of the block's rows; rows past Sq never match anything (doc -2, as the TPU wrapper pads)
+    for (int r = ptid; r < bp.qb * kRows; r += kWsProducerWarps * 32) {
+      const int row = bp.qt0 * kRows + r;
+      s_qmeta[r] = row < a.sq ? a.q_meta[row] : make_int4(-2, -1, -1, 0);
+    }
+    named_barrier(kBarProducer, kWsProducerWarps * 32);
+    int st = 0, ph = 0;
+    for (int t = 0; t < n_kv_tiles; ++t) {
+      int c[kWsWgs];  // each consumer's code
+      bool live = false, partial = false;
 #pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      float l = l_run[row];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float inv = l > 0.f ? 1.f / l : 0.f;  // a row that sees no key is written as 0
-      const int rr = (tid >> 5) * 16 + g + row * 8;
-      if (rr < n_rows) {
-        if (kLse && qd == 0) {
-          a.lse[static_cast<long long>(h) * a.sq + q0 + rr] = l > 0.f ? m_run[row] * kLn2 + logf(l) : kLseEmpty;
+      for (int j = 0; j < kWsWgs; ++j) {
+        c[j] = tile_code(j, t);
+        live |= c[j] != kSkip;
+        partial |= c[j] == kPartial;
+      }
+      if (!live) continue;
+      mbar_wait_sleep(&empty[st], ph ^ 1);
+      const int n0 = t * kRows;
+      if (ptid == 0) {  // rows past Skv arrive as zeros
+        mbar_arrive_expect_tx(&full[st], 2 * L::kTile);
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_3d(sb + L::kK + st * L::kTile + cb * kRows * 128, &a.k_map, &full[st], 64 * cb, bp.kv_h, n0);
+          tma_load_3d(sb + L::kV + st * L::kTile + cb * kRows * 128, &a.v_map, &full[st], 64 * cb, bp.kv_h, n0);
         }
-        T* dst = o + rr * o_ss + qd * 2;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          *reinterpret_cast<uint32_t*>(dst + j * 8) =
-              pack2<T>(acc[4 * j + 2 * row] * inv, acc[4 * j + 2 * row + 1] * inv);
+        s_info[st] = make_int4(t, c[0], c[1], 0);
+      }
+      if (partial) {
+        // the mask of each PARTIAL query tile j: bit c of word (j, r, h) is pair (query row j * 64 + r,
+        // key n0 + 32 h + c) visible; a lane evaluates one key of a word, the warp's ballot packs it
+        const int rows = min(kRows, a.skv - n0);
+        int4 km0 = make_int4(-1, -1, -1, -1), km1 = km0;
+        if (lane < rows) km0 = a.kv_meta[n0 + lane];
+        if (lane + 32 < rows) km1 = a.kv_meta[n0 + 32 + lane];
+        uint2* mask = reinterpret_cast<uint2*>(s_mask + st * (L::kMaskStage / 4));
+        for (int j = 0; j < bp.qb; ++j) {
+          if (c[j] != kPartial) continue;
+#pragma unroll 2
+          for (int r = j * kRows + pwarp; r < (j + 1) * kRows; r += kWsProducerWarps) {
+            const int4 qm = s_qmeta[r];
+            const uint32_t lo = __ballot_sync(0xffffffffu, seg_visible(qm, km0));
+            const uint32_t hi = __ballot_sync(0xffffffffu, seg_visible(qm, km1));
+            if (lane == 0) mask[r] = make_uint2(lo, hi);
+          }
         }
       }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[st]);  // after the warp's writes of the mask and the info
+      next_stage<L::kStages>(st, ph);
     }
+    return;
   }
-  cp_async_wait_all();
+
+  // a consumer warpgroup
+  const int tid = threadIdx.x % 128;
+  const int qtl = wg / bp.hb;  // this warpgroup's query tile among the block's
+  const int h = bp.head0 + wg % bp.hb;
+  const int q0 = (bp.qt0 + qtl) * kRows;
+  const int n_rows = max(0, min(kRows, a.sq - q0));
+  const uint32_t s_q = sb + L::kQ + wg * L::kTile;
+  const T* q_rows = static_cast<const T*>(a.q) + h * a.q_sh + static_cast<long long>(n_rows > 0 ? q0 : 0) * a.q_ss;
+  load_rows<T, D, D>(s_q, q_rows, a.q_ss, n_rows, tid, 128);
+  cp_async_commit();
+  int n_live = 0;  // the tiles the producer puts in the ring
+  for (int t0 = 0; t0 < n_kv_tiles; t0 += 32) {
+    const int t = t0 + lane;
+    bool live = false;
+#pragma unroll
+    for (int j = 0; j < kWsWgs; ++j) live |= t < n_kv_tiles && tile_code(j, t) != kSkip;
+    n_live += __popc(__ballot_sync(0xffffffffu, live));
+  }
+  cp_async_wait<0>();
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);  // the warpgroup's Q tile is in place
+
+  // the turns on the tensor cores: warpgroup 0 takes the first
+  if (wg == 1) named_barrier_arrive(kBarTurn, 256);
+  auto take_turn = [&]() { named_barrier(kBarTurn + wg, 256); };
+  auto pass_turn = [&]() { named_barrier_arrive(kBarTurn + 1 - wg, 256); };
+
+  const float scale_log2 = a.scale_log2;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};  // this thread's partial sums, added over the quad at the end
+  float alpha[2];
+  float s[32];
+  uint32_t p[4][4];
+  auto issue_s = [&](int st) { product_abt<T, D>(s, s_q, sb + L::kK + st * L::kTile); };
+  auto rescale_acc = [&]() {  // a warp whose rows' maxima all stood still multiplies by 1: it skips that
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale<D>(acc, alpha);
+  };
+  auto my_code = [&](int st) {
+    const int4 info = s_info[st];
+    return n_rows == 0 ? kSkip : qtl == 0 ? info.y : info.z;
+  };
+  auto mask_rows = [&](int st) { return s_mask + st * (L::kMaskStage / 4) + qtl * kRows * 2; };
+
+  // K4's order of work, so K2's arithmetic: S of tile t + 1 and P V of tile t issued together, tile
+  // t + 1's softmax under them
+  int stage = 0, phase = 0;
+  int st_p = -1;  // the stage whose P V is pending, with its P in p
+  auto flush = [&]() {
+    wgmma_fence();
+    product_ab<T, D>(acc, p, sb + L::kV + st_p * L::kTile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(&empty[st_p]);
+    st_p = -1;
+  };
+  for (int n_done = 0; n_done < n_live; ++n_done) {
+    mbar_wait_sleep(&full[stage], phase);
+    const int st = stage;
+    next_stage<L::kStages>(stage, phase);
+    const int code = my_code(st);
+    take_turn();
+    if (code == kSkip) {  // the other warpgroup's tile: finish the pending P V, pass the stage on
+      pass_turn();
+      if (st_p >= 0) flush();
+      release(&empty[st]);
+      continue;
+    }
+    if (st_p < 0) {
+      wgmma_fence();
+      issue_s(st);
+      wgmma_commit();
+      pass_turn();
+      wgmma_wait<0>();
+      fence_regs(s);
+      softmax_step(s, code, mask_rows(st), scale_log2, m_run, l_run, alpha);
+      rescale_acc();
+      to_a_operands<T>(p, s);
+      st_p = st;
+      continue;
+    }
+    // each wgmma pipeline is straight-line code: ptxas serialises wgmma issued under a branch
+    wgmma_fence();
+    issue_s(st);  // S of this tile
+    wgmma_commit();
+    product_ab<T, D>(acc, p, sb + L::kV + st_p * L::kTile);  // O += P V of the pending one
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait<1>();  // S is in; P V runs on under its exponentials, and the other warpgroup's products
+    fence_regs(s);
+    softmax_step(s, code, mask_rows(st), scale_log2, m_run, l_run, alpha);
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(p[kk]);  // P stays live until its product is done
+    release(&empty[st_p]);
+    rescale_acc();
+    to_a_operands<T>(p, s);  // only now: registers of an operand in flight must not be written
+    st_p = st;
+  }
+  if (st_p >= 0) flush();
+  if (wg == 0) take_turn();  // warpgroup 1's last pass: the turns' arrivals balance
+
+  store_rows<T, D, D, kLse>(a, acc, m_run, l_run, h, q0, n_rows);
+}
+
+template <typename T, int D, bool kLse, bool kPipe, bool kInt8>
+__global__ void __launch_bounds__(kWarpSpecialised<D, kPipe, kInt8> ? kWsThreads : kSegThreads, 1)
+    segment_fwd_kernel(const __grid_constant__ SegmentArgs a) {
+  if constexpr (kWarpSpecialised<D, kPipe, kInt8>) {
+    segment_fwd_ws<T, kLse>(a);
+  } else {
+    segment_fwd_lockstep<T, D, kLse, kPipe, kInt8>(a);
+  }
 }
 
 template <typename T, int D, bool kLse, bool kPipe, bool kInt8 = false>
 cudaError_t launch_as(const SegmentArgs& a, int n_blocks, cudaStream_t stream) {
-  constexpr int smem = SegSmem<D, kInt8>::kBytes;
+  constexpr bool kWs = kWarpSpecialised<D, kPipe, kInt8>;
+  constexpr int smem = kWs ? WsSmem::kBytes : SegSmem<D, kInt8>::kBytes;
   auto kernel = segment_fwd_kernel<T, D, kLse, kPipe, kInt8>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<n_blocks, kSegThreads, smem, stream>>>(a);
+  kernel<<<n_blocks, kWs ? kWsThreads : kSegThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled of the driver, found through the runtime (the library links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                                             &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a (rows, heads, 128) view (strides in elements, the head dim contiguous) whose box is
+// 64 rows of one head by 64 columns, 128-byte swizzled: a column block of a T tile. Rows past the end
+// arrive as zeros.
+bool tile_map(CUtensorMap* map, int dtype, const void* base, int rows, int heads, long long row_stride,
+              long long head_stride) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr || rows < 1) return false;
+  const cuuint64_t dims[3] = {128, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(head_stride) * 2, static_cast<cuuint64_t>(row_stride) * 2};
+  const cuuint32_t box[3] = {64, 1, kRows};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T, int D, bool kPipe>
@@ -612,8 +942,9 @@ int entry(int dtype, const SegmentArgs& a, int d, int n_blocks, void* stream) {
 // The output is a contiguous (Sq, H, D) tensor; lse is a contiguous fp32
 // (H, Sq) tensor or null. dtype: 0 = bf16, 1 = fp16. Strides are in elements;
 // the head dim is contiguous. n_blocks is the grid that `segment_fwd_grid`
-// reckons for g2_segment_attention_warpgroups() warpgroups a block. Returns a
-// cudaError_t.
+// reckons for g2_segment_attention_warpgroups(d, 0, 0) warpgroups a block. At
+// head dim 128 k and v are read by TMA: their base and strides must be
+// multiples of 16 bytes. Returns a cudaError_t.
 extern "C" int g2_segment_attention(
     int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
     const void* q_meta, const void* kv_meta, const void* codes,
@@ -625,10 +956,15 @@ extern "C" int g2_segment_attention(
   SegmentArgs a{q, k, v, o, static_cast<const int4*>(q_meta), static_cast<const int4*>(kv_meta),
                 static_cast<const int8_t*>(codes), sq, skv, h, kvh, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh,
                 scale * kLog2e, static_cast<float*>(lse)};
+  if (d == 128 &&
+      !(tile_map(&a.k_map, dtype, k, skv, kvh, k_ss, k_sh) && tile_map(&a.v_map, dtype, v, skv, kvh, v_ss, v_sh))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return entry<false>(dtype, a, d, n_blocks, stream);
 }
 
-// K4: the same arguments, the pipelined schedule.
+// K4: the same arguments, the pipelined schedule; n_blocks for
+// g2_segment_attention_warpgroups(d, 1, 0) warpgroups a block.
 extern "C" int g2_segment_attention_pipe(
     int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
     const void* q_meta, const void* kv_meta, const void* codes,
@@ -648,8 +984,9 @@ extern "C" int g2_segment_attention_pipe(
 // qs (H, Sq) and ks (KVH, Skv) contiguous fp32, qs folded with the softmax
 // scale times log2(e); v (Skv, KVH, d). Strides are in elements (bytes for
 // q8 / k8); the head dim is contiguous and rows are 16-byte aligned. The
-// metadata, tile codes and n_blocks are K2's. The output is a contiguous
-// (Sq, H, d) tensor. Returns a cudaError_t.
+// metadata and tile codes are K2's, n_blocks the grid for
+// g2_segment_attention_warpgroups(d, 0, 1) warpgroups a block. The output is
+// a contiguous (Sq, H, d) tensor. Returns a cudaError_t.
 extern "C" int g2_segment_attention_int8(
     int dtype, const void* q8, const void* k8, const void* v, void* o,
     const void* qs, const void* ks,
@@ -668,5 +1005,7 @@ extern "C" int g2_segment_attention_int8(
                                      : dispatch_int8<__half>(a, d, n_blocks, st));
 }
 
-// The consumer warpgroups of a block of every entry, at every head dim.
-extern "C" int g2_segment_attention_warpgroups() { return kWgs; }
+// The consumer warpgroups of a block of an entry (pipelined: K4, int8: K8, neither: K2 / K3) at head dim d.
+extern "C" int g2_segment_attention_warpgroups(int d, int pipelined, int int8) {
+  return d == 128 && !pipelined && !int8 ? kWsWgs : kWgs;
+}

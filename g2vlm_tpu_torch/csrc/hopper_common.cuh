@@ -3,9 +3,9 @@
 // (`wgmma.mma_async`, bf16 / fp16 and s8) with their shared-memory
 // descriptors and the swizzled tile layout they read, the two products of a
 // 64-row tile (A B^T from shared memory, A B with A in registers), `mbarrier`s
-// for a ring of asynchronously filled stages (`cp.async` completing on an
-// mbarrier), named barriers, and the row reductions and rescale of an online
-// softmax over a 64 x 64 tile.
+// for a ring of asynchronously filled stages (`cp.async`, or a TMA copy of a
+// tensor map's box, completing on an mbarrier), named barriers, and the row
+// reductions and rescale of an online softmax over a 64 x 64 tile.
 //
 // Tile layout. A tile of R rows by D columns (bf16 / fp16) is stored as D / E
 // column blocks of E = kSw / 2 elements; block cb holds the R rows of kSw
@@ -129,6 +129,11 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// arrives on a named barrier without waiting for it
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
@@ -139,6 +144,22 @@ __device__ __forceinline__ void mbar_init_fence() {
 
 __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// arrives on `bar` and raises the bytes its phase waits for by `bytes` (those of the TMA copies that
+// complete on it)
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// TMA: copies the box of a 3-d tensor map (in kernel parameter space) at coordinates (c0, c1, c2),
+// innermost first, to shared memory; its bytes complete on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 // arrives on `bar` once every cp.async this thread issued so far has landed;
@@ -167,6 +188,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   if (mbar_try_wait(addr, parity)) return;
   const long long t0 = clock64();
   while (!mbar_try_wait(addr, parity)) {
+    if (clock64() - t0 > (1LL << 33)) __trap();
+  }
+}
+
+// mbar_wait for a thread that has nothing else to do: each try sleeps until the phase completes (or
+// ~10 ms pass) instead of spinning, so that the warps beside it on its scheduler keep the issue slots
+__device__ __forceinline__ bool mbar_try_wait_sleep(uint32_t addr, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity), "r"(10000000)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait_sleep(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait_sleep(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait_sleep(addr, parity)) {
     if (clock64() - t0 > (1LL << 33)) __trap();
   }
 }

@@ -11,7 +11,12 @@ grid (`batched_fwd_grid`). K2 `flash_segment_attention`
 `_fwd_pallas`): packed segment-masked GQA attention, for the MoT decoder and
 the Qwen2-VL ViT; its products run on wgmma from a cp.async / mbarrier ring
 whose K/V stages, tile codes and masks the query heads of a GQA group share
-(`segment_fwd_grid`). K6 and K3 are the same kernels with a per-row
+(`segment_fwd_grid`). At head dim 128 (the decoder's) K2 and K3 run a
+warp-specialised schedule instead: a producer warpgroup fills the ring by TMA
+and builds the masks, and two consumer warpgroups take turns on the tensor
+cores (`segment_warpgroups`; counted apart in
+launch_counts["flash_segment_attention_ws"] and the tracing counter `k2.ws`).
+K6 and K3 are the same kernels with a per-row
 log-sum-exp output, replacing `_batched_flash_kernel_lse` and
 `_flash_kernel_lse`: the training forwards.
 
@@ -71,6 +76,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import tracing
 from .attention import dense_attention, segment_attention_chunked
 from .masks import TokenInfo, make_segment_mask
 
@@ -88,7 +94,9 @@ HEAD_DIMS = (64, 96, 128)  # the batched kernels (K1, K6, K7)
 # the segment kernels (K2-K5, K8) also take the Qwen2-VL ViT's head dim
 SEGMENT_HEAD_DIMS = (64, 80, 96, 128)
 TILE = 64  # the tile of the codes: a warpgroup's query rows and a K/V stage's keys in every kernel
-SEGMENT_WARPGROUPS = 3  # consumer warpgroups of a K2 / K3 / K4 / K8 block (kWgs of csrc/attention_segment.cu)
+SEGMENT_WARPGROUPS = 3  # consumer warpgroups of a lockstep block: K4, K8, and K2 / K3 below head dim 128 (kWgs)
+WS_WARPGROUPS = 2  # consumer warpgroups of K2 / K3's warp-specialised block at head dim 128 (kWsWgs)
+WS_HEAD_DIM = 128  # the head dim whose K2 / K3 run the warp-specialised schedule
 BWD_KEYS_PER_BLOCK = 2 * TILE  # the dkv kernel's block: two warpgroups of 64 keys
 SPLIT_SLACK = 0.1  # dkv_head_split: waves a cut of the GQA group must save, as a share
 BLOCK_SKIP, BLOCK_PARTIAL, BLOCK_FULL = 0, 1, 2
@@ -107,6 +115,7 @@ launch_counts: Dict[str, int] = {
     "flash_batched_attention_bwd_dq": 0,  # K7
     "flash_batched_attention_bwd_dkv": 0,
     "flash_segment_attention_int8": 0,  # K8
+    "flash_segment_attention_ws": 0,  # of the K2 and K3 launches, those of the warp-specialised schedule
 }
 
 _libs: Optional[Tuple[ctypes.CDLL, ...]] = None
@@ -179,10 +188,13 @@ def load_library() -> Tuple[ctypes.CDLL, ...]:
         for fn in (seg.g2_segment_attention, seg.g2_segment_attention_pipe):
             fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i] + [ll] * 6 + [f, p, i]
             fn.restype = i
-        seg.g2_segment_attention_warpgroups.argtypes = []
+        seg.g2_segment_attention_warpgroups.argtypes = [i, i, i]
         seg.g2_segment_attention_warpgroups.restype = i
-        if seg.g2_segment_attention_warpgroups() != SEGMENT_WARPGROUPS:
-            raise RuntimeError("attention_segment.cu: its blocks' warpgroups differ from SEGMENT_WARPGROUPS")
+        for d in SEGMENT_HEAD_DIMS:
+            for pipelined, int8 in ((False, False), (True, False), (False, True)):
+                if seg.g2_segment_attention_warpgroups(d, pipelined, int8) != segment_warpgroups(d, pipelined, int8):
+                    raise RuntimeError(f"attention_segment.cu: its blocks' warpgroups at head dim {d} (pipelined "
+                                       f"{pipelined}, int8 {int8}) differ from segment_warpgroups")
         bwd.g2_attention_bwd_dq.argtypes = [i, i] + [p] * 10 + [i] * 6 + [ll] * 9 + [f, p]
         bwd.g2_attention_bwd_dq.restype = i
         bwd.g2_attention_bwd_dkv.argtypes = [i, i] + [p] * 9 + [i] + [p] * 3 + [i] * 7 + [ll] * 9 + [f, p]
@@ -497,17 +509,25 @@ def block_codes(q_meta: torch.Tensor, kv_meta: torch.Tensor, tile: int = TILE) -
     return codes.to(torch.int8).contiguous()
 
 
-def segment_fwd_grid(s_q: int, h: int, kvh: int) -> Tuple[int, int, int]:
+def segment_warpgroups(d: int, pipelined: bool = False, int8: bool = False) -> int:
+    """Consumer warpgroups of a segment forward's block (csrc/attention_segment.cu): two in the
+    warp-specialised schedule that K2 and K3 run at head dim 128, three in the lockstep one that K4,
+    K8 and the smaller head dims run."""
+    return WS_WARPGROUPS if d == WS_HEAD_DIM and not pipelined and not int8 else SEGMENT_WARPGROUPS
+
+
+def segment_fwd_grid(s_q: int, h: int, kvh: int, d: int, pipelined: bool = False,
+                     int8: bool = False) -> Tuple[int, int, int]:
     """(query heads of a block, query tiles of a block, blocks) of a K2 / K3 /
-    K4 / K8 launch, whose grid this is (csrc/attention_segment.cu `block_plan`
-    decodes it). A block has SEGMENT_WARPGROUPS consumer warpgroups of TILE
-    query rows. Where the GQA group G = h / kvh is a multiple of them, a block
-    holds that many query heads of one KV head on the same TILE token rows, so
-    that they share its K/V stages, tile codes and masks, as the TPU kernel
-    packs a group into one step; otherwise as many consecutive query tiles of
-    one head. Blocks are numbered (KV head, head group, query tiles), the query
-    tiles fastest."""
-    wgs = SEGMENT_WARPGROUPS
+    K4 / K8 launch at head dim d, whose grid this is (csrc/attention_segment.cu
+    `block_plan` decodes it). A block has `segment_warpgroups` consumer
+    warpgroups of TILE query rows. Where the GQA group G = h / kvh is a
+    multiple of them, a block holds that many query heads of one KV head on the
+    same TILE token rows, so that they share its K/V stages, tile codes and
+    masks, as the TPU kernel packs a group into one step; otherwise as many
+    consecutive query tiles of one head. Blocks are numbered (KV head, head
+    group, query tiles), the query tiles fastest."""
+    wgs = segment_warpgroups(d, pipelined, int8)
     group = h // kvh
     heads = wgs if group % wgs == 0 else 1
     tiles = wgs // heads
@@ -515,17 +535,19 @@ def segment_fwd_grid(s_q: int, h: int, kvh: int) -> Tuple[int, int, int]:
     return heads, tiles, -(-n_q_tiles // tiles) * kvh * (group // heads)
 
 
-def segment_fwd_blocks(s_q: int, h: int, kvh: int) -> torch.Tensor:
-    """(blocks, SEGMENT_WARPGROUPS, 2) int64: the (query head, query tile) of
-    each warpgroup of each block of `segment_fwd_grid`, as `block_plan`
-    assigns them; a query tile past the last one holds no rows."""
-    heads, tiles, n_blocks = segment_fwd_grid(s_q, h, kvh)
+def segment_fwd_blocks(s_q: int, h: int, kvh: int, d: int, pipelined: bool = False,
+                       int8: bool = False) -> torch.Tensor:
+    """(blocks, warpgroups, 2) int64: the (query head, query tile) of each
+    warpgroup of each block of `segment_fwd_grid`, as `block_plan` assigns
+    them; a query tile past the last one holds no rows."""
+    wgs = segment_warpgroups(d, pipelined, int8)
+    heads, tiles, n_blocks = segment_fwd_grid(s_q, h, kvh, d, pipelined, int8)
     group = h // kvh
     n_tb = n_blocks // (kvh * (group // heads))  # blocks of one head group
     x = torch.arange(n_blocks)
     tb, x = x % n_tb, x // n_tb
     hg, kv_h = x % (group // heads), x // (group // heads)
-    w = torch.arange(SEGMENT_WARPGROUPS)
+    w = torch.arange(wgs)
     head = (kv_h * group + hg * heads)[:, None] + w % heads
     tile = (tb * tiles)[:, None] + w // heads
     return torch.stack([head, tile], -1)
@@ -640,10 +662,13 @@ def _segment_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale, with_lse: bool
         lse.data_ptr() if with_lse else None,
         q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr(), s_q, s_kv, h, kvh, d,
         *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
-        scale, torch.cuda.current_stream(q.device).cuda_stream, segment_fwd_grid(s_q, h, kvh)[2],
+        scale, torch.cuda.current_stream(q.device).cuda_stream, segment_fwd_grid(s_q, h, kvh, d, pipelined)[2],
     )
     _raise_on_error(name, err)
     launch_counts[name] += 1
+    if d == WS_HEAD_DIM and not pipelined:  # K2 / K3's warp-specialised schedule
+        launch_counts["flash_segment_attention_ws"] += 1
+        tracing.count("k2.ws", 1)
     return out, lse
 
 
@@ -844,7 +869,7 @@ def _int8_launch_grid(q8, qs, k8, ks, v, q_meta, kv_meta, codes) -> int:
     """The checks `_int8_forward_cuda` makes before it launches K8, on any
     device: shapes, dtypes, contiguity and alignment of the quantised operands,
     the (heads, rows) scales, the metadata and the tile codes. Returns the
-    launch's grid, `segment_fwd_grid`'s (K2's)."""
+    launch's grid, `segment_fwd_grid`'s."""
     name = "flash_segment_attention_int8"
     s_q, h, dp = q8.shape
     s_kv, kvh, d = v.shape
@@ -862,7 +887,7 @@ def _int8_launch_grid(q8, qs, k8, ks, v, q_meta, kv_meta, codes) -> int:
     if (codes.shape != n_tiles or codes.dtype != torch.int8 or not codes.is_contiguous()
             or codes.device != v.device):
         raise ValueError(f"{name}: tile codes of shape {tuple(codes.shape)} do not fit the sequence")
-    return segment_fwd_grid(s_q, h, kvh)[2]
+    return segment_fwd_grid(s_q, h, kvh, d, int8=True)[2]
 
 
 def _int8_forward_cuda(q8, qs, k8, ks, v, q_meta, kv_meta, codes):

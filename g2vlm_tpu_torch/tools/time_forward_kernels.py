@@ -14,16 +14,21 @@ K1 at the DINOv2-L and Pi3 recon batches (32, 782, 16, 64) and (32, 777, 16,
 96), K6 at the training batches (16, 782, 16, 64) and (16, 777, 16, 96); K2 at
 the 32-view recon prefill (25,088 rows, 12:2 heads of 128), at the 32-view
 chat prefill in the sorted SPLIT layout (48,384 rows) and at one ViT chunk
-(11,664 rows, 16:16 heads of 80); K3 at the 16-view training pack (12,800
-rows); K4 at the chat prefill; K8 at the chat prefill and the ViT chunk, on
-the quantised operands and with the quantiser (`quantize_qk`) in the time
-("k8q"). The two trees' outputs are held against each
-other within chip_smoke.py's forward limits (the trees may round
-differently) and reported as bitwise equal or not; each tree's two launches
-must agree bitwise. The times are printed either way, and the script exits
-non-zero after them if a check failed (a probe tree that computes something
-else on purpose fails them). The segment kernels are timed with the caller's
-plan, as the main path runs them.
+(11,664 rows, 16:16 heads of 80); K2 on the first query shard of the recon
+prefill sequence-parallel over n = 2 and 4 ranks (S / n query rows against
+all S keys); K3 at the 16-view training pack (12,800 rows); K4 at the chat
+prefill; K8 at the chat prefill and the ViT chunk, on the quantised operands
+and with the quantiser (`quantize_qk`) in the time ("k8q"). The two trees'
+outputs are held against each other within chip_smoke.py's forward limits
+(the trees may round differently) and reported as bitwise equal or not; the
+kernels whose schedule `BITWISE` names (K4, K8 and K2 at head dim 80) must be
+bitwise equal in both trees, and each tree's two launches must agree
+bitwise. Each tree's first run prints ptxas's registers and spills of the
+segment forwards at head dim 128, where its build compiled them. The times
+are printed either way, and the script exits non-zero after them if a check
+failed (a probe tree that computes something else on purpose fails them).
+The segment kernels are timed with the caller's plan, as the main path runs
+them.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ import torch
 # chip_smoke.py's limits of a forward against its reference: outputs are O(1)
 FWD_MAX_ABS, FWD_MEAN_ABS = 2e-2, 1e-3
 LSE_MAX_ABS = 2e-3
+# tags of the kernels that a change to K2 / K3's schedule at head dim 128 must leave bitwise as they were
+BITWISE = ("k4_", "k8_", "k8q_", "k2_vit_")
 
 _WORKER = r"""
 import json, sys
@@ -51,6 +58,14 @@ from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
 from g2vlm_tpu_torch.models.g2vlm import SequenceBuilder, split_order
 from g2vlm_tpu_torch.ops import flash_attention as fa
 from g2vlm_tpu_torch.ops.masks import TokenInfo
+
+_, log = fa.build_library()  # empty where the tree's build was there already
+entry = ""
+for line in log.splitlines():
+    if "Compiling entry" in line:
+        entry = line
+    if ("registers" in line or "spill" in line) and "segment_fwd_kernel" in entry and "Li128E" in entry:
+        print("[ptxas]", entry.split("'")[1] if "'" in entry else entry, line.strip())
 
 def time_ms(fn, iters):
     fn()
@@ -104,6 +119,8 @@ for tag, info, h, kvh, d, kind, iters in (
         ("k2_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k2", 3),
         ("k4_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k4", 3),
         ("k2_vit_chunk_11664x16:16x80", vit, 16, 16, 80, "k2", 10),
+        ("k2_recon_shard2_12544of25088x12:2x128", recon, 12, 2, 128, "shard2", 10),
+        ("k2_recon_shard4_6272of25088x12:2x128", recon, 12, 2, 128, "shard4", 20),
         ("k3_train_pack_12800x12:2x128", train, 12, 2, 128, "k3", 10),
         ("k8_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k8", 3),
         ("k8q_chat_prefill_48384x12:2x128", chat, 12, 2, 128, "k8q", 3),
@@ -112,7 +129,11 @@ for tag, info, h, kvh, d, kind, iters in (
     n = info.seq_len
     q, k, v = rnd(n, h, d), rnd(n, kvh, d), rnd(n, kvh, d)
     plan = fa.segment_plan(info, info)
-    if kind == "k3":
+    if kind.startswith("shard"):  # rank 0 of n: its S / n query rows against all S keys
+        local = info.slice(0, n // int(kind[5:]))
+        q_local, plan = q[:local.seq_len], fa.segment_plan(local, info)
+        run = lambda: fa.flash_segment_attention(q_local, k, v, local, info, plan=plan)
+    elif kind == "k3":
         run = lambda: fa._segment_forward_cuda(q, k, v, *plan, None, with_lse=True)
     elif kind == "k8":
         q8, qs, k8, ks = fa.quantize_qk(q, k, plan.kv_meta)
@@ -149,7 +170,10 @@ def main() -> None:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
             if proc.returncode != 0:
                 raise SystemExit(f"{label} ({root}) failed:\n{proc.stderr[-3000:]}")
-            result = json.loads(proc.stdout.strip().splitlines()[-1])
+            lines = proc.stdout.strip().splitlines()
+            for line in lines[:-1]:
+                print(f"[{label}] {line}")
+            result = json.loads(lines[-1])
             runs.append((label, result))
             print(f"[{label}] {json.dumps(result)} ({card})", flush=True)
         if not all(r["bitwise_repeatable"] for _, r in runs):
@@ -163,6 +187,8 @@ def main() -> None:
                 limits = (FWD_MAX_ABS, FWD_MEAN_ABS) if name == "out" else (LSE_MAX_ABS, LSE_MAX_ABS)
                 if err.max().item() > limits[0] or err.mean().item() > limits[1]:
                     failures.append(f"{tag} {name}: the trees disagree (limits {limits})")
+                if tag.startswith(BITWISE) and not torch.equal(g, w):
+                    failures.append(f"{tag} {name}: not bitwise the parent's")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     for key in runs[0][1]:

@@ -23,7 +23,8 @@ The last `KEEP` requests are kept; `summary()` and `requests()` read them.
 
 Spans of the port: `recon` and `chat` (top level), `input`, `dino`, `vit`,
 `decoder`, `heads`, `host_images`, `upload`, `prefill`, `cache`, `decode`,
-`decode.first`; counter `upload.bytes`.
+`decode.first`; counters `upload.bytes` and `k2.ws` (the K2 / K3 launches of
+the warp-specialised schedule, ops/flash_attention.py).
 """
 
 from __future__ import annotations

@@ -596,3 +596,99 @@ def test_int8_forward_matches_plain_and_repeats(gen, d, pack, heads, had, kmean)
     _check(got, fa._int8_attention_plain(q8, qs, k8, ks, v.float(), info, info))
     pad = info.doc_id < 0
     assert pad.any() and (got[pad] == 0).all()
+
+
+# K2 / K3's warp-specialised schedule at head dim 128 (a TMA producer warpgroup and two consumer
+# warpgroups taking turns on the tensor cores). Packs: recon-like (nearly every tile FULL), the three
+# packs of tests/test_torch_ops.py::test_block_codes_match_jax (SKIP, PARTIAL and FULL tiles; the last
+# ends in padding rows that see no key), and the ragged 333 and 65 rows
+WS_PACKS = {
+    "recon_8_views": lambda: _recon_info(8),
+    "codes_case0": lambda: make_token_info([96], [96], ["causal"], device="cuda"),
+    "codes_case1": lambda: make_token_info([100, 156], [40, 60, 56, 100], ["causal", "full", "causal", "full"],
+                                           device="cuda"),
+    "codes_case2": lambda: make_token_info([70, 130], [30, 40, 50, 80], ["causal", "noise", "full", "noise"],
+                                           pad_to=237, device="cuda"),
+    "ragged_333": SEGMENT_PACKS["ragged_333"],
+    "ragged_65": lambda: make_token_info([50, 13], [50, 13], ["causal", "full"], pad_to=65, device="cuda"),
+}
+# G even (two heads of a group on the same rows a block) and G odd (two query tiles of one head a block)
+WS_HEADS = {"12:2": (12, 2), "4:2": (4, 2), "6:2": (6, 2), "2:2": (2, 2)}
+
+
+def _ws_forwards(q, k, v, info, kv_info=None):
+    """K2 and K3 through the wrappers: (out, out of K3, lse), each launched twice and held bitwise equal,
+    and one warp-specialised launch counted for each."""
+    kv_info = info if kv_info is None else kv_info
+    plan = fa.segment_plan(info, kv_info)
+    before = fa.launch_counts["flash_segment_attention_ws"]
+    out = fa.flash_segment_attention(q, k, v, info, kv_info, plan=plan)
+    out3, lse = fa._segment_forward_cuda(q, k, v, *plan, None, with_lse=True)
+    assert torch.equal(out, fa.flash_segment_attention(q, k, v, info, kv_info, plan=plan))
+    again3, again_lse = fa._segment_forward_cuda(q, k, v, *plan, None, with_lse=True)
+    assert torch.equal(out3, again3) and torch.equal(lse, again_lse)
+    assert fa.launch_counts["flash_segment_attention_ws"] == before + 4
+    return out, out3, lse
+
+
+@pytest.mark.parametrize("heads", list(WS_HEADS.values()), ids=list(WS_HEADS))
+@pytest.mark.parametrize("pack", list(WS_PACKS), ids=list(WS_PACKS))
+def test_warp_specialised_forwards_match_plain_and_repeat(gen, pack, heads):
+    """K2 and K3 at head dim 128 against their plain versions: out within the forward limits, K3's out
+    bitwise K2's, lse within 2e-3, two launches bitwise equal, rows that see no key written as 0 with
+    lse LSE_EMPTY; and bitwise K4's out, whose lockstep schedule does the same arithmetic."""
+    info = WS_PACKS[pack]()
+    h, kvh = heads
+    n = info.seq_len
+    q, k, v = _rnd(gen, n, h, 128), _rnd(gen, n, kvh, 128), _rnd(gen, n, kvh, 128)
+    out, out3, lse = _ws_forwards(q, k, v, info)
+    want, want_lse = fa.flash_segment_attention_lse_reference(q.float(), k.float(), v.float(), info, info)
+    _check(out, want)
+    assert torch.equal(out3, out)
+    assert (lse - want_lse).abs().max().item() < 2e-3
+    pad = info.doc_id < 0
+    assert (out[pad] == 0).all() and (lse[:, pad] == fa.LSE_EMPTY).all()
+    assert torch.equal(out, fa.flash_segment_attention(q, k, v, info, info, pipelined=True))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_warp_specialised_query_shard_equals_the_whole_launch(gen, shards):
+    """A sequence-parallel rank's query rows (S / n of them) against all S keys: bitwise the rows of the
+    unsharded launch, out and lse, on every shard."""
+    info = _recon_info(8)
+    n = info.seq_len
+    q, k, v = _rnd(gen, n, 12, 128), _rnd(gen, n, 2, 128), _rnd(gen, n, 2, 128)
+    out, _, lse = _ws_forwards(q, k, v, info)
+    rows = n // shards
+    for r in range(shards):
+        local = info.slice(r * rows, rows)
+        got, got3, got_lse = _ws_forwards(q[r * rows:(r + 1) * rows], k, v, local, info)
+        assert torch.equal(got, out[r * rows:(r + 1) * rows]) and torch.equal(got3, got)
+        assert torch.equal(got_lse, lse[:, r * rows:(r + 1) * rows])
+
+
+def test_warp_specialised_fp16_and_extreme_logits(gen):
+    """fp16 inputs against the plain version; ties at enormous logits give the uniform mean, and one
+    extreme row does not poison the others."""
+    info = WS_PACKS["codes_case2"]()
+    n = info.seq_len
+    q, k, v = (_rnd(gen, n, h, 128, dtype=torch.float16) for h in (4, 2, 2))
+    out, _, lse = _ws_forwards(q, k, v, info)
+    want, want_lse = fa.flash_segment_attention_lse_reference(q.float(), k.float(), v.float(), info, info)
+    _check(out, want)
+    assert out.dtype == torch.float16 and (lse - want_lse).abs().max().item() < 2e-3
+
+    s, h, kvh, d = 192, 4, 2, 128
+    v0 = torch.randn(d, generator=gen, device="cuda")
+    v0 /= v0.norm()
+    q = (50.0 * v0).expand(s, h, d).to(torch.bfloat16).contiguous()
+    v = _rnd(gen, s, kvh, d)
+    full = make_token_info([s], [s], ["full"], device="cuda")
+    out, _, _ = _ws_forwards(q, q[:, :kvh].clone(), v, full)
+    want = v.float().mean(0, keepdim=True).repeat_interleave(h // kvh, dim=1).expand(s, h, d)
+    assert torch.isfinite(out).all() and (out.float() - want).abs().max().item() < 1e-2
+    q2, k2 = _rnd(gen, s, h, d), _rnd(gen, s, kvh, d)
+    q2[7] = (60.0 * v0).to(torch.bfloat16)
+    k2[11] = (60.0 * v0).to(torch.bfloat16)
+    out2, _, _ = _ws_forwards(q2, k2, v, full)
+    _check(out2, fa.flash_segment_attention_reference(q2.float(), k2.float(), v.float(), full, full))

@@ -1,7 +1,8 @@
 """The host side of K8's launch (the int8-QK segment forward, kInt8 of
 csrc/attention_segment.cu): the checks `_int8_forward_cuda` makes before it
-launches, and the grid it launches, `segment_fwd_grid` (K2's, whose owners
-and ring tests/test_torch_segment_launch.py walks at K8's head layouts too).
+launches, and the grid it launches, `segment_fwd_grid`'s lockstep block (whose
+owners and ring tests/test_torch_segment_launch.py walks at K8's head layouts
+too).
 CPU only; no card, no jax."""
 
 import pytest
@@ -40,7 +41,7 @@ GRIDS = {
 def test_k8_launches_the_segment_grid(name):
     s, h, kvh, d, blocks = GRIDS[name]
     got = _grid(_operands(s, h, kvh, d))
-    assert got == fa.segment_fwd_grid(s, h, kvh)[2] == blocks
+    assert got == fa.segment_fwd_grid(s, h, kvh, d, int8=True)[2] == blocks
 
 
 def _bad(change):
@@ -76,7 +77,7 @@ BAD = {
 
 @pytest.mark.parametrize("name", list(BAD))
 def test_k8_wrapper_raises_on_what_the_kernel_does_not_take(name):
-    assert _grid(_operands(130, 4, 2, 80)) == fa.segment_fwd_grid(130, 4, 2)[2]  # the unchanged case passes
+    assert _grid(_operands(130, 4, 2, 80)) == fa.segment_fwd_grid(130, 4, 2, 80, int8=True)[2]  # the unchanged case passes
     with pytest.raises((ValueError, TypeError)):
         _grid(_bad(BAD[name]))
 

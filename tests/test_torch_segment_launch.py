@@ -2,8 +2,11 @@
 csrc/attention_segment.cu): the grid that `segment_fwd_grid` reckons and the
 wrapper launches, the warpgroups that `segment_fwd_blocks` gives each block
 (the kernel's `block_plan`), and the K/V tiles that enter a block's ring: every
-tile that some warpgroup's code does not mark SKIP (the kernel's `issue_next`).
-CPU only; no card, no jax."""
+tile that some warpgroup's code does not mark SKIP (the lockstep schedule's
+`issue_next`, the warp-specialised producer's loop). Both blocks: three
+warpgroups (the lockstep schedule: K4, K8 and K2 / K3 below head dim 128) and
+two (K2 / K3's warp-specialised schedule at head dim 128). CPU only; no card,
+no jax."""
 
 import numpy as np
 import pytest
@@ -28,7 +31,9 @@ SHAPES = {
     "ragged_65": (65, 2, 1),
     "ragged_65_16:16": (65, 16, 16),
 }
-WGS = fa.SEGMENT_WARPGROUPS  # heads of a group where it is a multiple of them, else consecutive query tiles
+WGS = fa.SEGMENT_WARPGROUPS  # the lockstep block: heads of a group where it is a multiple of them, else query tiles
+# (head dim, pipelined): the lockstep block below head dim 128 and of K4, the warp-specialised one of K2 / K3
+BLOCKS = {"d80": (80, False), "d128": (128, False), "d128_k4": (128, True)}
 # the packs of tests/test_torch_ops.py::test_block_codes_match_jax
 CODE_CASES = [
     dict(sample_lens=[96], split_lens=[96], modes=["causal"]),
@@ -37,14 +42,14 @@ CODE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("name", list(SHAPES))
-def test_every_query_row_has_one_owner(name):
+def _check_owners(name, d, pipelined):
     s_q, h, kvh = SHAPES[name]
     group = h // kvh
-    heads, tiles, n_blocks = fa.segment_fwd_grid(s_q, h, kvh)
-    assert heads * tiles == WGS and heads == (WGS if group % WGS == 0 else 1)
-    blocks = fa.segment_fwd_blocks(s_q, h, kvh).numpy()
-    assert blocks.shape == (n_blocks, WGS, 2)
+    wgs = fa.segment_warpgroups(d, pipelined)
+    heads, tiles, n_blocks = fa.segment_fwd_grid(s_q, h, kvh, d, pipelined)
+    assert heads * tiles == wgs and heads == (wgs if group % wgs == 0 else 1)
+    blocks = fa.segment_fwd_blocks(s_q, h, kvh, d, pipelined).numpy()
+    assert blocks.shape == (n_blocks, wgs, 2)
     n_q_tiles = -(-s_q // fa.TILE)
     owners = np.zeros((h, n_q_tiles * fa.TILE), dtype=np.int64)
     padded_tiles, empty_blocks = set(), set()
@@ -60,10 +65,10 @@ def test_every_query_row_has_one_owner(name):
         # the warpgroups of a block read the K/V of one KV head
         assert len({int(head) // group for head, _ in block}) == 1
         if heads > 1:  # a GQA group's heads on the same token rows: they share stages, codes and masks
-            assert len({int(tile) for _, tile in block}) == 1 and len({int(head) for head, _ in block}) == WGS
+            assert len({int(tile) for _, tile in block}) == 1 and len({int(head) for head, _ in block}) == wgs
         else:  # consecutive query tiles of one head
             assert len({int(head) for head, _ in block}) == 1
-            assert list(block[:, 1]) == list(range(block[0, 1], block[0, 1] + WGS))
+            assert list(block[:, 1]) == list(range(block[0, 1], block[0, 1] + wgs))
     assert (owners[:, :s_q] == 1).all()
     # padding lies only in the last query tile, and warpgroups without rows only in a head's last block
     assert padded_tiles <= {n_q_tiles - 1} and (s_q % fa.TILE == 0) == (not padded_tiles)
@@ -71,17 +76,32 @@ def test_every_query_row_has_one_owner(name):
     assert all(b % per_head == per_head - 1 for b in empty_blocks)
 
 
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_every_query_row_has_one_owner(name):
+    _check_owners(name, 80, False)  # the lockstep block of three warpgroups
+
+
+@pytest.mark.parametrize("block", list(BLOCKS))
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_every_query_row_has_one_owner_in_each_block(name, block):
+    _check_owners(name, *BLOCKS[block])
+
+
 def test_segment_fwd_grid_at_the_main_path_shapes():
-    assert WGS == 3
-    # the recon and chat prefills and the training pack: 392, 756 and 200 query tiles, 2 KV heads,
-    # their 6 query heads in 2 blocks of 3
-    assert fa.segment_fwd_grid(25088, 12, 2) == (3, 1, 392 * 2 * 2)
-    assert fa.segment_fwd_grid(48384, 12, 2) == (3, 1, 756 * 2 * 2)
-    assert fa.segment_fwd_grid(12800, 12, 2) == (3, 1, 200 * 2 * 2)
+    assert WGS == 3 and fa.WS_WARPGROUPS == 2
+    # K2 / K3 at head dim 128, the warp-specialised block: the recon and chat prefills and the training
+    # pack, 392, 756 and 200 query tiles, 2 KV heads, their 6 query heads in 3 blocks of 2
+    assert fa.segment_fwd_grid(25088, 12, 2, 128) == (2, 1, 392 * 2 * 3)
+    assert fa.segment_fwd_grid(48384, 12, 2, 128) == (2, 1, 756 * 2 * 3)
+    assert fa.segment_fwd_grid(12800, 12, 2, 128) == (2, 1, 200 * 2 * 3)
+    # K4 and K8 there keep the lockstep block: 2 blocks of 3 heads
+    assert fa.segment_fwd_grid(25088, 12, 2, 128, pipelined=True) == (3, 1, 392 * 2 * 2)
+    assert fa.segment_fwd_grid(48384, 12, 2, 128, int8=True) == (3, 1, 756 * 2 * 2)
     # a ViT chunk (G = 1): 183 query tiles of each of 16 heads in blocks of 3 consecutive tiles
-    assert fa.segment_fwd_grid(11664, 16, 16) == (1, 3, 61 * 16)
-    # a group of 2: one head, three query tiles
-    assert fa.segment_fwd_grid(333, 4, 2) == (1, 3, 2 * 4)
+    assert fa.segment_fwd_grid(11664, 16, 16, 80) == (1, 3, 61 * 16)
+    # a group of 3 at head dim 128: one head, two query tiles; of 2 below it: one head, three query tiles
+    assert fa.segment_fwd_grid(333, 6, 2, 128) == (1, 2, 3 * 6)
+    assert fa.segment_fwd_grid(333, 4, 2, 96) == (1, 3, 2 * 4)
 
 
 def _chat_layout():
@@ -108,16 +128,16 @@ INFOS["sorted_chat_tiny"] = _chat_layout
 INFOS["vit_images"] = _vit_layout
 
 
-@pytest.mark.parametrize("heads", [(12, 2), (6, 2), (4, 2), (3, 3), (16, 16)],
-                         ids=["12:2", "6:2", "4:2", "3:3", "16:16"])
-@pytest.mark.parametrize("info_name", list(INFOS))
-def test_a_tile_leaves_the_ring_only_when_every_warpgroup_skips_it(info_name, heads):
+HEADS = {"12:2": (12, 2), "6:2": (6, 2), "4:2": (4, 2), "3:3": (3, 3), "16:16": (16, 16)}
+
+
+def _check_ring(info_name, heads, d):
     info = INFOS[info_name]()
     h, kvh = heads
     meta = info.packed()
     codes = fa.block_codes(meta, meta)
     n_q_tiles, n_kv_tiles = codes.shape
-    blocks = fa.segment_fwd_blocks(info.seq_len, h, kvh)
+    blocks = fa.segment_fwd_blocks(info.seq_len, h, kvh, d)
     # each warpgroup's code of every K/V tile (SKIP past the last query tile), and the tiles that
     # enter the block's ring: those that some warpgroup's code does not mark SKIP
     per_wg = torch.cat([codes, codes.new_full((1, n_kv_tiles), fa.BLOCK_SKIP)])[blocks[..., 1].clamp(max=n_q_tiles)]
@@ -126,9 +146,21 @@ def test_a_tile_leaves_the_ring_only_when_every_warpgroup_skips_it(info_name, he
     pad = -info.seq_len % fa.TILE
     visible = torch.nn.functional.pad(visible, (0, pad, 0, pad)).view(n_q_tiles, fa.TILE, n_kv_tiles, fa.TILE)
     tile_visible = torch.cat([visible.any(3).any(1), torch.zeros((1, n_kv_tiles), dtype=torch.bool)])
-    heads_share_rows = fa.segment_fwd_grid(info.seq_len, h, kvh)[0] == WGS
+    heads_share_rows = fa.segment_fwd_grid(info.seq_len, h, kvh, d)[0] == fa.segment_warpgroups(d)
     for b, block in enumerate(blocks):
         # no visible pair of any warpgroup lies in a tile the ring leaves out
         assert not (tile_visible[block[:, 1].clamp(max=n_q_tiles)].any(0) & ~live[b]).any()
         if heads_share_rows:  # one query tile: one code per K/V tile for the whole block, one mask
             assert (per_wg[b] == per_wg[b, 0]).all()
+
+
+@pytest.mark.parametrize("heads", list(HEADS.values()), ids=list(HEADS))
+@pytest.mark.parametrize("info_name", list(INFOS))
+def test_a_tile_leaves_the_ring_only_when_every_warpgroup_skips_it(info_name, heads):
+    _check_ring(info_name, heads, 80)  # the lockstep block of three warpgroups
+
+
+@pytest.mark.parametrize("heads", list(HEADS.values()), ids=list(HEADS))
+@pytest.mark.parametrize("info_name", list(INFOS))
+def test_a_tile_leaves_the_warp_specialised_ring_only_when_both_warpgroups_skip_it(info_name, heads):
+    _check_ring(info_name, heads, 128)
