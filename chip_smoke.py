@@ -3,6 +3,7 @@
     python3 chip_smoke.py             # from the repository root; needs one card
     python3 chip_smoke.py --profile   # also prints torch.profiler kernel tables
     python3 chip_smoke.py --tracing   # phases 1, 2 and 24 alone (~3 min)
+    python3 chip_smoke.py --kimivl    # phases 1, 2 and 25 alone
 
 Phases (each prints its result; any failure raises and the exit code is 1):
   1. device: the card's name and power limit;
@@ -151,6 +152,17 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      against the trace's host-to-device copies; the chat request again with `return_info` (its stage
      syncs); then the recorder on (`tracing.record()`) against off in turns, recon x6 and chat x6 (and
      chat with `return_info` x6), the cost when on. `--tracing` runs phases 1, 2 and 24 alone.
+ 25. the "mla_moe" decoder (Kimi-VL-A3B's language model, benchmark/configs/g2vlm-kimivl-a3b-bf16.json)
+     at full width and cut depth (layer 0 and 4 MoE layers; the towers and heads 2 layers each): (a) one
+     chat request (2 views of 480x640, 24 words, 8 greedy tokens) in bf16, then its prefill, latent
+     cache and absorbed decode steps over the served tokens against the float32 reference's one full
+     forward (benchmark/reference/kimivl.py): the logits' relative error (3e-2) and the reference's gap
+     below its best at each served token; (b) the MLA forward at the 32-view recon prefill (25,088
+     rows, 16:16 heads, QK 192 / V 128) against its plain version, two launches bitwise equal, timed
+     beside its bound and the library's masked call; (c) the same chat request at full size (4 views),
+     three times: prefill, latent cache and the graph-captured decode of 27 layers, timed; then one
+     32-view recon call of 294x518, its launches gated (K1 44, the MLA forward 27).
+     `--kimivl` runs phases 1, 2 and 25 alone.
 Every kernel is also timed beside the one PyTorch library call that computes
 the same function (a yardstick only; the port never calls it). The last line is
 {"ok": true, "device": {...}}; before it, the card's line and one JSON line
@@ -341,6 +353,7 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="profile one recon call, one training step and one chat call")
     ap.add_argument("--tracing", action="store_true", help="run phases 1, 2 and 24 (the program's spans) alone")
+    ap.add_argument("--kimivl", action="store_true", help="run phases 1, 2 and 25 (the mla_moe decoder) alone")
     args = ap.parse_args()
 
     import torch
@@ -414,7 +427,7 @@ def main() -> None:
 
     # launches of each main path's run: counts set to 0 just before it, read just after
     paths_run = {}
-    if not args.tracing:
+    if not (args.tracing or args.kimivl):
         paths_run["recon_call"], paths_run["train_step"], recon_ms = _recon_and_train_phases(env)
         paths_run.update(_chat_phases(env, recon_ms))
         paths_run["recon_entry"] = _recon_entry_phase(env)
@@ -426,7 +439,10 @@ def main() -> None:
         paths_run.update(_dense_moe_phase(env, recon_ms))
         paths_run["recon_dinov3"] = _dinov3_phase(env, recon_ms)
         paths_run.update(_parallel_phase(env))
-    _tracing_phase(env)
+    if not args.kimivl:
+        _tracing_phase(env)
+    if not args.tracing:
+        paths_run["kimivl_chat"] = _kimivl_phase(env)
 
     for kname, e in kernels.items():
         for path, counts in paths_run.items():
@@ -3305,5 +3321,148 @@ def _tracing_phase(env):
     print(f"[tracing] phase 24 in {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+def _kimivl_phase(env):
+    """Phase 25: the "mla_moe" decoder at full width and cut depth, and the MLA forward at the recon
+    prefill's size. Returns the kernels' launches of the chat request."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from benchmark import weights as bench_weights
+    from benchmark.drivers.recon_kimivl import program_config
+    from benchmark.reference import kimivl as ref, layout
+    from g2vlm_tpu_torch.inference import decoding
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+    from g2vlm_tpu_torch.ops import flash_attention as fa
+    from g2vlm_tpu_torch.ops.masks import make_segment_mask
+    from g2vlm_tpu_torch.weights import build_model
+
+    dev, card = env.dev, env.card
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+                           "g2vlm-kimivl-a3b-bf16.json")) as f:
+        full = json.load(f)
+    rc = dict(full, num_hidden_layers=5, dino=dict(full["dino"], num_hidden_layers=2),
+              vit=dict(full["vit"], depth=2), pi3=dict(full["pi3"], depth=2))
+    cut = program_config(rc)
+
+    # ---- 25a. a chat request against the reference's full forward -----------------------------------
+    seed = 1234567
+    model = build_model(cut, device=dev, dtype=torch.bfloat16, seed=None)
+    bench_weights.load_into(model, ref.param_shapes(rc), seed)
+    pipe = G2VLMPipeline(model, cut)
+    frames = list(np.random.default_rng(3).integers(0, 256, (2, 480, 640, 3), dtype=np.uint8))
+    question = " ".join(["where"] * 8 + ["is", "the", "red", "chair", "relative", "to", "the", "door"] * 2)
+    fa.reset_launch_counts()
+    _, info = pipe.chat(frames, question, max_new_tokens=8, return_info=True)
+    torch.cuda.synchronize()
+    launches = _launches(fa)
+    served = info["token_ids"]
+    if launches.get("flash_mla_attention") != cut.llm.num_hidden_layers:
+        _fail(f"kimivl chat: launches {launches}, expected {cut.llm.num_hidden_layers} flash_mla_attention")
+    with torch.inference_mode():
+        prefill, _, lats, _, _ = pipe.chat_prefill(frames, question)
+        cache = decoding.build_latent_cache(lats, prefill.seq_len, cut.llm, prefill.seq_len + 16, torch.bfloat16)
+        got = torch.stack([decoding.decode_step(model.language_model, cache, tok, prefill.seq_len + j, cut.llm)[0]
+                           for j, tok in enumerate([layout.EOS] + served[:-1])])
+    del model, pipe, cache, lats
+    gc.collect()
+    torch.cuda.empty_cache()
+    W = {}
+    for part in bench_weights.chunks(ref.param_shapes(rc), seed, dev, torch.bfloat16):
+        W.update(part)
+    with torch.no_grad():
+        want = ref.chat_logits(ref.Fp32(W), rc, frames, question, served, dev)
+    del W
+    rel = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+    gaps = (want.max(-1).values - want.gather(1, torch.as_tensor(served, device=dev)[:, None])[:, 0]).tolist()
+    if not torch.isfinite(got).all() or rel > 3e-2:
+        _fail(f"kimivl chat: logits off the reference's by {rel:.3e} (budget 3e-2)")
+    if int(got[0].argmax()) != served[0]:
+        _fail("kimivl chat: the decode step's first token is not the one chat served")
+    print(f"[kimivl-chat] cut depth ({cut.llm.num_hidden_layers} layers: 1 dense + 4 MoE), 2 views of 480x640, "
+          f"{len(question.split())} words, {len(served)} greedy tokens, a prompt of {prefill.seq_len} rows: "
+          f"logits (prefill, latent cache, absorbed decode, bf16) against the fp32 reference's full forward: "
+          f"||d|| / ||ref|| {rel:.3e} (budget 3e-2), max |d| {(got - want).abs().max().item():.3e} of max |ref| "
+          f"{want.abs().max().item():.3e}; the reference's gap below its best at each served token "
+          f"{[round(g, 4) for g in gaps]}; launches {launches}")
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 25b. the MLA forward at the 32-view recon prefill ------------------------------------------
+    pre = G2VLMPipeline(None, cut).build_recon_prefill(32, 21, 37)
+    rec_info = pre.token_info(dev)
+    s, h = len(pre.doc_id), cut.llm.num_attention_heads
+    dqk, dv = fa.MLA_HEAD_DIMS
+    q, k, v = env.rnd(s, h, dqk), env.rnd(s, h, dqk), env.rnd(s, h, dv)
+    plan = fa.segment_plan(rec_info, rec_info)
+
+    def kernel():
+        return fa.flash_mla_attention(q, k, v, rec_info, rec_info, plan=plan)
+
+    def plain():
+        return fa.segment_attention_chunked(q.float(), k.float(), v.float(), rec_info, rec_info)
+
+    max_err, mean_err, ms, plain_ms = _compare_timed(kernel, plain, 3)
+    if max_err > FWD_MAX_ABS or mean_err > FWD_MEAN_ABS:
+        _fail(f"mla forward: max |err| {max_err:.3e}, mean {mean_err:.3e}")
+    if not torch.equal(kernel(), kernel()):
+        _fail("mla forward: two launches differ")
+    ms = statistics.median([_time_ms(kernel, 5) for _ in range(3)])
+    pairs = env.visible_pairs(rec_info)
+    bound_ms, bound_by = _bound(2.0 * s * h * (2 * dqk + 2 * dv), 2.0 * pairs * h * (dqk + dv))
+    mask = make_segment_mask(rec_info, rec_info)
+    library_ms, why = _library_ms(lambda: env.sdpa(q, k, v, attn_mask=mask), 2)
+    del mask
+    e = env.entry_for("flash_mla_attention", "none: the port's own (the JAX package has no MLA layer)")
+    e.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+             max_abs_err=max(e["max_abs_err"], max_err))
+    if why:
+        e["library_note"] = why
+    print(f"[mla] flash_mla_attention at the recon prefill: {s} rows, {h}:{h} heads, QK {dqk} / V {dv}, "
+          f"{pairs} visible pairs: {ms:.3f} ms (plain fp32 {plain_ms:.1f} ms; library "
+          f"{'%.3f ms' % library_ms if library_ms else why}); bound {bound_ms:.3f} ms ({bound_by}), "
+          f"{100 * bound_ms / ms:.1f}% of it; max |err| {max_err:.3e}, mean {mean_err:.3e}; two launches "
+          f"bitwise equal; phase 25 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    del q, k, v, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 25c. chat at full size: 27 layers, the latent cache, the decode loop's CUDA graph ---------
+    cfg = program_config(full)
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=0)
+    pipe = G2VLMPipeline(model, cfg)
+    frames = list(np.random.default_rng(4).integers(0, 256, (4, 480, 640, 3), dtype=np.uint8))
+    torch.cuda.reset_peak_memory_stats()
+    infos = [pipe.chat(frames, question, max_new_tokens=32, return_info=True)[1] for _ in range(3)]
+    ttft = [1e3 * i["t_prefill_s"] for i in infos]
+    per_token = [1e3 * i["t_decode_s"] / i["num_tokens"] for i in infos]
+    if any(i["num_tokens"] < 1 for i in infos) or len({tuple(i["token_ids"]) for i in infos}) != 1:
+        _fail(f"kimivl full-size chat: tokens differ between requests or none came: {[i['token_ids'] for i in infos]}")
+    print(f"[kimivl-chat-full] g2vlm-kimivl-a3b-bf16 at full size, 4 views of 480x640, {len(question.split())} words, "
+          f"a prompt of {infos[0]['prefill_len']} rows, {infos[0]['num_tokens']} greedy tokens, 3 requests: prefill + "
+          f"cache {[round(t, 1) for t in ttft]} ms, decode {[round(t, 2) for t in per_token]} ms a token (the first "
+          f"step eager, then the CUDA graph), peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})")
+    views = np.random.default_rng(5).integers(0, 256, (32, 294, 518, 3), dtype=np.uint8)
+    fa.reset_launch_counts()
+    pipe.recon_from_frames(views, new_width=518)
+    torch.cuda.synchronize()
+    recon_launches = _launches(fa)
+    want = {"flash_batched_attention": cfg.dino.num_hidden_layers + cfg.pi3.depth * (2 + 2 * cfg.use_global_points),
+            "flash_mla_attention": cfg.llm.num_hidden_layers}
+    if recon_launches != want:
+        _fail(f"kimivl recon: launches {recon_launches}, expected {want} per call")
+    print(f"[kimivl-recon] 32 views of 294x518 at full size: launches per call {recon_launches} ({card})")
+    del model, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 if __name__ == "__main__":
     main()
+

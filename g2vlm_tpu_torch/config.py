@@ -78,6 +78,57 @@ class LLMConfig:
 
 
 @dataclass(frozen=True)
+class MLAMoEConfig(LLMConfig):
+    """Kimi-VL-A3B-Instruct's language model (https://huggingface.co/moonshotai/Kimi-VL-A3B-Instruct,
+    `config.json` `text_config`; the DeepSeek-V3 block of its `modeling_deepseek.py`) as G2VLM's
+    single-weight-set decoder, `layer_module` "mla_moe" (models/mla_moe_decoder.py). Port-only: the
+    JAX package has no such layer, so the fields live on this subclass and `LLMConfig` stays equal to
+    the JAX package's field for field.
+
+    Multi-head latent attention without a q-LoRA: q (nope + rope dims a head), a shared latent of
+    `kv_lora_rank` plus one `qk_rope_head_dim` rope key a row, `kv_b_proj` up to each head's nope key
+    and value; rope in the interleaved-pair form on the rope dims. The first `first_k_dense_replace`
+    layers have a dense SwiGLU MLP of `intermediate_size`, the rest `n_routed_experts` SwiGLU experts
+    of `moe_intermediate_size` (sigmoid scores, the top `num_experts_per_tok` chosen on scores plus
+    the correction bias, weighted by the unbiased scores, normalised and scaled by
+    `routed_scaling_factor`) beside `n_shared_experts` always-on ones. Defaults are the published
+    values. Its rows take 1-D rope positions (row i of a document at position i, `TokenInfo.pos`)
+    instead of the 3-axis mRoPE ids."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    num_hidden_layers: int = 27
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    max_position_embeddings: int = 131072
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 800000.0
+    qk_norm: bool = False
+    layer_module: str = "mla_moe"
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    moe_intermediate_size: int = 1408
+    n_shared_experts: int = 2
+    first_k_dense_replace: int = 1
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a token holds in the decode cache of one layer: the latent and the rope key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+
+@dataclass(frozen=True)
 class VitConfig:
     """Qwen2-VL vision tower config (reference configuration_qwen2_vl.py defaults,
     patch_size forced to 14 by g2vlm_utils.py:39)."""
@@ -266,6 +317,18 @@ def tiny_test_config(visual_und: bool = True) -> G2VLMConfig:
         ),
         pi3=Pi3HeadConfig(depth=5, num_heads=16),
     )
+
+
+def tiny_mla_moe_config() -> G2VLMConfig:
+    """`tiny_test_config` with a tiny "mla_moe" decoder (one dense layer, then two MoE layers of 8
+    experts, 3 a token, 2 shared) for the CPU tests of the port's Kimi-VL decoder; its vocabulary
+    is Qwen2-VL's, so that the pipeline's special token ids fit."""
+    base = tiny_test_config()
+    return dataclasses.replace(base, llm=MLAMoEConfig(
+        vocab_size=151936, hidden_size=128, intermediate_size=160, num_hidden_layers=3,
+        num_attention_heads=4, num_key_value_heads=4, kv_lora_rank=32, qk_nope_head_dim=16,
+        qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=8, num_experts_per_tok=3,
+        moe_intermediate_size=24, n_shared_experts=2, first_k_dense_replace=1))
 
 
 def cut_depth_config(cfg: G2VLMConfig, layers: int = 2, vocab_size: int = 5120) -> G2VLMConfig:

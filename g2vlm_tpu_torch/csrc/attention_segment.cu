@@ -28,6 +28,14 @@
 //     exponentiates without a shift and clamps at 2^100; this one keeps K2's
 //     exact running maximum (the same function wherever the clamp is not hit,
 //     and finite beyond it, which the un-normed ViT logits need).
+// MLA g2_mla_attention, the port's own (the JAX package has no such layer):
+//     K2's function, schedule and plan where q and k are wider than v, the
+//     prefill form of the "mla_moe" decoder's latent attention (Kimi-VL-A3B,
+//     16:16 heads, QK head dim 192 = 128 nope + 64 rope columns, V head dim
+//     128), as the kernel `mla_fwd_kernel`: the warp-specialised schedule of
+//     K2 at head dim 128 below, its Q and K tiles 192 columns wide (three TMA
+//     boxes a K tile, twelve k-steps of S) and its V tiles and O 128, with
+//     four stages in the ring instead of five.
 //
 // What bounds it on the H100: tensor-core operations (K8: QK^T at the int8
 // rate, twice the bf16 one, and half the operand bytes). K2 at the 32-view recon
@@ -184,16 +192,19 @@ struct SegSmem {
   static_assert(kBytes <= 232448, "the block's shared memory exceeds the H100's 227 KB");
 };
 
-// The warp-specialised schedule's shared memory at head dim 128: its stages are filled by TMA, whose
-// 64 x 64 boxes land as the column blocks of a swizzled T tile.
+// The warp-specialised schedule's shared memory at QK head dim DQK and V head dim DV (128 and 128:
+// K2 / K3; 192 and 128: the MLA forward): its stages are filled by TMA, whose 64 x 64 boxes land as
+// the column blocks of a swizzled T tile. Five stages at 128 / 128; at 192 / 128 four fit the 227 KB.
+template <int DQK, int DV>
 struct WsSmem {
-  static constexpr int kStages = 5;
-  static constexpr int kTile = kRows * 128 * 2;               // a 64 x 128 T tile
+  static constexpr int kStages = DQK == 128 ? 5 : 4;
+  static constexpr int kQkTile = kRows * DQK * 2;             // a 64 x DQK T tile (Q, K)
+  static constexpr int kVTile = kRows * DV * 2;               // a 64 x DV T tile (V)
   static constexpr int kQ = 0;                                // [kWsWgs] Q tiles
-  static constexpr int kK = kQ + kWsWgs * kTile;              // [kStages] K tiles
-  static constexpr int kV = kK + kStages * kTile;             // [kStages] V tiles
+  static constexpr int kK = kQ + kWsWgs * kQkTile;            // [kStages] K tiles
+  static constexpr int kV = kK + kStages * kQkTile;           // [kStages] V tiles
   static constexpr int kMaskStage = kWsWgs * kRows * 8;       // [query tile][row][2] uint32 of a stage
-  static constexpr int kMask = kV + kStages * kTile;          // [kStages] masks
+  static constexpr int kMask = kV + kStages * kVTile;         // [kStages] masks
   static constexpr int kQMeta = kMask + kStages * kMaskStage;  // [kWsWgs * 64] int4 query metadata
   static constexpr int kInfo = kQMeta + kWsWgs * kRows * 16;  // [kStages] int4 (kv tile, code per query tile)
   static constexpr int kBar = kInfo + kStages * 16;           // full[kStages], empty[kStages]
@@ -633,16 +644,16 @@ __device__ __forceinline__ void segment_fwd_lockstep(const SegmentArgs& a) {
   cp_async_wait_all();
 }
 
-// The warp-specialised schedule of K2 and K3 at head dim 128. Warpgroups 0 and 1 are consumers: each
+// The warp-specialised schedule of K2 and K3 at head dim 128 (DQK = DV = 128), and of the MLA forward
+// (DQK 192, DV 128: q and k carry 64 rope columns past the 128 of v). Warpgroups 0 and 1 are consumers: each
 // holds 64 query rows (two heads of a GQA group on the same rows, or two query tiles of one head), its
 // own S, P and O, and issues only wgmma. Warpgroup 2 is the producer: one thread fills the ring by TMA,
 // the four warps build the PARTIAL masks. The consumers take turns on the tensor cores (named barriers
 // 4 and 5): each issues S of its next tile with P V of its last one and passes the turn, so that one
 // warpgroup's softmax runs under the other's products.
-template <typename T, bool kLse>
+template <typename T, bool kLse, int DQK, int DV>
 __device__ __forceinline__ void segment_fwd_ws(const SegmentArgs& a) {
-  constexpr int D = 128;
-  using L = WsSmem;
+  using L = WsSmem<DQK, DV>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align_1024(smem_raw);
   const uint32_t sb = smem_u32(smem);
@@ -697,11 +708,15 @@ __device__ __forceinline__ void segment_fwd_ws(const SegmentArgs& a) {
       mbar_wait_sleep(&empty[st], ph ^ 1);
       const int n0 = t * kRows;
       if (ptid == 0) {  // rows past Skv arrive as zeros
-        mbar_arrive_expect_tx(&full[st], 2 * L::kTile);
+        mbar_arrive_expect_tx(&full[st], L::kQkTile + L::kVTile);
 #pragma unroll
-        for (int cb = 0; cb < D / 64; ++cb) {
-          tma_load_3d(sb + L::kK + st * L::kTile + cb * kRows * 128, &a.k_map, &full[st], 64 * cb, bp.kv_h, n0);
-          tma_load_3d(sb + L::kV + st * L::kTile + cb * kRows * 128, &a.v_map, &full[st], 64 * cb, bp.kv_h, n0);
+        for (int cb = 0; cb < (DQK > DV ? DQK : DV) / 64; ++cb) {
+          if (cb < DQK / 64) {
+            tma_load_3d(sb + L::kK + st * L::kQkTile + cb * kRows * 128, &a.k_map, &full[st], 64 * cb, bp.kv_h, n0);
+          }
+          if (cb < DV / 64) {
+            tma_load_3d(sb + L::kV + st * L::kVTile + cb * kRows * 128, &a.v_map, &full[st], 64 * cb, bp.kv_h, n0);
+          }
         }
         s_info[st] = make_int4(t, c[0], c[1], 0);
       }
@@ -737,9 +752,9 @@ __device__ __forceinline__ void segment_fwd_ws(const SegmentArgs& a) {
   const int h = bp.head0 + wg % bp.hb;
   const int q0 = (bp.qt0 + qtl) * kRows;
   const int n_rows = max(0, min(kRows, a.sq - q0));
-  const uint32_t s_q = sb + L::kQ + wg * L::kTile;
+  const uint32_t s_q = sb + L::kQ + wg * L::kQkTile;
   const T* q_rows = static_cast<const T*>(a.q) + h * a.q_sh + static_cast<long long>(n_rows > 0 ? q0 : 0) * a.q_ss;
-  load_rows<T, D, D>(s_q, q_rows, a.q_ss, n_rows, tid, 128);
+  load_rows<T, DQK, DQK>(s_q, q_rows, a.q_ss, n_rows, tid, 128);
   cp_async_commit();
   int n_live = 0;  // the tiles the producer puts in the ring
   for (int t0 = 0; t0 < n_kv_tiles; t0 += 32) {
@@ -759,17 +774,17 @@ __device__ __forceinline__ void segment_fwd_ws(const SegmentArgs& a) {
   auto pass_turn = [&]() { named_barrier_arrive(kBarTurn + 1 - wg, 256); };
 
   const float scale_log2 = a.scale_log2;
-  float acc[D / 2];
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // this thread's partial sums, added over the quad at the end
   float alpha[2];
   float s[32];
   uint32_t p[4][4];
-  auto issue_s = [&](int st) { product_abt<T, D>(s, s_q, sb + L::kK + st * L::kTile); };
+  auto issue_s = [&](int st) { product_abt<T, DQK>(s, s_q, sb + L::kK + st * L::kQkTile); };
   auto rescale_acc = [&]() {  // a warp whose rows' maxima all stood still multiplies by 1: it skips that
-    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale<D>(acc, alpha);
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) rescale<DV>(acc, alpha);
   };
   auto my_code = [&](int st) {
     const int4 info = s_info[st];
@@ -783,7 +798,7 @@ __device__ __forceinline__ void segment_fwd_ws(const SegmentArgs& a) {
   int st_p = -1;  // the stage whose P V is pending, with its P in p
   auto flush = [&]() {
     wgmma_fence();
-    product_ab<T, D>(acc, p, sb + L::kV + st_p * L::kTile);
+    product_ab<T, DV>(acc, p, sb + L::kV + st_p * L::kVTile);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -819,7 +834,7 @@ __device__ __forceinline__ void segment_fwd_ws(const SegmentArgs& a) {
     wgmma_fence();
     issue_s(st);  // S of this tile
     wgmma_commit();
-    product_ab<T, D>(acc, p, sb + L::kV + st_p * L::kTile);  // O += P V of the pending one
+    product_ab<T, DV>(acc, p, sb + L::kV + st_p * L::kVTile);  // O += P V of the pending one
     wgmma_commit();
     pass_turn();
     wgmma_wait<1>();  // S is in; P V runs on under its exponentials, and the other warpgroup's products
@@ -837,23 +852,40 @@ __device__ __forceinline__ void segment_fwd_ws(const SegmentArgs& a) {
   if (st_p >= 0) flush();
   if (wg == 0) take_turn();  // warpgroup 1's last pass: the turns' arrivals balance
 
-  store_rows<T, D, D, kLse>(a, acc, m_run, l_run, h, q0, n_rows);
+  store_rows<T, DV, DV, kLse>(a, acc, m_run, l_run, h, q0, n_rows);
 }
 
 template <typename T, int D, bool kLse, bool kPipe, bool kInt8>
 __global__ void __launch_bounds__(kWarpSpecialised<D, kPipe, kInt8> ? kWsThreads : kSegThreads, 1)
     segment_fwd_kernel(const __grid_constant__ SegmentArgs a) {
   if constexpr (kWarpSpecialised<D, kPipe, kInt8>) {
-    segment_fwd_ws<T, kLse>(a);
+    segment_fwd_ws<T, kLse, 128, 128>(a);
   } else {
     segment_fwd_lockstep<T, D, kLse, kPipe, kInt8>(a);
   }
 }
 
+// The MLA forward: K2's warp-specialised schedule and plan at QK head dim DQK and V head dim DV, without
+// lse. A kernel of its own name, so that a trace tells it from K2's launches.
+template <typename T, int DQK, int DV>
+__global__ void __launch_bounds__(kWsThreads, 1) mla_fwd_kernel(const __grid_constant__ SegmentArgs a) {
+  segment_fwd_ws<T, false, DQK, DV>(a);
+}
+
+template <typename T>
+cudaError_t launch_mla(const SegmentArgs& a, int n_blocks, cudaStream_t stream) {
+  constexpr int smem = WsSmem<192, 128>::kBytes;
+  auto kernel = mla_fwd_kernel<T, 192, 128>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<n_blocks, kWsThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool kLse, bool kPipe, bool kInt8 = false>
 cudaError_t launch_as(const SegmentArgs& a, int n_blocks, cudaStream_t stream) {
   constexpr bool kWs = kWarpSpecialised<D, kPipe, kInt8>;
-  constexpr int smem = kWs ? WsSmem::kBytes : SegSmem<D, kInt8>::kBytes;
+  constexpr int smem = kWs ? WsSmem<128, 128>::kBytes : SegSmem<D, kInt8>::kBytes;
   auto kernel = segment_fwd_kernel<T, D, kLse, kPipe, kInt8>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -881,14 +913,15 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a (rows, heads, 128) view (strides in elements, the head dim contiguous) whose box is
+// The tensor map of a (rows, heads, cols) view (strides in elements, the head dim contiguous) whose box is
 // 64 rows of one head by 64 columns, 128-byte swizzled: a column block of a T tile. Rows past the end
 // arrive as zeros.
 bool tile_map(CUtensorMap* map, int dtype, const void* base, int rows, int heads, long long row_stride,
-              long long head_stride) {
+              long long head_stride, int cols = 128) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr || rows < 1) return false;
-  const cuuint64_t dims[3] = {128, static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(head_stride) * 2, static_cast<cuuint64_t>(row_stride) * 2};
   const cuuint32_t box[3] = {64, 1, kRows};
   const cuuint32_t unit[3] = {1, 1, 1};
@@ -1003,6 +1036,30 @@ extern "C" int g2_segment_attention_int8(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(dtype == 0 ? dispatch_int8<__nv_bfloat16>(a, d, n_blocks, st)
                                      : dispatch_int8<__half>(a, d, n_blocks, st));
+}
+
+// The MLA forward (Kimi-VL's latent attention in its prefill form): q (Sq, H, dqk), k (Skv, KVH, dqk),
+// v (Skv, KVH, dv) with dqk 192 and dv 128 only; metadata, tile codes, strides and n_blocks as
+// g2_segment_attention's at head dim 128 (K2's warp-specialised block), and k and v read by TMA: their
+// base and strides multiples of 16 bytes. The output is a contiguous (Sq, H, dv) tensor. Returns a
+// cudaError_t.
+extern "C" int g2_mla_attention(
+    int dtype, const void* q, const void* k, const void* v, void* o,
+    const void* q_meta, const void* kv_meta, const void* codes,
+    int sq, int skv, int h, int kvh, int dqk, int dv,
+    long long q_ss, long long q_sh,
+    long long k_ss, long long k_sh,
+    long long v_ss, long long v_sh,
+    float scale, void* stream, int n_blocks) {
+  if (dqk != 192 || dv != 128 || h % kvh != 0 || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  SegmentArgs a{q, k, v, o, static_cast<const int4*>(q_meta), static_cast<const int4*>(kv_meta),
+                static_cast<const int8_t*>(codes), sq, skv, h, kvh, q_ss, q_sh, k_ss, k_sh, v_ss, v_sh,
+                scale * kLog2e, nullptr};
+  if (!(tile_map(&a.k_map, dtype, k, skv, kvh, k_ss, k_sh, dqk) && tile_map(&a.v_map, dtype, v, skv, kvh, v_ss, v_sh, dv))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(dtype == 0 ? launch_mla<__nv_bfloat16>(a, n_blocks, st) : launch_mla<__half>(a, n_blocks, st));
 }
 
 // The consumer warpgroups of a block of an entry (pipelined: K4, int8: K8, neither: K2 / K3) at head dim d.

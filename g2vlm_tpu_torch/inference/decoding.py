@@ -23,6 +23,18 @@ and runs eagerly.
 `generate_batched` advances B independent sequences, the batch as a written-out
 leading axis of every cache leaf.
 
+An "mla_moe" decoder (Kimi-VL-A3B's language model, models/mla_moe_decoder.py)
+keeps a latent cache instead (`LatentCache`): per layer and row its normed
+latent and roped key, 512 + 64 values, from which every head's keys and values
+are one product away. Its step runs the absorbed form: each head's nope query
+is taken through its slice of `kv_b_proj` into the latent space, the scores
+are that against the latents plus the rope query against the rope keys, the
+probabilities weigh the latents, and each head's slice of `kv_b_proj` takes
+the result back to its value space before `o_proj`. The latent cache is one
+"KV head" that all heads share (`_attend` with a group of H). The experts
+route on the device (ops/moe.py), so the step captures in the same CUDA graph.
+Only `generate`, `decode_step` and `extend_cache` take it.
+
 Across ranks (a `torch.distributed` group): `generate_tp` splits the cache's
 context axis, each rank holding a contiguous C / n rows and the whole model,
 and merges each layer's softmax statistics exactly (a max, then sums: the
@@ -40,7 +52,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..config import LLMConfig
-from ..models import mot_decoder
+from ..models import mla_moe_decoder, mot_decoder
 from ..models.mot_decoder import LayerKV, MoTForCausalLM
 from ..ops.linear import linear
 from ..ops.norms import rms_norm
@@ -59,6 +71,29 @@ class KVCache(NamedTuple):
     k_scale: Optional[torch.Tensor]
     v_scale: Optional[torch.Tensor]
     length: torch.Tensor
+
+
+class LatentCache(NamedTuple):
+    """The "mla_moe" decoder's cache: kv (L, C, kv_lora_rank + qk_rope_head_dim) in the compute
+    dtype, each row its layer's normed latent then its roped key; length () int64. The batched form
+    has a leading batch axis on both. Updated in place by the decode step."""
+
+    kv: torch.Tensor
+    length: torch.Tensor
+
+
+def build_latent_cache(prefill_latents: List, valid_len, cfg, capacity: int,
+                       dtype: torch.dtype = torch.bfloat16) -> LatentCache:
+    """The latent cache from a prefill's per-layer `LayerLatent`s (consumed layer by layer, as
+    `build_cache` consumes K/V), the first `valid_len` rows valid."""
+    dev = prefill_latents[0].c.device
+    kv = torch.zeros((cfg.num_hidden_layers, capacity, cfg.latent_dim), dtype=dtype, device=dev)
+    for i in range(len(prefill_latents)):
+        lat, prefill_latents[i] = prefill_latents[i], None
+        s = lat.c.shape[0]
+        kv[i, :s, :cfg.kv_lora_rank] = lat.c.to(dtype)
+        kv[i, :s, cfg.kv_lora_rank:] = lat.k_pe.to(dtype)
+    return LatentCache(kv, torch.full((), int(valid_len), dtype=torch.int64, device=dev))
 
 
 def make_cache(
@@ -181,18 +216,22 @@ def _probs_times_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out if whole == c else out + torch.matmul(p[..., whole:], v[:, :, whole:])
 
 
-def _batched(cache: KVCache) -> KVCache:
-    """The single-sequence cache as a batch of one: views, so in-place writes
-    reach the caller's tensors."""
-    return KVCache(*(None if t is None else t.unsqueeze(0) for t in cache))
+def _batched(cache):
+    """The single-sequence cache (a KVCache or LatentCache) as a batch of one:
+    views, so in-place writes reach the caller's tensors."""
+    return type(cache)(*(None if t is None else t.unsqueeze(0) for t in cache))
 
 
 def _rope_inv_freq(cfg: LLMConfig, device) -> torch.Tensor:
     """A text token has one rope position on all three mRoPE axes, so its
     angle table is pos * [inv_freq, inv_freq]: (head_dim,) fp32, made once per
-    loop (an upload inside a captured step is not allowed)."""
-    half = cfg.head_dim // 2
-    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / cfg.head_dim))
+    loop (an upload inside a captured step is not allowed). The "mla_moe"
+    decoder's is that of its rope columns."""
+    if cfg.layer_module == "mla_moe":
+        inv_freq = mla_moe_decoder.rope_inv_freq(cfg)
+    else:
+        half = cfg.head_dim // 2
+        inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, half, dtype=np.float32) * 2.0 / cfg.head_dim))
     return torch.from_numpy(np.concatenate([inv_freq, inv_freq])).to(device)
 
 
@@ -277,6 +316,51 @@ def _decode_step(
     return mot_decoder.lm_head(lm, h.to(dt), torch.float32)
 
 
+def _latent_decode_step(
+    lm, cache: LatentCache, token: torch.Tensor, rope_pos: torch.Tensor, cfg, dt: torch.dtype,
+    inv_freq2: torch.Tensor, active: Optional[torch.Tensor] = None, group=None,
+) -> torch.Tensor:
+    """`_decode_step` of the "mla_moe" decoder on a batched latent cache, in the absorbed form."""
+    if group is not None:
+        raise mla_moe_decoder.unsupported("context-sharded decoding (generate_tp)")
+    model = lm.model
+    nh, r, dn = cfg.num_attention_heads, cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    b = token.shape[0]
+    x = model.embed_tokens(token).to(dt)  # (B, D)
+    ang = rope_pos.float()[:, None] * inv_freq2[None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    cur = cache.length  # (B,)
+    cap = cache.kv.shape[2]
+    # only strictly older rows are visible: the token's own latent enters through the self term
+    visible = torch.arange(cap, device=x.device)[None, :] < cur[:, None]
+    rows = []
+    for i, layer in enumerate(model.layers):
+        at = layer.self_attn
+        h = layer.input_layernorm(x)
+        q_nope, q_pe = mla_moe_decoder.project_q(at, h, cfg, cos, sin, dt)
+        lat = mla_moe_decoder.project_latent(at, h, cfg, cos, sin, dt)
+        w_kb = at.kv_b_proj.weight.float().view(nh, dn + cfg.v_head_dim, r)
+        q_lat = torch.einsum("bhd,hdr->bhr", q_nope.float(), w_kb[:, :dn])
+        row = torch.cat([lat.c, lat.k_pe], -1).float()  # (B, R + rope)
+        o_lat = _attend(torch.cat([q_lat, q_pe], -1)[:, None], cache.kv[:, i, None], cache.kv[:, i, None, :, :r],
+                        None, None, visible, cfg.qk_head_dim, row[:, None], row[:, None, :r])[:, 0]
+        attn = torch.einsum("bhr,hdr->bhd", o_lat, w_kb[:, dn:])
+        x = x + linear(attn.reshape(b, -1).to(dt), at.o_proj, dt)
+        x = x + layer.mlp_out(x)
+        rows.append(row)
+    pos = cur.clamp(0, cap - 1)
+    bi = torch.arange(b, device=x.device)[:, None]
+    li = torch.arange(len(model.layers), device=x.device)[None, :]
+    cache.kv[bi, li, pos[:, None]] = torch.stack(rows, dim=1).to(cache.kv.dtype)
+    cache.length.add_(1 if active is None else active.to(cache.length.dtype))
+    return mot_decoder.lm_head(lm, model.norm(x).to(dt), torch.float32)
+
+
+def _step(cache):
+    """The decode step that serves `cache`."""
+    return _latent_decode_step if isinstance(cache, LatentCache) else _decode_step
+
+
 def _as_index(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int64, device=device).reshape(-1)
 
@@ -288,8 +372,8 @@ def decode_step(
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step of one sequence (und expert only): (logits (V,) fp32,
     the cache, updated in place and one row longer)."""
-    dev = cache.k.device
-    logits = _decode_step(lm, _batched(cache), _as_index(token, dev), _as_index(rope_pos, dev), cfg,
+    dev = cache[0].device
+    logits = _step(cache)(lm, _batched(cache), _as_index(token, dev), _as_index(rope_pos, dev), cfg,
                           compute_dtype, _rope_inv_freq(cfg, dev))
     return logits[0], cache
 
@@ -304,15 +388,16 @@ def extend_cache(
     in place). Token for token identical to having had the text in the
     prefill: text rows are causal and their rope position is the scalar
     counter, as decode rows. Returns (the last token's logits (V,), cache)."""
-    dev = cache.k.device
+    dev = cache[0].device
     tokens = _as_index(tokens, dev)
     n = len(tokens) if n_tokens is None else int(n_tokens)
     pos = _as_index(rope_pos, dev)
     inv_freq2 = _rope_inv_freq(cfg, dev)
     batched = _batched(cache)
+    step = _step(cache)
     logits = torch.zeros((1, cfg.vocab_size), dtype=torch.float32, device=dev)
     for i in range(n):
-        logits = _decode_step(lm, batched, tokens[i : i + 1], pos + i, cfg, compute_dtype, inv_freq2)
+        logits = step(lm, batched, tokens[i : i + 1], pos + i, cfg, compute_dtype, inv_freq2)
     return logits[0], cache
 
 
@@ -329,8 +414,9 @@ def _generate_loop(
     over its ranks (`generate_tp`, which runs the loop without a CUDA graph:
     one would have to capture the step's collectives, and the sharded loop
     has not been timed on cards)."""
-    dev = cache.k.device
-    b = cache.k.shape[0]
+    dev = cache[0].device
+    b = cache[0].shape[0]
+    decode_step_fn = _step(cache)
     tokens = torch.full((b, max_new_tokens), eos_token_id, dtype=torch.int64, device=dev)
     tok = _as_index(start_tokens, dev).clone()
     pos = _as_index(rope_pos, dev).clone()
@@ -340,7 +426,7 @@ def _generate_loop(
     inv_freq2 = _rope_inv_freq(cfg, dev)
 
     def step():
-        logits = _decode_step(lm, cache, tok, pos, cfg, dt, inv_freq2, active=~done, group=group)
+        logits = decode_step_fn(lm, cache, tok, pos, cfg, dt, inv_freq2, active=~done, group=group)
         if do_sample:
             nxt = torch.multinomial(torch.softmax(logits / temperature, dim=-1), 1, generator=generator)[:, 0]
         else:
@@ -400,6 +486,8 @@ def generate_batched(
     on every cache leaf) advance in one loop; the per-token weight reads are
     shared by the batch. A finished sequence emits eos and stops counting.
     Returns (tokens (B, max_new_tokens), num_generated (B,), the caches)."""
+    if isinstance(caches, LatentCache):
+        raise mla_moe_decoder.unsupported("generate_batched")
     tokens, num = _generate_loop(lm, caches, start_tokens, rope_pos, eos_token_id, cfg, max_new_tokens,
                                  do_sample, temperature, generator, compute_dtype, cuda_graph)
     return tokens, num, caches

@@ -40,6 +40,7 @@ from ..data.images import load_views, resnet_normalize
 from ..data.tokenizer import derive_start_token
 from ..data.vit_preprocess import preprocess_vit_image
 from ..models import qwen_vit
+from ..models.mla_moe_decoder import unsupported
 from ..models.g2vlm import (
     G2VLM, PackedPrefill, SequenceBuilder, encode_dino_to_llm, encode_vit_to_llm, prefill_hidden, recon_forward,
 )
@@ -107,6 +108,8 @@ class G2VLMPipeline:
             attn_impl = "int8"
         if attn_impl not in ("auto", "int8"):
             raise ValueError(f"unknown attention impl: {attn_impl}")
+        if cfg.llm.layer_module == "mla_moe" and (attn_impl != "auto" or attn_pipe):
+            raise unsupported(f"attn_impl={attn_impl!r}, attn_pipe={attn_pipe}")
         self.attn_impl = attn_impl
         self.attn_pipe = attn_pipe
         self.seq_pad_multiple = seq_pad_multiple
@@ -133,6 +136,11 @@ class G2VLMPipeline:
 
     def _start_token(self) -> int:
         return derive_start_token(self.tokenizer, self.new_token_ids)
+
+    def _decode_pos(self, prefill: PackedPrefill) -> int:
+        """The rope position of the first decoded token: the mRoPE cursor, or with 1-D positions
+        (the "mla_moe" decoder) the row after the prompt."""
+        return prefill.seq_len if self.cfg.llm.layer_module == "mla_moe" else prefill.next_rope_pos
 
     # ------------------------------------------------------------------
     # recon
@@ -335,8 +343,13 @@ class G2VLMPipeline:
                 capacity = max(_round_up(prefill.seq_len + max_new_tokens + reserve + 8, 128), len(prefill.doc_id))
                 # only the first seq_len rows are valid K/V (the padding sits at the tail and the length
                 # hides it); build_cache consumes the list, so the prefill K/V is freed layer by layer
-                cache = decoding.build_cache(kv, prefill.seq_len, self.cfg.llm, capacity, dtype=dt,
-                                             quantized=quantized_kv)
+                if self.cfg.llm.layer_module != "mla_moe":
+                    cache = decoding.build_cache(kv, prefill.seq_len, self.cfg.llm, capacity, dtype=dt,
+                                                 quantized=quantized_kv)
+                elif quantized_kv:
+                    raise unsupported("quantized_kv (the int8 cache)")
+                else:
+                    cache = decoding.build_latent_cache(kv, prefill.seq_len, self.cfg.llm, capacity, dtype=dt)
                 del kv
                 if return_info:
                     self._sync()
@@ -345,7 +358,7 @@ class G2VLMPipeline:
                 eos = self.new_token_ids["eos_token_id"]
                 generator = torch.Generator(device=dev).manual_seed(seed) if do_sample else None
                 toks, num, cache = decoding.generate(
-                    model.language_model, cache, start_token, prefill.next_rope_pos, eos, self.cfg.llm,
+                    model.language_model, cache, start_token, self._decode_pos(prefill), eos, self.cfg.llm,
                     max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature,
                     generator=generator, compute_dtype=dt,
                 )
@@ -356,7 +369,7 @@ class G2VLMPipeline:
                 # the position advanced by the consumed tokens: the start token and
                 # num - 1 generated ones; the last emitted token (eos on a clean
                 # stop) was never consumed, chat_continue feeds it first
-                session = ChatSession(cache, int(prefill.next_rope_pos) + num, ids[-1] if ids else start_token,
+                session = ChatSession(cache, int(self._decode_pos(prefill)) + num, ids[-1] if ids else start_token,
                                       capacity, quantized_kv)
             if ids and ids[-1] == eos:
                 ids = ids[:-1]

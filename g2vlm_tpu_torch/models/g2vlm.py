@@ -15,7 +15,9 @@ states at the dino-token rows. The chat prefill mixes dino (geo expert) and
 ViT and text (und expert) rows: it is sorted host-side into
 [und | geo | padding] and runs the SPLIT layers, and its per-layer K/V feed
 the decode cache. A "dense" or "moe" decoder has no expert attention: it runs
-every prefill MIXED.
+every prefill MIXED. An "mla_moe" decoder (Kimi-VL-A3B's language model,
+models/mla_moe_decoder.py) runs every row through its one weight set at 1-D
+positions, and its prefill gives each layer's latent for the decode cache.
 
 `PackedPrefill` and `SequenceBuilder` are numpy host code, the port's own copy
 of the JAX module's (the port imports nothing of g2vlm_tpu); a test holds the
@@ -36,7 +38,7 @@ from ..ops.linear import linear
 from ..ops.masks import TokenInfo
 from ..utils import tracing
 from ..utils.geometry import homogenize_points
-from . import dinov2, dinov3, mot_decoder, pi3_heads, qwen_vit, segformer
+from . import dinov2, dinov3, mla_moe_decoder, mot_decoder, pi3_heads, qwen_vit, segformer
 
 
 class PackedPrefill(NamedTuple):
@@ -185,7 +187,10 @@ class G2VLM(nn.Module):
         self.cfg = cfg
         d = cfg.llm.hidden_size
         p = cfg.dino_patch_size
-        self.language_model = mot_decoder.MoTForCausalLM(cfg.llm)
+        if cfg.llm.layer_module == "mla_moe":
+            self.language_model = mla_moe_decoder.MLAMoEForCausalLM(cfg.llm)
+        else:
+            self.language_model = mot_decoder.MoTForCausalLM(cfg.llm)
         if cfg.use_dinov3:
             self.dino_model = dinov3.Dinov3(cfg.dinov3)
             self.dino2llm = nn.Linear(cfg.dinov3.hidden_size, d)
@@ -349,6 +354,9 @@ def prefill_hidden(
     info = prefill.token_info(dev)
     position_ids = torch.as_tensor(prefill.position_ids).to(dev)
     kw = dict(attn_impl=attn_impl, attn_pipe=attn_pipe, return_kv=return_kv)
+    if cfg.llm.layer_module == "mla_moe":  # one weight set, no routing by rows; K/V as each layer's latent
+        with tracing.span("decoder"):
+            return mla_moe_decoder.decoder_forward(lm, seq, info, **kw)
     if _geo_dominant(cfg, prefill):
         with tracing.span("decoder"):
             return mot_decoder.decoder_forward(lm, seq, position_ids, info, und_idx=text_idx, **kw)

@@ -359,6 +359,10 @@ def decoder_forward_train(
     (`parallel.sequence.sp_attender`) when the length divides their number,
     and ordinary attention otherwise, as the JAX dispatch does."""
     cfg = model.cfg
+    if cfg.layer_module == "mla_moe":
+        from .mla_moe_decoder import unsupported
+
+        raise unsupported("training (and its MIXED / SPLIT forwards)")
     if geo_start is not None and cfg.layer_module != "mot":
         raise ValueError(f"--split_layout (SPLIT routing) needs the 'mot' layer module; this model's is "
                          f"{cfg.layer_module!r}, which runs MIXED")

@@ -70,12 +70,13 @@ def segment_attention_chunked(
     ct = torch.promote_types(q.dtype, torch.float32)
     s_q, h, d = q.shape
     s_kv, kvh, _ = k.shape
+    dv = v.shape[-1]  # the MLA forward's values are narrower than its queries and keys
     g = h // kvh
     # (KVH, G*S_q, D): the G query heads of a KV head share each chunk's K/V
     qh = q.to(ct).reshape(s_q, kvh, g, d).permute(1, 2, 0, 3).reshape(kvh, g * s_q, d)
     m = torch.full((kvh, g * s_q), float("-inf"), device=q.device, dtype=ct)
     l = torch.zeros((kvh, g * s_q), device=q.device, dtype=ct)
-    acc = torch.zeros((kvh, g * s_q, d), device=q.device, dtype=ct)
+    acc = torch.zeros((kvh, g * s_q, dv), device=q.device, dtype=ct)
     for c0 in range(0, s_kv, kv_chunk):
         kb = k[c0 : c0 + kv_chunk].to(ct).transpose(0, 1)  # (KVH, T, D)
         vb = v[c0 : c0 + kv_chunk].to(ct).transpose(0, 1)
@@ -92,7 +93,7 @@ def segment_attention_chunked(
         acc = acc * alpha[..., None] + torch.matmul(p, vb)
         m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
-    out = out.reshape(kvh, g, s_q, d).permute(2, 0, 1, 3).reshape(s_q, h, d).to(v.dtype)
+    out = out.reshape(kvh, g, s_q, dv).permute(2, 0, 1, 3).reshape(s_q, h, dv).to(v.dtype)
     if not return_lse:
         return out
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), torch.full_like(l, -1e30))

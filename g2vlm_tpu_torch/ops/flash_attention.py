@@ -33,6 +33,14 @@ keeps it outside its kernel. Every segment kernel (K2, K3, K4, K8 and the
 backward K5) also takes the Qwen2-VL ViT's head dim 80, zero-padded to 96 in
 shared memory: K2 / K4 / K8 serve the chat path's ViT, K3 and K5 train it.
 
+The MLA forward `flash_mla_attention` (csrc/attention_segment.cu
+`mla_fwd_kernel`, the port's own: the JAX package has no such layer) is K2's
+function, plan and warp-specialised block where the queries and keys are
+wider than the values: the prefill form of the "mla_moe" decoder's latent
+attention (Kimi-VL-A3B), 16:16 heads with QK head dim 192 (128 nope + 64 rope
+columns) and V head dim 128 (`MLA_HEAD_DIMS`), inference only. Its kernel has
+a name of its own, so a trace tells its launches from K2's.
+
 Backwards (csrc/attention_bwd.cu). K7 replaces `_batched_bwd_dq_kernel` and
 `_batched_bwd_dkv_kernel` (through `_batched_vjp_bwd`), K5 replaces
 `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (through `_flash_bwd`):
@@ -97,6 +105,7 @@ TILE = 64  # the tile of the codes: a warpgroup's query rows and a K/V stage's k
 SEGMENT_WARPGROUPS = 3  # consumer warpgroups of a lockstep block: K4, K8, and K2 / K3 below head dim 128 (kWgs)
 WS_WARPGROUPS = 2  # consumer warpgroups of K2 / K3's warp-specialised block at head dim 128 (kWsWgs)
 WS_HEAD_DIM = 128  # the head dim whose K2 / K3 run the warp-specialised schedule
+MLA_HEAD_DIMS = (192, 128)  # (QK, V) head dims of the MLA forward, on K2's warp-specialised block
 BWD_KEYS_PER_BLOCK = 2 * TILE  # the dkv kernel's block: two warpgroups of 64 keys
 SPLIT_SLACK = 0.1  # dkv_head_split: waves a cut of the GQA group must save, as a share
 BLOCK_SKIP, BLOCK_PARTIAL, BLOCK_FULL = 0, 1, 2
@@ -116,6 +125,7 @@ launch_counts: Dict[str, int] = {
     "flash_batched_attention_bwd_dkv": 0,
     "flash_segment_attention_int8": 0,  # K8
     "flash_segment_attention_ws": 0,  # of the K2 and K3 launches, those of the warp-specialised schedule
+    "flash_mla_attention": 0,  # the MLA forward (QK head dim 192, V 128)
 }
 
 _libs: Optional[Tuple[ctypes.CDLL, ...]] = None
@@ -188,6 +198,8 @@ def load_library() -> Tuple[ctypes.CDLL, ...]:
         for fn in (seg.g2_segment_attention, seg.g2_segment_attention_pipe):
             fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i] + [ll] * 6 + [f, p, i]
             fn.restype = i
+        seg.g2_mla_attention.argtypes = [i] + [p] * 7 + [i] * 6 + [ll] * 6 + [f, p, i]
+        seg.g2_mla_attention.restype = i
         seg.g2_segment_attention_warpgroups.argtypes = [i, i, i]
         seg.g2_segment_attention_warpgroups.restype = i
         for d in SEGMENT_HEAD_DIMS:
@@ -762,6 +774,48 @@ def flash_segment_attention(
         return flash_segment_attention_reference(q, k, v, q_info, kv_info, scale)
     plan = plan or segment_plan(q_info, kv_info)
     return _segment_forward_cuda(q, k, v, *plan, scale, with_lse=False, pipelined=pipelined)[0]
+
+
+def _mla_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale):
+    name = "flash_mla_attention"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    s_q, h, dqk = q.shape
+    s_kv, kvh, dv = v.shape
+    if (dqk, dv) != MLA_HEAD_DIMS or k.shape != (s_kv, kvh, dqk) or h % kvh:
+        raise ValueError(f"{name}: shapes q {q.shape} k {k.shape} v {v.shape}; the kernel takes "
+                         f"(QK, V) head dims {MLA_HEAD_DIMS}")
+    _check_cuda_inputs(name, q, k, v, head_dims=(dqk,))
+    _check_meta(name, q, s_q, s_kv, q_meta, kv_meta)
+    out = torch.empty((s_q, h, dv), dtype=q.dtype, device=q.device)
+    err = load_library()[0].g2_mla_attention(
+        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q_meta.data_ptr(), kv_meta.data_ptr(), codes.data_ptr(), s_q, s_kv, h, kvh, dqk, dv,
+        *q.stride()[:2], *k.stride()[:2], *v.stride()[:2],
+        float(dqk ** -0.5 if scale is None else scale), torch.cuda.current_stream(q.device).cuda_stream,
+        segment_fwd_grid(s_q, h, kvh, WS_HEAD_DIM)[2],  # K2's warp-specialised block
+    )
+    _raise_on_error(name, err)
+    launch_counts[name] += 1
+    return out
+
+
+def flash_mla_attention(
+    q: torch.Tensor,  # (S_q, H, 192): each head's 128 nope columns, then its 64 roped ones
+    k: torch.Tensor,  # (S_kv, KVH, 192)
+    v: torch.Tensor,  # (S_kv, KVH, 128)
+    q_info: TokenInfo,
+    kv_info: TokenInfo,
+    scale: Optional[float] = None,
+    plan: Optional[SegmentPlan] = None,
+) -> torch.Tensor:
+    """The MLA forward (inference only): K2's segment-masked attention where the queries and keys
+    are wider than the values. Returns a contiguous (S_q, H, 128) tensor; rows with no visible key
+    are 0; the default scale is 192^-0.5. On CPU tensors the plain chunked version runs."""
+    if q.device.type == "cpu":
+        return segment_attention_chunked(q, k, v, q_info, kv_info, scale)
+    plan = plan or segment_plan(q_info, kv_info)
+    return _mla_forward_cuda(q, k, v, *plan, scale)
 
 
 # ---------------------------------------------------------------------------

@@ -17,14 +17,19 @@ that call), its parent (a stack per thread), its host start and end
 the current stream. The recorder never synchronises: a span's `device_ms` is
 read once the caller's own synchronisation has completed its events, and no
 event is recorded while the stream captures a CUDA graph. A counter adds to
-the request of the innermost open span; with none open it is dropped.
+the request of the innermost open span; with none open it is dropped. A count
+may be a tensor on the device: it is added there and read when summarised, so
+counting it costs no host sync.
 
 The last `KEEP` requests are kept; `summary()` and `requests()` read them.
 
 Spans of the port: `recon` and `chat` (top level), `input`, `dino`, `vit`,
 `decoder`, `heads`, `host_images`, `upload`, `prefill`, `cache`, `decode`,
-`decode.first`; counters `upload.bytes` and `k2.ws` (the K2 / K3 launches of
-the warp-specialised schedule, ops/flash_attention.py).
+`decode.first`, and in the "mla_moe" decoder's sparse layers `moe.route` and
+`moe.experts` (ops/moe.py); counters `upload.bytes`, `k2.ws` (the K2 / K3
+launches of the warp-specialised schedule, ops/flash_attention.py),
+`moe.tokens.l<layer>.max` and `moe.tokens.l<layer>.mean` (the tokens routed to
+the busiest expert of each MoE layer, a device count, and to the mean one).
 """
 
 from __future__ import annotations
@@ -143,7 +148,11 @@ class Recorder:
     def span(self, name: str):
         return Span(self, name) if self._on or torch.autograd._profiler_enabled() else OFF
 
-    def count(self, name: str, n: int) -> None:
+    def recording(self) -> bool:
+        """Whether spans and counters record now: for counts that cost device work to make."""
+        return bool(self._on or torch.autograd._profiler_enabled())
+
+    def count(self, name: str, n) -> None:
         if not (self._on or torch.autograd._profiler_enabled()):
             return
         stack = self._stack()
@@ -188,7 +197,7 @@ class Recorder:
         counters: Dict[Tuple[str, str], float] = {}
         for r in reqs:
             for k, v in r.counters.items():
-                counters[(r.name, k)] = counters.get((r.name, k), 0.0) + v / n[r.name]
+                counters[(r.name, k)] = counters.get((r.name, k), 0.0) + float(v) / n[r.name]
             for s in r.walk():
                 a = acc.setdefault((r.name, s.name), {"count": 0, "host_ms": 0.0, "device_ms": 0.0,
                                                        "self_host_ms": 0.0, "self_device_ms": 0.0})
@@ -208,6 +217,7 @@ class Recorder:
 _recorder = Recorder()
 span = _recorder.span
 count = _recorder.count
+recording = _recorder.recording
 record = _recorder.record
 requests = _recorder.requests
 clear = _recorder.clear

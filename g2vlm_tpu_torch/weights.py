@@ -31,7 +31,7 @@ from torch import nn
 
 from .config import G2VLMConfig, SegformerConfig
 
-from .models import dinov2, dinov3, mot_decoder, qwen_vit, segformer
+from .models import dinov2, dinov3, mla_moe_decoder, mot_decoder, qwen_vit, segformer
 from .models.g2vlm import G2VLM
 
 
@@ -251,7 +251,9 @@ def init_random_(model: G2VLM, generator: torch.Generator, prefixes: Optional[Tu
     `init_params`: Linear/conv weights N(0, 1/fan_in), biases 0, norm gains 1,
     token embeddings N(0, 0.02^2), the DINOv2 CLS token N(0, 1), position
     embeddings N(0, 0.02^2), mask and register tokens 0, LayerScales at their
-    configured values, the ViT's patch embed N(0, 0.02^2), DINOv3's patch
+    configured values, the ViT's patch embed N(0, 0.02^2), the "mla_moe"
+    decoder's routed experts N(0, 1/fan_in) each and its routers' correction
+    biases 0, DINOv3's patch
     embed, CLS and register tokens N(0, 0.02^2), the SegFormer's BatchNorm at
     identity statistics. One exception: `dino2llm` is drawn N(0, 1/fan_in)
     instead of zero, so that the encoder reaches the outputs. With `prefixes`
@@ -277,6 +279,12 @@ def init_random_(model: G2VLM, generator: torch.Generator, prefixes: Optional[Tu
                 mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, 0.02, generator=g)
+        elif isinstance(mod, mla_moe_decoder.RoutedExperts):  # each expert's leaves N(0, 1/fan_in)
+            mod.gate_up.normal_(0.0, mod.gate_up.shape[2] ** -0.5, generator=g)
+            mod.down.normal_(0.0, mod.down.shape[2] ** -0.5, generator=g)
+        elif isinstance(mod, mla_moe_decoder.Router):
+            mod.weight.normal_(0.0, mod.weight.shape[1] ** -0.5, generator=g)
+            mod.e_score_correction_bias.zero_()
         elif isinstance(mod, mot_decoder.LayerScale):
             mod.gamma.fill_(cfg.llm.layer_scale_init)
         elif isinstance(mod, dinov2.LayerScale):
