@@ -4,6 +4,7 @@
     python3 chip_smoke.py --profile   # also prints torch.profiler kernel tables
     python3 chip_smoke.py --tracing   # phases 1, 2 and 24 alone (~3 min)
     python3 chip_smoke.py --kimivl    # phases 1, 2 and 25 alone
+    python3 chip_smoke.py --decode    # phases 1, 2 and 13(b) alone (~4 min)
 
 Phases (each prints its result; any failure raises and the exit code is 1):
   1. device: the card's name and power limit;
@@ -56,6 +57,17 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      294x518, chat(device_preprocess=True) for 32 new tokens: launch counts,
      finite logits, ids in the vocabulary and repeatable, chat_continue, the
      decode loop eager and as a CUDA graph, TTFT by stage, tokens/s, memory;
+     (b) the decode step on the fused kernels (ops/decode_fused.py) against
+     the chain at chat-short's prompts (1 and 4 views of 480x640, 64 words):
+     pipe.chat's own launches of the kernels (56 decode_attention, 114
+     add_rms_norm: the eager step and the captured one), the kernels of one
+     replayed step by the profiler, the replayed step timed in turns (chain,
+     fused, fused, chain), the eager step's launches (28 decode_attention, 57
+     add_rms_norm); each kernel alone against its plain version (output and
+     stored rows within one bf16 step on at most 1% of elements), its bound and
+     the library call (one-row GQA SDPA, F.rms_norm), and decode_attention
+     beside the design not taken (a norm / RoPE / store kernel, then the
+     library's attention over the capacity with a mask);
  14. the same call, and the 32-view recon call, with attn_impl="int8" (K8) and
      with attn_pipe=True (K4);
  15. the recon entry path from files on disk: (a) a full-width checkpoint cut in
@@ -216,6 +228,20 @@ def _launches(fa) -> dict:
     return {k: v for k, v in fa.launch_counts.items() if v and k != "flash_segment_attention_ws"}
 
 
+def _bf16_steps(got, want):
+    """(most bf16 steps apart, share of elements apart) of two bf16 tensors: the test of a fused
+    kernel against its plain version, whose fp32 sums run in another order, so that a value on a
+    rounding boundary may round either way (tests/test_torch_cuda_decode.py's criterion)."""
+    import torch
+
+    apart = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    return int(apart.max().item()), (apart > 0).float().mean().item()
+
+
+# a fused decode kernel against its plain version: at most one bf16 step, on at most this share
+MAX_SHARE_ONE_STEP = 1e-2
+
+
 def _fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -354,6 +380,7 @@ def main() -> None:
                     help="profile one recon call, one training step and one chat call")
     ap.add_argument("--tracing", action="store_true", help="run phases 1, 2 and 24 (the program's spans) alone")
     ap.add_argument("--kimivl", action="store_true", help="run phases 1, 2 and 25 (the mla_moe decoder) alone")
+    ap.add_argument("--decode", action="store_true", help="run phases 1, 2 and 13(b) (the fused decode step) alone")
     args = ap.parse_args()
 
     import torch
@@ -427,9 +454,13 @@ def main() -> None:
 
     # launches of each main path's run: counts set to 0 just before it, read just after
     paths_run = {}
-    if not (args.tracing or args.kimivl):
+    alone = args.tracing or args.kimivl or args.decode
+    if not alone:
         paths_run["recon_call"], paths_run["train_step"], recon_ms = _recon_and_train_phases(env)
         paths_run.update(_chat_phases(env, recon_ms))
+    if not (args.tracing or args.kimivl):
+        paths_run.update(_decode_phase(env))
+    if not alone:
         paths_run["recon_entry"] = _recon_entry_phase(env)
         paths_run["joint_step"], joint = _joint_step_phase(env)
         paths_run.update(_three_group_phases(env, joint))  # 22(b) steps on phase 17's model and state
@@ -439,9 +470,9 @@ def main() -> None:
         paths_run.update(_dense_moe_phase(env, recon_ms))
         paths_run["recon_dinov3"] = _dinov3_phase(env, recon_ms)
         paths_run.update(_parallel_phase(env))
-    if not args.kimivl:
+    if not (args.kimivl or args.decode):
         _tracing_phase(env)
-    if not args.tracing:
+    if not (args.tracing or args.decode):
         paths_run["kimivl_chat"] = _kimivl_phase(env)
 
     for kname, e in kernels.items():
@@ -1145,6 +1176,7 @@ def _chat_phases(env, recon_ms):
     from g2vlm_tpu_torch.inference import decoding
     from g2vlm_tpu_torch.inference.pipeline import UPLOAD_CHUNKS, G2VLMPipeline
     from g2vlm_tpu_torch.models.g2vlm import split_order
+    from g2vlm_tpu_torch.ops import decode_fused as df
     from g2vlm_tpu_torch.ops import flash_attention as fa
     from g2vlm_tpu_torch.ops.masks import TokenInfo, make_token_info
     from g2vlm_tpu_torch.weights import build_model
@@ -1485,6 +1517,10 @@ def _chat_phases(env, recon_ms):
     vit_chunks = n_views * per_image // 11664
     n_k1_chat = cfg.dino.num_hidden_layers * UPLOAD_CHUNKS
     want_default = {K1: n_k1_chat, K2: cfg.vit.depth * vit_chunks + cfg.llm.num_hidden_layers}
+    # the decode loop's fused kernels: the eager step and the captured one, each 28 decode_attention
+    # and 2 x 28 + 1 add_rms_norm; the replays launch without the wrappers
+    n_llm_chat = cfg.llm.num_hidden_layers
+    want_decode = {"decode_attention": 2 * n_llm_chat, "add_rms_norm": 2 * (2 * n_llm_chat + 1)}
 
     # the cold call by hand: prefill, cache, one step's logits; then the decode loop eager and as a CUDA graph
     torch.cuda.reset_peak_memory_stats()
@@ -1523,8 +1559,9 @@ def _chat_phases(env, recon_ms):
 
     def chat_call(p_, **kw):
         fa.reset_launch_counts()
+        df.reset_launch_counts()
         text, info = p_.chat(frames, QUESTION, max_new_tokens=32, device_preprocess=True, return_info=True, **kw)
-        counts = _launches(fa)
+        counts = {**_launches(fa), **_launches(df)}
         ids = info["token_ids"]
         if not ids or not all(0 <= t < vocab for t in ids) or not (len(ids) == 32 or ids[-1] == eos):
             _fail(f"chat slice: token ids {ids}")
@@ -1533,8 +1570,8 @@ def _chat_phases(env, recon_ms):
     infos = []
     for _ in range(3):
         info, chat_launches = chat_call(pipe)
-        if chat_launches != want_default:
-            _fail(f"chat slice: launches {chat_launches}, expected {want_default}")
+        if chat_launches != {**want_default, **want_decode}:
+            _fail(f"chat slice: launches {chat_launches}, expected {want_default} and {want_decode}")
         infos.append(info)
     if any(i["token_ids"] != infos[0]["token_ids"] for i in infos):
         _fail(f"chat slice: a second call gave other ids: {[i['token_ids'] for i in infos]}")
@@ -1587,7 +1624,7 @@ def _chat_phases(env, recon_ms):
         if kw:
             chat_call(other)
             info, counts = chat_call(other)  # the second, warm call is the one reported
-            if counts != {K1: n_k1_chat, kname: n_seg}:
+            if counts != {K1: n_k1_chat, kname: n_seg, **want_decode}:
                 _fail(f"chat slice {tag}: launches {counts}")
             paths_run["chat_call_" + ("int8" if kname == K8 else "pipe")] = counts
             # the int8 call's TTFT with the mma.sync K8 (PERF.md, H100 80GB HBM3 at 700 W)
@@ -1613,6 +1650,257 @@ def _chat_phases(env, recon_ms):
     del model, pipe, other
     torch.cuda.empty_cache()
     return paths_run
+
+
+# chat-short's prompts (benchmark/traffic/mixes/chat_1to4x480x640): 1 and 4 views of 480x640, a
+# question of the mix's longest 64 words and its longest answer of 64 tokens
+DECODE_VIEWS, DECODE_HW, DECODE_WORDS, DECODE_NEW = (1, 4), (480, 640), 64, 64
+
+
+def _per_layer_graph_ms(fn, layers: int, replays: int = 20) -> float:
+    """ms of one call of fn(i), from a CUDA graph of fn(0), ..., fn(layers - 1) replayed: the device's
+    time, not the host's for the Python around a launch (the decode step replays it in its graph
+    too); calls on distinct layers' data leave the L2 as the step does."""
+    import torch
+
+    with torch.inference_mode():
+        fn(0)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(layers):
+                fn(i)
+    graph.replay()
+    return _time_ms(graph.replay, replays) / layers
+
+
+def _decode_phase(env):
+    """Phase 13(b): the MoT decode step on the fused kernels (ops/decode_fused.py) against the chain
+    of plain tensor code, at chat-short's prompts on G2VLMConfig() with random bf16 weights. Returns
+    the fused kernels' launches of one eager step ("decode_step") and of a pipe.chat call
+    ("decode_chat")."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.inference import decoding
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline, _round_up
+    from g2vlm_tpu_torch.ops import decode_fused as df
+    from g2vlm_tpu_torch.weights import build_model
+
+    dev, card, bf16 = env.dev, env.card, torch.bfloat16
+    t_phase = time.perf_counter()
+    cfg = G2VLMConfig()
+    llm = cfg.llm
+    model = build_model(cfg, device=dev, dtype=bf16, seed=0)
+    pipe = G2VLMPipeline(model, cfg)
+    lm = model.language_model
+    kvh, nh, d = llm.num_key_value_heads, llm.num_attention_heads, llm.head_dim
+    rng = np.random.default_rng(13)
+    question = " ".join(f"w{int(i)}" for i in rng.integers(0, 5000, DECODE_WORDS))
+    inv = decoding._rope_inv_freq(llm, dev)
+    # the main path first: pipe.chat at the 1-view prompt reaches the kernels on its own (the
+    # eager step and the captured one; the replays launch without the wrappers)
+    frames = list(rng.integers(0, 256, (DECODE_VIEWS[0], *DECODE_HW, 3), dtype=np.uint8))
+    n_llm = llm.num_hidden_layers
+    want_chat = {"decode_attention": 2 * n_llm, "add_rms_norm": 2 * (2 * n_llm + 1)}
+    for _ in range(2):  # the second call is the one gated
+        df.reset_launch_counts()
+        _, info = pipe.chat(frames, question, max_new_tokens=DECODE_NEW, return_info=True)
+        chat_launches = _launches(df)
+    if chat_launches != want_chat or info["num_tokens"] != DECODE_NEW:
+        _fail(f"decode: pipe.chat launched {chat_launches} (expected {want_chat}) for {info['num_tokens']} tokens")
+    print(f"[decode] pipe.chat, {DECODE_VIEWS[0]} view of {DECODE_HW[0]}x{DECODE_HW[1]}, {DECODE_NEW} tokens: "
+          f"decode {info['t_decode_s'] * 1e3:.1f} ms; fused launches {chat_launches} ({card})")
+    real_fused = decoding._runs_fused
+    results = {}
+    step_launches = None
+    for views in DECODE_VIEWS:
+        frames = list(rng.integers(0, 256, (views, *DECODE_HW, 3), dtype=np.uint8))
+        prefill, _, kv, _, _ = pipe.chat_prefill(frames, question)
+        seq = int(prefill.seq_len)
+        cap = max(_round_up(seq + DECODE_NEW + 8, 128), len(prefill.doc_id))  # as G2VLMPipeline.chat sizes it
+        cache = decoding._batched(decoding.build_cache(kv, seq, llm, cap, dtype=bf16))
+        tok = torch.tensor([17], dtype=torch.int64, device=dev)
+        pos = torch.tensor([seq], dtype=torch.int64, device=dev)
+        graphs, kernels_a_step = {}, {}
+        for fused in (False, True):
+            decoding._runs_fused = lambda *a, fused=fused: fused
+
+            def step():
+                return decoding._decode_step(lm, cache, tok, pos, llm, bf16, inv)
+
+            with torch.inference_mode():
+                cache.length.fill_(seq)
+                df.reset_launch_counts()
+                step()  # eager, then captured, as the decode loop does
+                if fused:
+                    step_launches = dict(df.launch_counts)
+                torch.cuda.synchronize()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    step()
+            graphs[fused] = graph
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                graph.replay()
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            kernels_a_step[fused] = (sum(not n.startswith(("Memcpy", "Memset")) for n in names), len(names))
+        decoding._runs_fused = real_fused
+
+        def replay(graph):
+            def run():
+                cache.length.fill_(seq)  # every replay on the prompt's cache: the same work
+                graph.replay()
+            return run
+
+        fused_ms, chain_ms = _timed_in_turns(replay(graphs[True]), replay(graphs[False]), 50)
+        results[views] = dict(seq=seq, cap=cap, fused_ms=fused_ms, chain_ms=chain_ms, kernels=kernels_a_step)
+        print(f"[decode] {views} view(s) of {DECODE_HW[0]}x{DECODE_HW[1]}, {seq} cache rows in a capacity of {cap}: "
+              f"one replayed step {fused_ms:.3f} ms on the fused kernels, {chain_ms:.3f} ms on the chain (in turns: "
+              f"chain, fused, fused, chain; 50 replays each); kernels a replayed step (profiler; kernels, all device "
+              f"ops) fused {kernels_a_step[True]}, chain {kernels_a_step[False]} ({card})")
+        if kernels_a_step[True][0] == 0 or kernels_a_step[True][0] * 3 > kernels_a_step[False][0]:
+            _fail(f"decode step: kernels a replayed step, fused {kernels_a_step[True]}, chain {kernels_a_step[False]}")
+
+        # each kernel alone at this prompt's length, a different layer each launch (the 28 layers' cache
+        # rows, 28 x ~7 MB at 7,100 rows, exceed the 50 MB L2, as in the step)
+        gen = torch.Generator(device=dev).manual_seed(views)
+        q = torch.randn(1, nh, d, generator=gen, device=dev).to(bf16)
+        k = torch.randn(1, kvh, d, generator=gen, device=dev).to(bf16)
+        v = torch.randn(1, kvh, d, generator=gen, device=dev).to(bf16)
+        ang = torch.rand(1, d, generator=gen, device=dev) * seq
+        cos, sin = torch.cos(ang), torch.sin(ang)
+        at = lm.model.layers[0].self_attn
+        qn, kn = at.q_norm.weight, at.k_norm.weight
+        length = torch.tensor([seq], dtype=torch.int64, device=dev)
+        scratch = df.decode_scratch(1, kvh, nh // kvh, cap, dev)
+        def kernel(i=0, kc=None, vc=None):
+            return df.decode_attention(q, k, v, cos, sin, cache.k[:, i] if kc is None else kc,
+                                       cache.v[:, i] if vc is None else vc, length, qn, kn, llm.rms_norm_eps, scratch)
+
+        def plain(kc=None, vc=None):
+            return df.decode_attention_plain(q, k, v, cos, sin, cache.k[:, 0] if kc is None else kc,
+                                             cache.v[:, 0] if vc is None else vc, length, qn, kn, llm.rms_norm_eps,
+                                             df.decode_split(cap, kvh, 1, df._sm_count(dev))[0])
+
+        qs = q.view(1, nh, 1, d)
+
+        def library(i=0):
+            return F.scaled_dot_product_attention(qs, cache.k[:, i, :, :seq], cache.v[:, i, :, :seq], enable_gqa=True)
+
+        # the design not taken: a small kernel for the q/k norm, RoPE and the row store (stood in for by
+        # decode_attention at length 0: its prologue, store and merge, no cache row read), then the
+        # library's attention over the whole capacity with the rows at and beyond length + 1 masked
+        # (the group's queries as rows of their KV head, so no GQA expansion)
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        visible = (torch.arange(cap, device=dev) <= seq).view(1, 1, 1, cap)
+        qg = q.view(1, kvh, nh // kvh, d)
+
+        def store_only(i=0):
+            return df.decode_attention(q, k, v, cos, sin, cache.k[:, i], cache.v[:, i], zero, qn, kn,
+                                       llm.rms_norm_eps, scratch)
+
+        def alternative(i=0):
+            store_only(i)
+            return F.scaled_dot_product_attention(qg, cache.k[:, i], cache.v[:, i], attn_mask=visible)
+
+        # kernel and plain version, each on its own copy of layer 0's cache: the output and the rows
+        # stored at `seq` (the k row normed and roped, the v row as it came), every other row untouched
+        kc0, vc0 = cache.k[:, 0].clone(), cache.v[:, 0].clone()
+        kc_k, vc_k, kc_p, vc_p = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
+        got = kernel(kc=kc_k, vc=vc_k)
+        torch.cuda.synchronize()
+        want = plain(kc=kc_p, vc=vc_p)
+        err = (got.float() - want.float()).abs().max().item()
+        out_steps = _bf16_steps(got, want)
+        row_steps = _bf16_steps(kc_k[:, :, seq], kc_p[:, :, seq])
+        others = torch.arange(cap, device=dev) != seq
+        untouched = all(torch.equal(a[:, :, others], b[:, :, others]) for a, b in ((kc_k, kc0), (vc_k, vc0)))
+        v_row_equal = torch.equal(vc_k[:, :, seq], vc_p[:, :, seq])
+        ms = _per_layer_graph_ms(kernel, llm.num_hidden_layers)
+        plain_ms = _time_ms(plain, 3)
+        try:
+            lib_ms, lib_why = _per_layer_graph_ms(library, llm.num_hidden_layers), None
+        except RuntimeError as e_:  # a backend that cannot be captured: timed eagerly
+            print(f"[decode] the library call in a CUDA graph: {str(e_).splitlines()[0][:120]}; timed eagerly")
+            lib_ms, lib_why = _library_ms(library, 280)
+        store_ms = _per_layer_graph_ms(store_only, llm.num_hidden_layers)
+        try:
+            alt_ms, alt_why = _per_layer_graph_ms(alternative, llm.num_hidden_layers), None
+        except (RuntimeError, TypeError, ValueError) as e_:  # a mask or layout this PyTorch refuses
+            alt_ms, alt_why = None, f"{type(e_).__name__}: {str(e_).splitlines()[0][:120]}"
+        n_bytes = 2.0 * 2 * kvh * seq * d + 2.0 * d * (2 * nh + 4 * kvh)  # K, V rows; q, k, v, out, the stored rows
+        bound_ms, bound_by = _bound(n_bytes, 4.0 * nh * seq * d)
+        e = env.entry_for("decode_attention", "none: the port's own (the JAX package's decode step is XLA ops)",
+                          "g2vlm_tpu_torch/csrc/decode_fused.cu")
+        e.setdefault("shapes", []).append(
+            {"rows": seq, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+             "store_only_ms": store_ms, "store_then_masked_library_ms": alt_ms})
+        e.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                 max_abs_err=max(e["max_abs_err"], err))
+        print(f"[decode] decode_attention at {seq} rows (12:2 heads of 128, B 1; device time in a CUDA graph of one "
+              f"launch a layer, the 28 layers' rows beyond the L2): {ms * 1e3:.2f} us, bound "
+              f"{bound_ms * 1e3:.2f} us by {bound_by} ({bound_ms / ms:.1%}); plain {plain_ms:.3f} ms; library "
+              + (f"{lib_ms * 1e3:.2f} us (F.scaled_dot_product_attention, one query row, GQA, no norm / rope / "
+                 f"self term / store){_ratio(ms, lib_ms)}" if lib_ms else f"not run: {lib_why}")
+              + f"; the design not taken: norm / rope / store {store_ms * 1e3:.2f} us, then the masked library call "
+              + (f"over the capacity of {cap}: {alt_ms * 1e3:.2f} us in all" if alt_ms else f"not run: {alt_why}")
+              + f"; against the plain version: out max |diff| {err:.2e}, (bf16 steps, share) {out_steps}, stored k "
+              f"row {row_steps}, v row equal {v_row_equal}, other rows untouched {untouched} ({card})")
+        if (max(out_steps[0], row_steps[0]) > 1 or max(out_steps[1], row_steps[1]) > MAX_SHARE_ONE_STEP
+                or not v_row_equal or not untouched):
+            _fail(f"decode_attention at {seq} rows against its plain version: out {out_steps}, k row {row_steps} "
+                  f"(at most 1 bf16 step on {MAX_SHARE_ONE_STEP:.0%}), v row equal {v_row_equal}, other rows "
+                  f"untouched {untouched}")
+        del cache, graphs, scratch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    x = torch.randn(1, llm.hidden_size, generator=gen, device=dev).to(bf16)
+    delta = torch.randn(1, llm.hidden_size, generator=gen, device=dev).to(bf16)
+    w = lm.model.layers[0].post_attention_layernorm.weight
+    got_s, got = df.add_rms_norm(x, delta, w, llm.rms_norm_eps)
+    want_s, want = df.add_rms_norm_plain(x, delta, w, llm.rms_norm_eps)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    norm_steps, sum_equal = _bf16_steps(got, want), torch.equal(got_s, want_s)
+    ms = _per_layer_graph_ms(lambda i: df.add_rms_norm(x, delta, w, llm.rms_norm_eps), 2 * llm.num_hidden_layers)
+    plain_ms = _per_layer_graph_ms(lambda i: df.add_rms_norm_plain(x, delta, w, llm.rms_norm_eps),
+                                   2 * llm.num_hidden_layers)
+    summed = x + delta
+    if hasattr(F, "rms_norm"):
+        lib_ms, lib_why = _per_layer_graph_ms(lambda i: F.rms_norm(summed, (llm.hidden_size,), w, llm.rms_norm_eps),
+                                              2 * llm.num_hidden_layers), None
+    else:
+        lib_ms, lib_why = None, f"torch {torch.__version__} has no F.rms_norm"
+    bound_ms, bound_by = _bound(2.0 * llm.hidden_size * 5, 4.0 * llm.hidden_size)  # x, delta, w in; sum, y out
+    e = env.entry_for("add_rms_norm", "none: the port's own (the JAX package's decode step is XLA ops)",
+                      "g2vlm_tpu_torch/csrc/decode_fused.cu")
+    e.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err)
+    print(f"[decode] add_rms_norm of one row of {llm.hidden_size} (device time in a CUDA graph of 56 calls): "
+          f"{ms * 1e3:.2f} us, bound {bound_ms * 1e3:.4f} us by {bound_by}; plain (x + d then rms_norm, its chain of "
+          f"kernels) {plain_ms * 1e3:.2f} us; library "
+          + (f"{lib_ms * 1e3:.2f} us (F.rms_norm of the sum){_ratio(ms, lib_ms)}" if lib_ms else f"not run: {lib_why}")
+          + f"; against the plain version: max |diff| {err:.2e}, (bf16 steps, share) {norm_steps}, sum equal "
+          f"{sum_equal} ({card})")
+    if norm_steps[0] > 1 or norm_steps[1] > MAX_SHARE_ONE_STEP or not sum_equal:
+        _fail(f"add_rms_norm against its plain version: {norm_steps}, sum equal {sum_equal}")
+    rows = "; ".join(f"{v_} view(s), {r['seq']} rows: fused {r['fused_ms']:.3f} ms, chain {r['chain_ms']:.3f} ms "
+                     f"({r['chain_ms'] / r['fused_ms']:.2f}x)" for v_, r in results.items())
+    print(f"[decode] phase 13(b): a replayed step {rows}; eager step launches {step_launches}; "
+          f"in {time.perf_counter() - t_phase:.1f} s ({card})")
+    want_launches = {"decode_attention": llm.num_hidden_layers, "add_rms_norm": 2 * llm.num_hidden_layers + 1}
+    if step_launches != want_launches:
+        _fail(f"decode step: launches {step_launches}, expected {want_launches}")
+    del model, pipe, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"decode_step": step_launches, "decode_chat": chat_launches}
 
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))

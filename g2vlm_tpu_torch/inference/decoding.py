@@ -7,18 +7,30 @@ position that is itself a tensor on the device: the step's shapes never change
 and nothing in it reads the device from the host. A step attends over the
 cached rows below `length` plus the token's own fresh K/V row as a separate
 "self" term, collects the new rows of all layers and writes them with one
-indexed store. Only the und expert runs. No hand-written kernel runs here (the
-JAX package has none on this path either): the products are plain tensor
-code.
+indexed store. Only the und expert runs.
+
+On a CUDA cache in bf16 / fp16, in the compute dtype and whole on this rank,
+the step runs two hand-written kernels between its products
+(ops/decode_fused.py, csrc/decode_fused.cu; the JAX package has none on this
+path): per layer `add_rms_norm` (the residual add and the norm after it) at
+the input and after attention, and `decode_attention` (the q/k norms, the
+RoPE, attention over the cache rows below `length` and the self term, and the
+store of the layer's new row) between the q/k/v and the o products: ~13
+kernels a layer where the chain takes ~88. The int8 cache (its scaled
+dequantisation), a context-sharded cache (`generate_tp`'s merge across
+ranks), head shapes the kernel is not built for and the CPU keep the chain of
+plain tensor code, which the tests hold the kernels to (`_runs_fused`).
 
 The JAX `while_loop` becomes a host loop over steps that keeps tokens,
 positions, the done flags and the counts on the device. A finished sequence
 makes its further steps no-ops (its cache length, count and tokens stay), so
 the host looks at the done flag only every few steps. On a CUDA device a
 greedy loop captures the step in a CUDA graph after one eager step and replays
-it: the eager step is ~1,200 small launches and the host cannot issue them as
-fast as the card runs them. Sampling draws from an explicit `torch.Generator`
-and runs eagerly.
+it: the eager step is ~370 small launches (the chain's ~2,400) and the host
+cannot issue them as fast as the card runs them. Sampling draws from an
+explicit `torch.Generator` and runs eagerly. The loop counts its steps
+(`decode.steps`) and those on the kernels (`decode.fused_steps`) in the
+tracing recorder.
 
 `generate_batched` advances B independent sequences, the batch as a written-out
 leading axis of every cache leaf.
@@ -54,6 +66,7 @@ import torch.nn.functional as F
 from ..config import LLMConfig
 from ..models import mla_moe_decoder, mot_decoder
 from ..models.mot_decoder import LayerKV, MoTForCausalLM
+from ..ops import decode_fused
 from ..ops.linear import linear
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_mrope
@@ -253,13 +266,56 @@ def _decode_step(
     C its capacity here) and `length` the whole's; the rank that owns the
     position writes the rows."""
     model = lm.model
-    nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    b = token.shape[0]
-    eps = cfg.rms_norm_eps
     x = model.embed_tokens(token).to(dt)  # (B, D)
     ang = rope_pos.float()[:, None] * inv_freq2[None, :]
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if _runs_fused(cache, dt, group, cfg):
+        h = _fused_layers(model, cache, x, cos, sin, cfg, dt)
+    else:
+        h = model.norm(_chain_layers(model, cache, x, cos, sin, cfg, dt, group))
+    cache.length.add_(1 if active is None else active.to(cache.length.dtype))
+    # the product runs in the compute dtype (an fp32 copy of the 152k-row head
+    # per step would cost more than the step); the logits come back as fp32
+    return mot_decoder.lm_head(lm, h.to(dt), torch.float32)
 
+
+def _runs_fused(cache: KVCache, dt: torch.dtype, group, cfg: LLMConfig) -> bool:
+    """Whether `_decode_step` runs the fused kernels: a CUDA cache, unquantised, in the compute
+    dtype (bf16 or fp16), whole on this rank, of the head dim and GQA group the kernel is built
+    for. Else the chain: the int8 cache, `generate_tp`'s context shards, other head shapes (the
+    tiny test configs) and the CPU."""
+    return (cache.k.is_cuda and cache.k_scale is None and group is None and cache.k.dtype == dt
+            and dt in (torch.bfloat16, torch.float16) and cfg.head_dim == decode_fused.HEAD_DIM
+            and cfg.num_attention_heads // cfg.num_key_value_heads in decode_fused.GROUPS)
+
+
+def _fused_layers(model, cache: KVCache, x, cos, sin, cfg: LLMConfig, dt: torch.dtype) -> torch.Tensor:
+    """The layers of `_decode_step` on ops/decode_fused.py's kernels, each layer's new K/V rows
+    stored by its `decode_attention`; returns the final norm of the last hidden state."""
+    nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    b = x.shape[0]
+    scratch = decode_fused.decode_scratch(b, kvh, nh // kvh, cache.k.shape[3], x.device)
+    delta = None  # the last MLP's output, added to x by the next norm
+    for i, layer in enumerate(model.layers):
+        at, mlp = layer.self_attn, layer.mlp
+        x, h = decode_fused.add_rms_norm(x, delta, layer.input_layernorm.weight, layer.input_layernorm.eps)
+        attn = decode_fused.decode_attention(
+            linear(h, at.q_proj, dt).view(b, nh, hd), linear(h, at.k_proj, dt).view(b, kvh, hd),
+            linear(h, at.v_proj, dt).view(b, kvh, hd), cos, sin, cache.k[:, i], cache.v[:, i], cache.length,
+            at.q_norm.weight if cfg.qk_norm else None, at.k_norm.weight if cfg.qk_norm else None,
+            cfg.rms_norm_eps, scratch)
+        x, h = decode_fused.add_rms_norm(x, linear(attn, at.o_proj, dt), layer.post_attention_layernorm.weight,
+                                         layer.post_attention_layernorm.eps)
+        delta = linear(F.silu(linear(h, mlp.gate_proj, dt)) * linear(h, mlp.up_proj, dt), mlp.down_proj, dt)
+    return decode_fused.add_rms_norm(x, delta, model.norm.weight, model.norm.eps)[1]
+
+
+def _chain_layers(model, cache: KVCache, x, cos, sin, cfg: LLMConfig, dt: torch.dtype, group) -> torch.Tensor:
+    """The layers of `_decode_step` as plain tensor code, then the new K/V rows of all layers in
+    one indexed store; returns the last hidden state."""
+    nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    b = x.shape[0]
+    eps = cfg.rms_norm_eps
     cur = cache.length  # (B,)
     cap = cache.k.shape[3]
     offset, owns = 0, None
@@ -308,12 +364,7 @@ def _decode_step(
             rows, sc = _quant(rows)
             scales[bi, li, hi, pi] = _owned(owns, sc, scales[bi, li, hi, pi])
         buf[bi, li, hi, pi] = _owned(owns, rows.to(buf.dtype), buf[bi, li, hi, pi])
-    cache.length.add_(1 if active is None else active.to(cache.length.dtype))
-
-    h = model.norm(x)
-    # the product runs in the compute dtype (an fp32 copy of the 152k-row head
-    # per step would cost more than the step); the logits come back as fp32
-    return mot_decoder.lm_head(lm, h.to(dt), torch.float32)
+    return x
 
 
 def _latent_decode_step(
@@ -424,6 +475,7 @@ def _generate_loop(
     num = torch.zeros(b, dtype=torch.int64, device=dev)
     slot = torch.zeros((1, 1), dtype=torch.int64, device=dev)  # the column of `tokens` this step writes
     inv_freq2 = _rope_inv_freq(cfg, dev)
+    fused = isinstance(cache, KVCache) and _runs_fused(cache, dt, group, cfg)
 
     def step():
         logits = decode_step_fn(lm, cache, tok, pos, cfg, dt, inv_freq2, active=~done, group=group)
@@ -443,6 +495,9 @@ def _generate_loop(
         cuda_graph = dev.type == "cuda" and not do_sample and max_new_tokens > 2
     graph = None
     for i in range(max_new_tokens):
+        tracing.count("decode.steps", 1)
+        if fused:
+            tracing.count("decode.fused_steps", 1)
         if i == 0:
             with tracing.span("decode.first"):
                 step()  # eager; with a graph this is the warm-up, and a real step

@@ -51,7 +51,9 @@ cp.async stages on mbarriers (csrc/hopper_common.cuh); `bwd_blocks` and
 `dkv_head_split` reckon their grids on the host.
 
 All are CUDA C++ for sm_90a, built with nvcc into plain-C shared libraries at
-first use (one per source, in parallel) and called through ctypes.
+first use (one per source, in parallel) and called through ctypes; the MoT
+decode step's kernels (csrc/decode_fused.cu, wrapped by ops/decode_fused.py)
+build with them.
 
 What bounds them on the H100: tensor-core FLOPs (K8: int8 operations for
 QK^T, bf16 for P.V). K2 at the 32-view prefill
@@ -91,7 +93,8 @@ from .masks import TokenInfo, make_segment_mask
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 # one shared library per source, all built at once by parallel nvcc processes
-_SOURCES = (_CSRC / "attention_segment.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_batched.cu")
+_SOURCES = (_CSRC / "attention_segment.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_batched.cu",
+            _CSRC / "decode_fused.cu")
 _HEADERS = (_CSRC / "attention_common.cuh", _CSRC / "hopper_common.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -182,12 +185,12 @@ def build_library() -> Tuple[Tuple[Path, ...], str]:
 
 
 def load_library() -> Tuple[ctypes.CDLL, ...]:
-    """(segment forward, backward, batched forward) libraries, built at first
-    use."""
+    """(segment forward, backward, batched forward, decode step) libraries,
+    built at first use; ops/decode_fused.py wraps the last."""
     global _libs
     if _libs is None:
         paths, _ = build_library()
-        seg, bwd, batched = (ctypes.CDLL(str(path)) for path in paths)
+        seg, bwd, batched, decode = (ctypes.CDLL(str(path)) for path in paths)
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         batched.g2_batched_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 9 + [f, p, i]
         batched.g2_batched_attention.restype = i
@@ -213,7 +216,13 @@ def load_library() -> Tuple[ctypes.CDLL, ...]:
         bwd.g2_attention_bwd_dkv.restype = i
         seg.g2_segment_attention_int8.argtypes = [i] + [p] * 9 + [i] * 6 + [ll] * 6 + [p, i]
         seg.g2_segment_attention_int8.restype = i
-        _libs = (seg, bwd, batched)
+        decode.g2_decode_attention.argtypes = [i, i] + [p] * 5 + [i, f] + [p] * 8 + [i] * 5 + [ll] * 5 + [f, p]
+        decode.g2_decode_attention.restype = i
+        decode.g2_add_rms_norm.argtypes = [i] + [p] * 3 + [i] + [p] * 2 + [i, i, f] + [ll] * 4 + [p]
+        decode.g2_add_rms_norm.restype = i
+        decode.g2_decode_constants.argtypes = [i]
+        decode.g2_decode_constants.restype = i
+        _libs = (seg, bwd, batched, decode)
     return _libs
 
 

@@ -26,10 +26,12 @@ The last `KEEP` requests are kept; `summary()` and `requests()` read them.
 Spans of the port: `recon` and `chat` (top level), `input`, `dino`, `vit`,
 `decoder`, `heads`, `host_images`, `upload`, `prefill`, `cache`, `decode`,
 `decode.first`, and in the "mla_moe" decoder's sparse layers `moe.route` and
-`moe.experts` (ops/moe.py); counters `upload.bytes`, `k2.ws` (the K2 / K3
-launches of the warp-specialised schedule, ops/flash_attention.py),
-`moe.tokens.l<layer>.max` and `moe.tokens.l<layer>.mean` (the tokens routed to
-the busiest expert of each MoE layer, a device count, and to the mean one).
+`moe.experts` (ops/moe.py); counters `upload.bytes`, `decode.steps` and
+`decode.fused_steps` (the decode loop's steps, and those on the fused decode
+kernels, inference/decoding.py), `k2.ws` (the K2 / K3 launches of the
+warp-specialised schedule, ops/flash_attention.py), `moe.tokens.l<layer>.max`
+and `moe.tokens.l<layer>.mean` (the tokens routed to the busiest expert of each
+MoE layer, a device count, and to the mean one).
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
 """Parity of the port's KV-cache decoding (g2vlm_tpu_torch.inference.decoding)
 with g2vlm_tpu.inference.decoding on the CPU in fp32 at tiny widths: the cache
 fill and its int8 form, one decode step, the greedy loops, and the
-teacher-forced extension."""
+teacher-forced extension; and the fused decode kernels' plain versions
+against the chain they replace."""
+
+import copy
 
 import jax
 import jax.numpy as jnp
@@ -117,8 +120,22 @@ def test_fill_cache_matches_jax(models, quantized):
         assert (a is None and b is None) or torch.equal(a, b)
 
 
+def _on_the_fused_layers(monkeypatch):
+    """Send `_decode_step` to `_fused_layers`, which runs the kernels' plain versions on the CPU."""
+    monkeypatch.setattr(tdec, "_runs_fused", lambda *a: True)
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
 def test_decode_step_matches_jax(models, quantized):
+    _decode_step_matches_jax(models, quantized)
+
+
+def test_decode_step_on_the_fused_layers_matches_jax(models, monkeypatch):
+    _on_the_fused_layers(monkeypatch)
+    _decode_step_matches_jax(models, False)
+
+
+def _decode_step_matches_jax(models, quantized):
     params, model = models
     jpre, jc, tc = _caches(models, quantized)
     pos = int(jpre.next_rope_pos)
@@ -165,6 +182,15 @@ def test_int8_kv_logits_stay_near_the_unquantised_ones(models):
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp32", "int8"])
 def test_generate_greedy_ids_equal_jax(models, quantized):
+    _generate_greedy_ids_equal_jax(models, quantized)
+
+
+def test_generate_greedy_ids_on_the_fused_layers_equal_jax(models, monkeypatch):
+    _on_the_fused_layers(monkeypatch)
+    _generate_greedy_ids_equal_jax(models, False)
+
+
+def _generate_greedy_ids_equal_jax(models, quantized):
     params, model = models
     jpre, jc, tc = _caches(models, quantized)
     pos = int(jpre.next_rope_pos)
@@ -221,6 +247,15 @@ def test_generate_batched_ids_equal_jax_and_the_single_loop(models):
 def test_extend_cache_equals_a_longer_prefill(models):
     """Feeding text through the decode step leaves the cache a prefill of the
     same text would have built, and the next tokens are the same."""
+    _extend_cache_equals_a_longer_prefill(models)
+
+
+def test_extend_cache_on_the_fused_layers_equals_a_longer_prefill(models, monkeypatch):
+    _on_the_fused_layers(monkeypatch)
+    _extend_cache_equals_a_longer_prefill(models)
+
+
+def _extend_cache_equals_a_longer_prefill(models):
     params, model = models
     lm = model.language_model
     _, _, tc_prefill = _caches(models, False)
@@ -252,3 +287,171 @@ def test_sampling_takes_an_explicit_generator(models):
 
     assert run(0) == run(0)
     assert len({run(s) for s in range(3)}) > 1  # a high temperature: seeds differ
+
+
+# ---------------------------------------------------------------------------
+# the fused decode kernels' plain versions (ops/decode_fused.py) against the chain
+# ---------------------------------------------------------------------------
+
+def _ulps_apart(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """How many steps of a's dtype lie between a and b, element by element (same-signed values)."""
+    if a.dtype == torch.float32:
+        return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    return (a.view(torch.int16).long() - b.view(torch.int16).long()).abs()
+
+
+def _fresh_rows(rng, b, kvh, g, d, cap, dtype, qk_norm):
+    def t(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale).to(dtype)
+
+    ang = torch.from_numpy(rng.uniform(0, 300, (b, d)).astype(np.float32))
+    norms = (t(d, scale=0.3) + 1, t(d, scale=0.3) + 1) if qk_norm else (None, None)
+    return (t(b, kvh * g, d, scale=2), t(b, kvh, d, scale=2), t(b, kvh, d), torch.cos(ang), torch.sin(ang),
+            t(b, kvh, cap, d, scale=2), t(b, kvh, cap, d), *norms)
+
+
+def _chain_attention(q, k, v, cos, sin, kc, vc, length, q_norm, k_norm, eps):
+    """One layer of decoding.py's chain: q/k norm, apply_mrope, _attend, then the store of the rows."""
+    from g2vlm_tpu_torch.ops.norms import rms_norm
+    from g2vlm_tpu_torch.ops.rope import apply_mrope
+
+    b, nh, d = q.shape
+    kvh, cap = k.shape[1], kc.shape[2]
+    if q_norm is not None:
+        q, k = rms_norm(q.float(), q_norm, eps), rms_norm(k.float(), k_norm, eps)
+    q, k = apply_mrope(q, k, cos, sin)
+    visible = torch.arange(cap)[None, :] < length[:, None]
+    out = tdec._attend(q.float().view(b, kvh, nh // kvh, d), kc, vc, None, None, visible, d, k.float(), v.float())
+    pos = length.clamp(0, cap - 1)
+    bi = torch.arange(b)
+    kc[bi, :, pos] = k.float().to(kc.dtype)
+    vc[bi, :, pos] = v.float().to(vc.dtype)
+    return out.reshape(b, nh * d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,g,qk_norm,lengths,cap,chunks_per_split", [
+    (1, 6, True, [0], 256, 1),  # no cached row: the self term alone
+    (1, 6, True, [1], 256, 1),
+    (1, 6, False, [127], 384, 1),  # a split less one row
+    (1, 1, True, [128], 384, 1),  # a split
+    (1, 6, True, [129], 384, 1),  # a split and one row
+    (1, 6, True, [255, ], 640, 2),  # splits of two chunks, a split less one
+    (1, 1, False, [257], 640, 2),
+    (1, 6, True, [299], 300, 1),  # a ragged capacity
+    (1, 6, True, [300], 300, 1),  # a full cache: the row lands on the last visible one, after the reads
+    (2, 6, True, [5, 200], 300, 1),  # two sequences of unequal lengths
+    (2, 1, False, [131, 0], 300, 2),
+], ids=["len0", "len1", "split-1", "split", "split+1", "2chunks-1", "2chunks+1", "ragged", "full", "b2", "b2_g1"])
+def test_decode_attention_plain_matches_the_chain(rng, dtype, b, g, qk_norm, lengths, cap, chunks_per_split):
+    """decode_attention_plain (splits, online softmax over 128-row chunks, the last split's merge,
+    the row stored after the reads) against the chain's q/k norm + apply_mrope + _attend + store:
+    the stored rows equal up to one step of the dtype, the outputs within fp32 rounding."""
+    from g2vlm_tpu_torch.ops import decode_fused as df
+
+    kvh, d, eps = 2, 128, 1e-6
+    q, k, v, cos, sin, kc, vc, qn, kn = _fresh_rows(rng, b, kvh, g, d, cap, dtype, qk_norm)
+    length = torch.tensor(lengths, dtype=torch.int64)
+    kc2, vc2 = kc.clone(), vc.clone()
+    want = _chain_attention(q, k, v, cos, sin, kc, vc, length, qn, kn, eps)
+    got = df.decode_attention_plain(q, k, v, cos, sin, kc2, vc2, length, qn, kn, eps, chunks_per_split)
+    assert got.shape == (b, kvh * g * d) and got.dtype == dtype
+    # fp32: the two sum in other orders; bf16: the fp32 outputs round to one step apart at most
+    tol = dict(atol=2e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=1e-2, rtol=8e-3)
+    torch.testing.assert_close(got.float(), want.to(dtype).float(), **tol)
+    if dtype == torch.bfloat16:
+        assert _ulps_apart(got, want.to(dtype)).max() <= 1
+    for a, w in ((kc2, kc), (vc2, vc)):
+        assert _ulps_apart(a, w).max() <= 1
+        pos = [min(n, cap - 1) for n in lengths]
+        for bi in range(b):  # every other row untouched
+            keep = torch.ones(cap, dtype=torch.bool)
+            keep[pos[bi]] = False
+            assert torch.equal(a[bi][:, keep], w[bi][:, keep])
+    # the wrapper takes the plain version for a CPU tensor
+    kc3, vc3 = kc.clone(), vc.clone()
+    assert torch.equal(df.decode_attention(q, k, v, cos, sin, kc3, vc3, length, qn, kn, eps), df.decode_attention_plain(
+        q, k, v, cos, sin, kc.clone(), vc.clone(), length, qn, kn, eps))
+
+
+@pytest.mark.parametrize("w_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_delta", [True, False], ids=["x+d", "x"])
+def test_add_rms_norm_plain_matches_the_chain(rng, w_dtype, with_delta):
+    """x + d then rms_norm, as decoding.py's chain computes them in bf16, against add_rms_norm_plain
+    and its wrapper on the CPU: the sum bitwise, the norm up to one bf16 step on a small share."""
+    from g2vlm_tpu_torch.ops import decode_fused as df
+    from g2vlm_tpu_torch.ops.norms import rms_norm
+
+    x = torch.from_numpy(rng.standard_normal((2, 1536)).astype(np.float32) * 3).to(torch.bfloat16)
+    d = torch.from_numpy(rng.standard_normal((2, 1536)).astype(np.float32)).to(torch.bfloat16) if with_delta else None
+    w = torch.from_numpy(1 + 0.2 * rng.standard_normal(1536).astype(np.float32)).to(w_dtype)
+    s_want = x + d if with_delta else x
+    y_want = rms_norm(s_want, w, 1e-6)
+    for fn in (df.add_rms_norm_plain, df.add_rms_norm):
+        s, y = fn(x, d, w, 1e-6)
+        assert torch.equal(s, s_want) and y.dtype == torch.bfloat16
+        apart = _ulps_apart(y, y_want)
+        assert apart.max() <= 1 and (apart > 0).float().mean() < 1e-2
+
+
+def test_the_step_runs_the_chain_for_int8_a_group_and_the_cpu(models, monkeypatch):
+    """`_runs_fused` takes the kernels only for a CUDA cache, unquantised, in the compute dtype
+    (bf16 / fp16), whole on this rank, of the head dim and GQA group the kernel is built for; a
+    CPU loop never reaches the kernels' wrappers and counts its steps but no fused one."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.ops import decode_fused as df
+    from g2vlm_tpu_torch.utils import tracing
+
+    main = G2VLMConfig().llm  # 12:2 heads of 128
+
+    def cache(is_cuda=True, dtype=torch.bfloat16, quantized=False):
+        leaf = SimpleNamespace(is_cuda=is_cuda, dtype=torch.int8 if quantized else dtype)
+        return tdec.KVCache(leaf, leaf, leaf if quantized else None, leaf if quantized else None, None)
+
+    assert tdec._runs_fused(cache(), torch.bfloat16, None, main)
+    assert tdec._runs_fused(cache(dtype=torch.float16), torch.float16, None, main)
+    assert not tdec._runs_fused(cache(quantized=True), torch.bfloat16, None, main)  # the int8 cache
+    assert not tdec._runs_fused(cache(), torch.bfloat16, object(), main)  # generate_tp's context shard
+    assert not tdec._runs_fused(cache(is_cuda=False), torch.bfloat16, None, main)  # the CPU
+    assert not tdec._runs_fused(cache(dtype=torch.float32), torch.float32, None, main)
+    assert not tdec._runs_fused(cache(), torch.float32, None, main)  # a compute dtype other than the cache's
+    assert not tdec._runs_fused(cache(), torch.bfloat16, None, LLM)  # the tiny config's head dim
+    assert not tdec._runs_fused(cache(), torch.bfloat16, None, dataclasses.replace(main, num_key_value_heads=12))
+
+    def refuse(*a, **k):
+        raise AssertionError("the CPU step reached a fused kernel's wrapper")
+
+    monkeypatch.setattr(df, "decode_attention", refuse)
+    monkeypatch.setattr(df, "add_rms_norm", refuse)
+    _, model = models
+    for dtype in (torch.float32, torch.bfloat16):
+        with tracing.record():
+            with tracing.span("chat"):
+                tdec.generate(model.language_model, tdec.make_cache(LLM, 32, dtype, device="cpu"), 5, 0, -1, LLM,
+                              max_new_tokens=5, compute_dtype=dtype)
+        assert tracing.requests()[-1].counters == {"decode.steps": 5}
+    tracing.clear()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_the_fused_layers_on_the_plain_versions_equal_the_chain(models, monkeypatch, dtype):
+    """`_fused_layers` (the step on the kernels' plain versions, on the CPU) against the chain: the
+    same logits, the same rows in the cache, the same greedy ids."""
+    _, model = models
+    lm = copy.deepcopy(model.language_model).to(dtype)
+    runs = []
+    for fused in (False, True):
+        monkeypatch.setattr(tdec, "_runs_fused", lambda *a, fused=fused: fused)
+        cache = tdec.make_cache(LLM, 300, dtype, device="cpu")
+        logits, _ = tdec.extend_cache(lm, cache, TOKS * 12, 0, LLM, compute_dtype=dtype)  # 132 rows: two chunks
+        toks, n, _ = tdec.generate(lm, cache, 3, len(TOKS) * 12, -1, LLM, max_new_tokens=6, compute_dtype=dtype)
+        runs.append((logits, cache, toks))
+    (l0, c0, t0), (l1, c1, t1) = runs
+    tol = dict(atol=1e-4, rtol=1e-4) if dtype == torch.float32 else dict(atol=5e-2, rtol=5e-2)
+    torch.testing.assert_close(l1, l0, **tol)
+    for a, b in ((c1.k, c0.k), (c1.v, c0.v)):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+    assert torch.equal(c1.length, c0.length) and torch.equal(t1, t0)

@@ -174,7 +174,10 @@ def test_chat_with_return_info_records_its_stages(pipe):
     assert r.counters["upload.bytes"] == 4 * (views.size + rows * patches[0].shape[1])
     assert info["request_id"] == r.rid
     s = tracing.summary()
-    assert s["requests"] == {"chat": 1} and s["counters"] == {("chat", "upload.bytes"): r.counters["upload.bytes"]}
+    # the decode loop counts its 5 steps, none of them on the fused kernels on the CPU
+    assert r.counters["decode.steps"] == 5 and "decode.fused_steps" not in r.counters
+    assert s["requests"] == {"chat": 1} and s["counters"] == {("chat", "upload.bytes"): r.counters["upload.bytes"],
+                                                              ("chat", "decode.steps"): 5.0}
     assert tracing.summary([r.rid]) == s and tracing.summary([r.rid + 1])["requests"] == {}
     assert s["spans"][("chat", "decode.first")]["host_ms"] == pytest.approx(by_name["decode.first"].host_s * 1e3)
     assert all(v["device_ms"] is None for v in s["spans"].values())
@@ -188,7 +191,7 @@ def test_chat_device_preprocess_records_the_towers_under_upload(pipe):
     assert _tree(r) == ("chat", [
         ("upload", [("dino", []), ("vit", [])]), ("prefill", [("decoder", [])]),
         ("cache", []), ("decode", [("decode.first", [])])])
-    assert r.counters == {"upload.bytes": 2 * 54 * 76 * 3}
+    assert r.counters == {"upload.bytes": 2 * 54 * 76 * 3, "decode.steps": 4}
     assert info["t_upload_s"] == r.children[0].host_s
 
 
@@ -230,3 +233,18 @@ def test_the_benchmark_readers_read_the_requests_outside_the_profiled_window(pip
         pipe.recon_from_frames(np.zeros((2, 28, 56, 3), np.uint8), new_width=56)
     for name in ("recon.input_ms", "recon.dino_ms", "recon.decoder_ms", "recon.heads_ms"):
         assert _reader(name)(ctx) is None
+
+
+def test_the_fused_share_reader_reads_the_decode_loops_counters(pipe):
+    """chat.decode_fused_share: 100 x decode.fused_steps / decode.steps over the requests of
+    `ctx.samples`; 0 on the CPU, whose loop runs the chain; None without the step counter (a
+    program that does not count its steps)."""
+    read = _reader("chat.decode_fused_share")
+    info = pipe.chat(_frames(1, seed=31), "how near?", max_new_tokens=3, new_width=56, return_info=True)[1]
+    ctx = SimpleNamespace(samples=[{"info": info}])
+    [r] = tracing.requests()
+    assert r.counters["decode.steps"] == 3 and read(ctx) == 0.0
+    r.counters["decode.fused_steps"] = 3  # as the loop counts on a bf16 cache on the card
+    assert read(ctx) == 100.0
+    del r.counters["decode.steps"], r.counters["decode.fused_steps"]
+    assert read(ctx) is None
