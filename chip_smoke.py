@@ -1390,7 +1390,7 @@ def _chat_phases(env, recon_ms):
         pos_ = torch.as_tensor([int(pre.next_rope_pos) for pre, *_ in pres], dtype=torch.int64, device=dev_)
         fa.reset_launch_counts()
         with torch.inference_mode():
-            logits = decoding._decode_step(lm_, caches, start, pos_, cut.llm, dt, decoding._rope_inv_freq(cut.llm, dev_))
+            logits = decoding._decode_step(lm_, caches, start, pos_, cut.llm, dt, lm_.rope_inv_freq(dev_))
         first = logits.argmax(-1)
         toks, _, _ = decoding.generate_batched(lm_, caches, first, pos_ + 1, -1, cut.llm, max_new_tokens=n_new - 1,
                                                compute_dtype=dt)
@@ -1702,7 +1702,7 @@ def _decode_phase(env):
     kvh, nh, d = llm.num_key_value_heads, llm.num_attention_heads, llm.head_dim
     rng = np.random.default_rng(13)
     question = " ".join(f"w{int(i)}" for i in rng.integers(0, 5000, DECODE_WORDS))
-    inv = decoding._rope_inv_freq(llm, dev)
+    inv = lm.rope_inv_freq(dev)
     # the main path first: pipe.chat at the 1-view prompt reaches the kernels on its own (the
     # eager step and the captured one; the replays launch without the wrappers)
     frames = list(rng.integers(0, 256, (DECODE_VIEWS[0], *DECODE_HW, 3), dtype=np.uint8))
@@ -3653,7 +3653,7 @@ def _kimivl_phase(env):
         _fail(f"kimivl chat: launches {launches}, expected {cut.llm.num_hidden_layers} flash_mla_attention")
     with torch.inference_mode():
         prefill, _, lats, _, _ = pipe.chat_prefill(frames, question)
-        cache = decoding.build_latent_cache(lats, prefill.seq_len, cut.llm, prefill.seq_len + 16, torch.bfloat16)
+        cache = decoding.build_cache(lats, prefill.seq_len, cut.llm, prefill.seq_len + 16, torch.bfloat16)
         got = torch.stack([decoding.decode_step(model.language_model, cache, tok, prefill.seq_len + j, cut.llm)[0]
                            for j, tok in enumerate([layout.EOS] + served[:-1])])
     del model, pipe, cache, lats

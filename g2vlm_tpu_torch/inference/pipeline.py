@@ -16,16 +16,14 @@ one after another. `chat_continue` runs a follow-up turn on the live cache.
 
 Serving options, fixed at construction: `attn_impl` "auto" or "int8" (the
 quantized serving mode: every large prefill attention of the ViT tower and of
-the decoder takes the int8-QK kernel; `G2VLM_ATTN_INT8=1` in the environment
-selects it when the argument is left at "auto", read here once and nowhere
-below), and `attn_pipe` (the two-stage schedule of the segment kernel).
+the decoder takes the int8-QK kernel), and `attn_pipe` (the two-stage schedule
+of the segment kernel); the language model refuses what its family does not take.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
-import os
 import zlib
 from typing import Dict, List, NamedTuple, Optional, Sequence
 
@@ -40,7 +38,6 @@ from ..data.images import load_views, resnet_normalize
 from ..data.tokenizer import derive_start_token
 from ..data.vit_preprocess import preprocess_vit_image
 from ..models import qwen_vit
-from ..models.mla_moe_decoder import unsupported
 from ..models.g2vlm import (
     G2VLM, PackedPrefill, SequenceBuilder, encode_dino_to_llm, encode_vit_to_llm, prefill_hidden, recon_forward,
 )
@@ -102,14 +99,10 @@ class G2VLMPipeline:
             bos_token_id=151644, eos_token_id=151645,
             start_of_image=151652, end_of_image=151653,
         )
-        if attn_impl == "auto" and os.environ.get("G2VLM_ATTN_INT8", "0") == "1":
-            # opt-in quantized serving mode; not the default: the per-layer
-            # quantisation noise compounds over the 28 decoder layers
-            attn_impl = "int8"
         if attn_impl not in ("auto", "int8"):
             raise ValueError(f"unknown attention impl: {attn_impl}")
-        if cfg.llm.layer_module == "mla_moe" and (attn_impl != "auto" or attn_pipe):
-            raise unsupported(f"attn_impl={attn_impl!r}, attn_pipe={attn_pipe}")
+        if model is not None:  # without a model the pipeline only builds prefills
+            model.language_model.check_serving(attn_impl, attn_pipe)
         self.attn_impl = attn_impl
         self.attn_pipe = attn_pipe
         self.seq_pad_multiple = seq_pad_multiple
@@ -136,11 +129,6 @@ class G2VLMPipeline:
 
     def _start_token(self) -> int:
         return derive_start_token(self.tokenizer, self.new_token_ids)
-
-    def _decode_pos(self, prefill: PackedPrefill) -> int:
-        """The rope position of the first decoded token: the mRoPE cursor, or with 1-D positions
-        (the "mla_moe" decoder) the row after the prompt."""
-        return prefill.seq_len if self.cfg.llm.layer_module == "mla_moe" else prefill.next_rope_pos
 
     # ------------------------------------------------------------------
     # recon
@@ -343,22 +331,18 @@ class G2VLMPipeline:
                 capacity = max(_round_up(prefill.seq_len + max_new_tokens + reserve + 8, 128), len(prefill.doc_id))
                 # only the first seq_len rows are valid K/V (the padding sits at the tail and the length
                 # hides it); build_cache consumes the list, so the prefill K/V is freed layer by layer
-                if self.cfg.llm.layer_module != "mla_moe":
-                    cache = decoding.build_cache(kv, prefill.seq_len, self.cfg.llm, capacity, dtype=dt,
-                                                 quantized=quantized_kv)
-                elif quantized_kv:
-                    raise unsupported("quantized_kv (the int8 cache)")
-                else:
-                    cache = decoding.build_latent_cache(kv, prefill.seq_len, self.cfg.llm, capacity, dtype=dt)
+                cache = decoding.build_cache(kv, prefill.seq_len, self.cfg.llm, capacity, dtype=dt,
+                                             quantized=quantized_kv)
                 del kv
                 if return_info:
                     self._sync()
             with tracing.span("decode") as decode_span:
                 start_token = self._start_token()
                 eos = self.new_token_ids["eos_token_id"]
+                decode_pos = model.language_model.decode_pos(prefill)
                 generator = torch.Generator(device=dev).manual_seed(seed) if do_sample else None
                 toks, num, cache = decoding.generate(
-                    model.language_model, cache, start_token, self._decode_pos(prefill), eos, self.cfg.llm,
+                    model.language_model, cache, start_token, decode_pos, eos, self.cfg.llm,
                     max_new_tokens=max_new_tokens, do_sample=do_sample, temperature=temperature,
                     generator=generator, compute_dtype=dt,
                 )
@@ -369,7 +353,7 @@ class G2VLMPipeline:
                 # the position advanced by the consumed tokens: the start token and
                 # num - 1 generated ones; the last emitted token (eos on a clean
                 # stop) was never consumed, chat_continue feeds it first
-                session = ChatSession(cache, int(self._decode_pos(prefill)) + num, ids[-1] if ids else start_token,
+                session = ChatSession(cache, int(decode_pos) + num, ids[-1] if ids else start_token,
                                       capacity, quantized_kv)
             if ids and ids[-1] == eos:
                 ids = ids[:-1]

@@ -10,14 +10,12 @@ reference's state-dict prefixes (`language_model.`, `dino_model.`,
 `point_head.`, `camera_head.`, `global_point_head.`, `conf_decoder.`,
 `conf_head.`, `Pi3Loss.point_loss.segformer.`, `vit_model.`), which are the
 keys g2vlm_tpu's `params_from_torch` reads. Recon is one packed prefill
-through the decoder in GEO_MAIN routing, then the heads over the hidden
-states at the dino-token rows. The chat prefill mixes dino (geo expert) and
-ViT and text (und expert) rows: it is sorted host-side into
-[und | geo | padding] and runs the SPLIT layers, and its per-layer K/V feed
-the decode cache. A "dense" or "moe" decoder has no expert attention: it runs
-every prefill MIXED. An "mla_moe" decoder (Kimi-VL-A3B's language model,
-models/mla_moe_decoder.py) runs every row through its one weight set at 1-D
-positions, and its prefill gives each layer's latent for the decode cache.
+through the decoder, then the heads over the hidden states at the dino-token
+rows; the chat prefill mixes dino, ViT and text rows, and its per-layer rows
+fill the decode cache. The decoder family is chosen once, at construction: the
+MoT (models/mot_decoder.py; its prefill routes GEO_MAIN, SPLIT or MIXED) or
+Kimi-VL-A3B's MLA + MoE language model (models/mla_moe_decoder.py); all else
+asks `language_model`.
 
 `PackedPrefill` and `SequenceBuilder` are numpy host code, the port's own copy
 of the JAX module's (the port imports nothing of g2vlm_tpu); a test holds the
@@ -39,6 +37,7 @@ from ..ops.masks import TokenInfo
 from ..utils import tracing
 from ..utils.geometry import homogenize_points
 from . import dinov2, dinov3, mla_moe_decoder, mot_decoder, pi3_heads, qwen_vit, segformer
+from .mot_decoder import split_order  # noqa: F401  (the SPLIT sort, read by tools and tests from here)
 
 
 class PackedPrefill(NamedTuple):
@@ -187,10 +186,8 @@ class G2VLM(nn.Module):
         self.cfg = cfg
         d = cfg.llm.hidden_size
         p = cfg.dino_patch_size
-        if cfg.llm.layer_module == "mla_moe":
-            self.language_model = mla_moe_decoder.MLAMoEForCausalLM(cfg.llm)
-        else:
-            self.language_model = mot_decoder.MoTForCausalLM(cfg.llm)
+        lm_class = mla_moe_decoder.MLAMoEForCausalLM if cfg.llm.layer_module == "mla_moe" else mot_decoder.MoTForCausalLM
+        self.language_model = lm_class(cfg.llm)  # the decoder family: its prefill, decode, cache rows
         if cfg.use_dinov3:
             self.dino_model = dinov3.Dinov3(cfg.dinov3)
             self.dino2llm = nn.Linear(cfg.dinov3.hidden_size, d)
@@ -251,27 +248,6 @@ def encode_dino_to_llm(
         return linear(tokens.reshape(n * hw, -1), model.dino2llm, tokens.dtype)
 
 
-def _geo_dominant(cfg: G2VLMConfig, prefill: PackedPrefill) -> bool:
-    """The GEO_MAIN routing rule of the JAX prefill: a recon prefill with a
-    few text rows (the first at row 0) and many dino rows, and no vit rows."""
-    n_text = len(prefill.text_indexes)
-    return (
-        cfg.llm.layer_module == "mot"
-        and len(prefill.vit_indexes) == 0
-        and n_text > 0
-        and len(prefill.dino_indexes) > 4 * n_text
-        and int(prefill.text_indexes[0]) == 0
-    )
-
-
-def split_order(prefill: PackedPrefill) -> Tuple[np.ndarray, int]:
-    """(perm, geo_start): the stable host-side sort of a mixed prefill's rows
-    into [und | geo | padding], and the row where the geo expert's part
-    begins."""
-    key = np.where(prefill.doc_id < 0, 2, np.asarray(prefill.is_geo).astype(np.int32))
-    return np.argsort(key, kind="stable"), int((key == 0).sum())
-
-
 def encode_vit_to_llm(
     model: G2VLM,
     vit_patches: torch.Tensor,  # (P, pdim)
@@ -309,23 +285,15 @@ def prefill_hidden(
     vit_emb: Optional[torch.Tensor] = None,
 ):
     """One packed prefill forward -> hidden (S, D), or with `return_kv`
-    (hidden, the layers' LayerKV list).
+    (hidden, the layers' cache rows: `LayerKV`s or `LayerLatent`s).
 
     ViT images enter as one uniform grid (`vit_grid_hw`, a (t, h, w) grid) or
     as packed per-image grids (`vit_coords` / `vit_seg`); `dino_emb` (N*hw,
     D_llm) and `vit_emb` supply tower tokens that were encoded beforehand
-    instead of `dino_images` / `vit_patches`.
-
-    Routing: a geo-dominant prefill without ViT rows (recon) runs the geo
-    expert everywhere and fixes up the few und rows (GEO_MAIN); a prefill that
-    mixes und and geo rows (chat) is sorted host-side, stably, into
-    [und | geo | padding] and runs the SPLIT layers, every expert product on a
-    contiguous slice (the hidden states are un-sorted on return, the K/V stay
-    sorted: a cache does not care about row order, and padding stays at the
-    tail); anything else computes both experts and selects (MIXED). A "dense"
-    or "moe" decoder always runs MIXED."""
+    instead of `dino_images` / `vit_patches`. The language model's `prefill`
+    runs the layers (the MoT's routing: `MoTForCausalLM.prefill`)."""
     dev, dt = model.device, model.dtype
-    lm = model.language_model.model
+    lm = model.language_model
 
     def rows(idx):
         return torch.as_tensor(idx, dtype=torch.long).to(dev)
@@ -334,7 +302,7 @@ def prefill_hidden(
         raise ValueError(f"token ids outside the vocabulary of {cfg.llm.vocab_size}")
     seq = torch.zeros((len(prefill.doc_id), cfg.llm.hidden_size), dtype=dt, device=dev)
     text_idx = rows(prefill.text_indexes)
-    seq[text_idx] = mot_decoder.embed_tokens(lm, rows(prefill.text_ids)).to(dt)
+    seq[text_idx] = lm.model.embed_tokens(rows(prefill.text_ids)).to(dt)
     if len(prefill.dino_indexes):
         if dino_emb is None and dino_images is not None:
             dino_emb = encode_dino_to_llm(model, dino_images)
@@ -351,31 +319,7 @@ def prefill_hidden(
         if vit_emb is not None:
             seq[rows(prefill.vit_indexes)] = vit_emb[:n_vit].to(dt)
 
-    info = prefill.token_info(dev)
-    position_ids = torch.as_tensor(prefill.position_ids).to(dev)
-    kw = dict(attn_impl=attn_impl, attn_pipe=attn_pipe, return_kv=return_kv)
-    if cfg.llm.layer_module == "mla_moe":  # one weight set, no routing by rows; K/V as each layer's latent
-        with tracing.span("decoder"):
-            return mla_moe_decoder.decoder_forward(lm, seq, info, **kw)
-    if _geo_dominant(cfg, prefill):
-        with tracing.span("decoder"):
-            return mot_decoder.decoder_forward(lm, seq, position_ids, info, und_idx=text_idx, **kw)
-    is_geo = np.asarray(prefill.is_geo)
-    perm = geo_start = None
-    if cfg.llm.layer_module == "mot" and 0 < int(is_geo.sum()) < int((prefill.doc_id >= 0).sum()):
-        perm, geo_start = split_order(prefill)
-        perm_t = rows(perm)
-        seq, position_ids = seq[perm_t], position_ids[:, perm_t]
-        info = TokenInfo(*(f[perm_t] for f in info))
-        is_geo = is_geo[perm]
-    with tracing.span("decoder"):
-        out = mot_decoder.decoder_forward_train(
-            lm, seq, torch.as_tensor(is_geo).to(dev), position_ids, info, geo_start=geo_start, compute_dtype=dt, **kw
-        )
-    hidden, kvs = out if return_kv else (out, None)
-    if perm is not None:
-        hidden = hidden[rows(np.argsort(perm, kind="stable"))]
-    return (hidden, kvs) if return_kv else hidden
+    return lm.prefill(seq, prefill, prefill.token_info(dev), text_idx, attn_impl, attn_pipe, return_kv)
 
 
 def pi3_predict(

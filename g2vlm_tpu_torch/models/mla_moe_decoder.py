@@ -16,8 +16,11 @@ ViT rows all run the same weights, under G2VLM's masks (the DINOv2 span bidirect
 positions: row i of a document has position i (`TokenInfo.pos`). Recon and the chat prefill run
 `decoder_forward`, the attention in its MHA form (k = [k_nope, k_pe broadcast to the heads]) on
 the MLA forward kernel (ops/flash_attention.py `flash_mla_attention`); with `return_kv` each layer
-also gives what the decode cache holds, its latent and rope key (`LayerLatent`), which
-inference/decoding.py attends over in the absorbed form.
+also gives what the decode cache holds, its latent and rope key (`LayerLatent`), which a decode
+step's layers (`decode_layers_latent`) attend over in the absorbed form: each head's nope query
+taken through its slice of `kv_b_proj` into the latent space, scores against the latents plus the
+rope query against the rope keys, the probabilities weighing the latents, each head's slice of
+`kv_b_proj` taking the result back to its value space; the cache is one "KV head" for all heads.
 
 Keys are the published ones under `language_model.` (`model.layers.{i}.self_attn.kv_b_proj.weight`,
 `model.layers.{i}.mlp.gate.e_score_correction_bias`, `model.layers.{i}.mlp.experts.{j}.up_proj.weight`,
@@ -26,7 +29,8 @@ Keys are the published ones under `language_model.` (`model.layers.{i}.self_attn
 takes the published per-expert keys, each a view of its slice.
 
 Inference only: training, tensor or sequence parallelism and the int8 or two-stage attention
-options raise with the configuration's name.
+options raise with the configuration's name (`MLAMoEForCausalLM.check_serving`; the int8 cache and
+the batched and context-sharded decode loops in inference/decoding.py).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from torch import nn
 
 from ..config import MLAMoEConfig
 from ..ops import moe
+from ..ops.attention import cache_attention
 from ..ops.linear import linear as _lin
 from ..ops.masks import TokenInfo
 from ..ops.rope import rotate_half
@@ -58,15 +63,16 @@ class LayerLatent(NamedTuple):
     k_pe: torch.Tensor  # (S, qk_rope_head_dim): the roped key
 
 
-def rope_inv_freq(cfg: MLAMoEConfig) -> np.ndarray:
+def rope_inv_freq(cfg: MLAMoEConfig, device) -> torch.Tensor:
+    """[inv_freq, inv_freq] (qk_rope_head_dim,) fp32 on `device`: the angles over a position."""
     dim = cfg.qk_rope_head_dim
-    return 1.0 / (cfg.rope_theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim))
+    return torch.from_numpy(np.concatenate([inv_freq] * 2)).to(device)
 
 
 def rope_cos_sin(pos: torch.Tensor, cfg: MLAMoEConfig):
     """(S,) positions -> cos, sin (S, qk_rope_head_dim) fp32: angles pos * [inv_freq, inv_freq]."""
-    inv = torch.from_numpy(np.concatenate([rope_inv_freq(cfg)] * 2)).to(pos.device)
-    ang = pos.float()[:, None] * inv[None]
+    ang = pos.float()[:, None] * rope_inv_freq(cfg, pos.device)[None]
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -221,32 +227,51 @@ class MLAMoEModel(nn.Module):
 
 
 class MLAMoEForCausalLM(nn.Module):
+    """The decoder and its lm_head, with `mot_decoder.MoTForCausalLM`'s methods."""
+
     def __init__(self, cfg: MLAMoEConfig):
         super().__init__()
         self.model = MLAMoEModel(cfg)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
 
+    def check_serving(self, attn_impl: str = "auto", attn_pipe: bool = False, sharded: bool = False) -> None:
+        """Raise unless the attention is the default one and the model whole."""
+        if attn_impl != "auto" or attn_pipe:
+            raise unsupported(f"attn_impl={attn_impl!r}, attn_pipe={attn_pipe}")
+        if sharded:
+            raise unsupported("sharding (FSDP2 / tensor or sequence parallelism)")
 
-def mla_attender(info: TokenInfo):
-    """attend(q, k, v) over the packed sequence of `info` for every layer of a forward: the MLA
-    forward with the kernels' plan made once, as `ops.attention.self_attender` makes K2's."""
-    from ..ops import flash_attention as fa
+    def prefill(self, seq: torch.Tensor, packed, info: TokenInfo, text_rows: torch.Tensor, attn_impl: str = "auto",
+                attn_pipe: bool = False, return_kv: bool = False):
+        """`decoder_forward` of every row of `seq` (S, D); a forward that would train raises."""
+        self.check_serving(attn_impl, attn_pipe)
+        if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+            self.forward_train()
+        with tracing.span("decoder"):
+            return decoder_forward(self.model, seq, info, return_kv)
 
-    plan = fa.segment_plan(info, info)
-    return lambda q, k, v: fa.flash_mla_attention(q, k, v, info, info, plan=plan)
+    def forward_train(self, *args, **kwargs):
+        raise unsupported("training")
+
+    def decode_pos(self, packed) -> int:  # the first decoded token's rope position: the row after the prompt
+        return packed.seq_len
+
+    def rope_inv_freq(self, device) -> torch.Tensor:
+        return rope_inv_freq(self.model.cfg, device)
 
 
-def decoder_forward(model: MLAMoEModel, x: torch.Tensor, info: TokenInfo, attn_impl: str = "auto",
-                    attn_pipe: bool = False, return_kv: bool = False):
+def decoder_forward(model: MLAMoEModel, x: torch.Tensor, info: TokenInfo, return_kv: bool = False):
     """All layers over the packed sequence x (S, D) at the 1-D positions `info.pos`, plus the
     final norm; returns the hidden states (S, D), with `return_kv` also each layer's LayerLatent."""
-    if attn_impl != "auto" or attn_pipe:
-        raise unsupported(f"attn_impl={attn_impl!r}, attn_pipe={attn_pipe}")
-    if torch.is_grad_enabled() and any(p.requires_grad for p in model.parameters()):
-        raise unsupported("training")
+    from ..ops import flash_attention as fa
+
     cos, sin = rope_cos_sin(info.pos, model.cfg)
     h = x.to(model.norm.weight.dtype)
-    attend = mla_attender(info)
+    plan = fa.segment_plan(info, info)  # the kernels' plan, made once for the layers
+
+    def attend(q, k, v):
+        return fa.flash_mla_attention(q, k, v, info, info, plan=plan)
+
     lats: List[LayerLatent] = []
     for layer in model.layers:
         h, lat = layer.forward_prefill(h, cos, sin, attend)
@@ -255,3 +280,27 @@ def decoder_forward(model: MLAMoEModel, x: torch.Tensor, info: TokenInfo, attn_i
     h = model.norm(h)
     return (h, lats) if return_kv else h
 
+
+def decode_layers_latent(model: MLAMoEModel, cache, x: torch.Tensor, cos, sin, cfg: MLAMoEConfig, dt: torch.dtype,
+                         visible: torch.Tensor):
+    """The layers of a decode step of tokens x (B, D) in the absorbed form over the `visible` (B, C)
+    rows of `cache` (a batched LatentCache) -> (the last hidden state, each layer's new row fp32)."""
+    nh, r, dn = cfg.num_attention_heads, cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    b = x.shape[0]
+    rows = []
+    for i, layer in enumerate(model.layers):
+        at = layer.self_attn
+        h = layer.input_layernorm(x)
+        q_nope, q_pe = project_q(at, h, cfg, cos, sin, dt)
+        lat = project_latent(at, h, cfg, cos, sin, dt)
+        w_kb = at.kv_b_proj.weight.float().view(nh, dn + cfg.v_head_dim, r)
+        q_lat = torch.einsum("bhd,hdr->bhr", q_nope.float(), w_kb[:, :dn])
+        row = torch.cat([lat.c, lat.k_pe], -1).float()  # (B, R + rope)
+        o_lat = cache_attention(torch.cat([q_lat, q_pe], -1)[:, None], cache.kv[:, i, None],
+                                cache.kv[:, i, None, :, :r], None, None, visible, cfg.qk_head_dim, row[:, None],
+                                row[:, None, :r])[:, 0]
+        attn = torch.einsum("bhr,hdr->bhd", o_lat, w_kb[:, dn:])
+        x = x + _lin(attn.reshape(b, -1).to(dt), at.o_proj, dt)
+        x = x + layer.mlp_out(x)
+        rows.append(row)
+    return x, rows

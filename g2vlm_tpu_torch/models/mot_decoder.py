@@ -29,8 +29,9 @@ of the projections' heads: the layers take head counts from the tensors.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -38,12 +39,14 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
 
-from ..ops.attention import self_attender
+from ..ops import decode_fused
+from ..ops.attention import cache_attention, self_attender
 from ..ops.linear import linear as _lin
 from ..ops.masks import TokenInfo
 from ..ops.norms import rms_norm
-from ..ops.rope import mrope_cos_sin, rotate_half
+from ..ops.rope import apply_mrope, mrope_cos_sin, rotate_half
 from ..parallel.comm import is_dtensor
+from ..utils import tracing
 
 
 class LayerKV(NamedTuple):
@@ -294,14 +297,79 @@ class MoTModel(nn.Module):
 
 
 class MoTForCausalLM(nn.Module):
+    """The decoder and its lm_head; its methods are what the serving and training code ask of a
+    decoder family (`mla_moe_decoder.MLAMoEForCausalLM` has the same)."""
+
     def __init__(self, cfg: LLMConfig):
         super().__init__()
         self.model = MoTModel(cfg)
         self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)  # chat path; kept for the key space
 
+    def check_serving(self, attn_impl: str = "auto", attn_pipe: bool = False, sharded: bool = False) -> None:
+        """Every option runs on this decoder."""
 
-def embed_tokens(model: MoTModel, token_ids: torch.Tensor) -> torch.Tensor:
-    return model.embed_tokens(token_ids)
+    def prefill(self, seq: torch.Tensor, packed, info: TokenInfo, text_rows: torch.Tensor, attn_impl: str = "auto",
+                attn_pipe: bool = False, return_kv: bool = False):
+        """The layers over an embedded `g2vlm.PackedPrefill` `seq` (S, D) -> hidden (S, D), with
+        `return_kv` also the layers' `LayerKV`s. A geo-dominant prefill without ViT rows (recon)
+        runs GEO_MAIN (`text_rows`, on the device, are its und rows); one that mixes und and geo
+        rows (chat) is sorted stably into [und | geo | padding] and runs SPLIT (the hidden states
+        un-sorted on return, the K/V left sorted); else, and for "dense" / "moe", MIXED. The
+        `decoder` span holds the layers, not the sort."""
+        cfg, dev = self.model.cfg, seq.device
+        position_ids = torch.as_tensor(packed.position_ids).to(dev)
+        kw = dict(attn_impl=attn_impl, attn_pipe=attn_pipe, return_kv=return_kv)
+        if _geo_dominant(cfg, packed):
+            with tracing.span("decoder"):
+                return decoder_forward(self.model, seq, position_ids, info, und_idx=text_rows, **kw)
+        is_geo = np.asarray(packed.is_geo)
+        perm = geo_start = None
+        if cfg.layer_module == "mot" and 0 < int(is_geo.sum()) < int((packed.doc_id >= 0).sum()):
+            perm, geo_start = split_order(packed)
+            perm_t = torch.as_tensor(perm, dtype=torch.long).to(dev)
+            seq, position_ids = seq[perm_t], position_ids[:, perm_t]
+            info = TokenInfo(*(f[perm_t] for f in info))
+            is_geo = is_geo[perm]
+        with tracing.span("decoder"):
+            out = decoder_forward_train(self.model, seq, torch.as_tensor(is_geo).to(dev), position_ids, info,
+                                        geo_start=geo_start, compute_dtype=seq.dtype, **kw)
+        if perm is None:
+            return out
+        unsort = torch.as_tensor(np.argsort(perm, kind="stable"), dtype=torch.long).to(dev)
+        return (out[0][unsort], out[1]) if return_kv else out[unsort]
+
+    def forward_train(self, *args, **kwargs):  # the training forward: `decoder_forward_train`
+        return decoder_forward_train(self.model, *args, **kwargs)
+
+    def decode_pos(self, packed) -> int:  # the first decoded token's rope position: the mRoPE cursor
+        return packed.next_rope_pos
+
+    def rope_inv_freq(self, device) -> torch.Tensor:
+        """[inv_freq, inv_freq] (head_dim,) fp32 on `device`: a decoded text token's one position."""
+        cfg = self.model.cfg
+        inv_freq = 1.0 / (cfg.rope_theta ** (np.arange(0, cfg.head_dim // 2, dtype=np.float32) * 2.0 / cfg.head_dim))
+        return torch.from_numpy(np.concatenate([inv_freq, inv_freq])).to(device)
+
+
+def _geo_dominant(cfg: LLMConfig, packed) -> bool:
+    """The GEO_MAIN routing rule of the JAX prefill: a recon prefill with a
+    few text rows (the first at row 0) and many dino rows, and no vit rows."""
+    n_text = len(packed.text_indexes)
+    return (
+        cfg.layer_module == "mot"
+        and len(packed.vit_indexes) == 0
+        and n_text > 0
+        and len(packed.dino_indexes) > 4 * n_text
+        and int(packed.text_indexes[0]) == 0
+    )
+
+
+def split_order(prefill) -> Tuple[np.ndarray, int]:
+    """(perm, geo_start): the stable host-side sort of a mixed prefill's rows
+    into [und | geo | padding], and the row where the geo expert's part
+    begins."""
+    key = np.where(prefill.doc_id < 0, 2, np.asarray(prefill.is_geo).astype(np.int32))
+    return np.argsort(key, kind="stable"), int((key == 0).sum())
 
 
 def decoder_forward(
@@ -359,10 +427,6 @@ def decoder_forward_train(
     (`parallel.sequence.sp_attender`) when the length divides their number,
     and ordinary attention otherwise, as the JAX dispatch does."""
     cfg = model.cfg
-    if cfg.layer_module == "mla_moe":
-        from .mla_moe_decoder import unsupported
-
-        raise unsupported("training (and its MIXED / SPLIT forwards)")
     if geo_start is not None and cfg.layer_module != "mot":
         raise ValueError(f"--split_layout (SPLIT routing) needs the 'mot' layer module; this model's is "
                          f"{cfg.layer_module!r}, which runs MIXED")
@@ -424,3 +488,60 @@ def lm_head(lm: MoTForCausalLM, hidden: torch.Tensor, out_dtype: torch.dtype = t
         local = F.linear(comm.copy_to(hidden, group).to(ct), w.to_local().to(ct))
         return comm.gather(local, group, dim=-1).to(out_dtype)
     return F.linear(hidden.to(ct), w.to(ct)).to(out_dtype)
+
+
+def decode_layers_fused(model: MoTModel, cache, x: torch.Tensor, cos, sin, cfg: LLMConfig,
+                        dt: torch.dtype) -> torch.Tensor:
+    """The und layers of a decode step of tokens x (B, D) on ops/decode_fused.py's kernels: a layer's
+    `add_rms_norm` (residual add and norm) at the input and after attention, and `decode_attention`
+    (q/k norms, RoPE, attention over the rows below `length` and the self term, the store of the new
+    row in `cache`, a batched KVCache) between the q/k/v and the o products. Returns the final norm."""
+    nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    b = x.shape[0]
+    scratch = decode_fused.decode_scratch(b, kvh, nh // kvh, cache.k.shape[3], x.device)
+    delta = None  # the last MLP's output, added to x by the next norm
+    for i, layer in enumerate(model.layers):
+        at = layer.self_attn
+        x, h = decode_fused.add_rms_norm(x, delta, layer.input_layernorm.weight, layer.input_layernorm.eps)
+        attn = decode_fused.decode_attention(
+            _lin(h, at.q_proj, dt).view(b, nh, hd), _lin(h, at.k_proj, dt).view(b, kvh, hd),
+            _lin(h, at.v_proj, dt).view(b, kvh, hd), cos, sin, cache.k[:, i], cache.v[:, i], cache.length,
+            at.q_norm.weight if cfg.qk_norm else None, at.k_norm.weight if cfg.qk_norm else None,
+            cfg.rms_norm_eps, scratch)
+        x, h = decode_fused.add_rms_norm(x, _lin(attn, at.o_proj, dt), layer.post_attention_layernorm.weight,
+                                         layer.post_attention_layernorm.eps)
+        delta = _mlp(h, layer.mlp, dt)
+    return decode_fused.add_rms_norm(x, delta, model.norm.weight, model.norm.eps)[1]
+
+
+def decode_layers_chain(model: MoTModel, cache, x: torch.Tensor, cos, sin, cfg: LLMConfig, dt: torch.dtype,
+                        visible: torch.Tensor, group=None, owns: Optional[torch.Tensor] = None):
+    """The und layers of a decode step of tokens x (B, D) as plain tensor code over the `visible`
+    (B, C) rows of `cache` (a batched KVCache, int8 or not; `group` / `owns`: `cache_attention`'s)
+    -> (the last hidden state, each layer's new k and v rows (B, KVH, HD) fp32, for the caller)."""
+    nh, kvh, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    b = x.shape[0]
+    eps = cfg.rms_norm_eps
+    quantized = cache.k_scale is not None
+    k_rows, v_rows = [], []
+    for i, layer in enumerate(model.layers):
+        at = layer.self_attn
+        h = layer.input_layernorm(x)
+        q = _lin(h, at.q_proj, dt).view(b, nh, hd)
+        k = _lin(h, at.k_proj, dt).view(b, kvh, hd)
+        v = _lin(h, at.v_proj, dt).view(b, kvh, hd)
+        if cfg.qk_norm:
+            q = rms_norm(q.float(), at.q_norm.weight, eps)
+            k = rms_norm(k.float(), at.k_norm.weight, eps)
+        q, k = apply_mrope(q, k, cos, sin)
+        k_row, v_row = k.float(), v.float()
+        attn = cache_attention(
+            q.float().view(b, kvh, nh // kvh, hd), cache.k[:, i], cache.v[:, i],
+            cache.k_scale[:, i] if quantized else None, cache.v_scale[:, i] if quantized else None,
+            visible, hd, k_row, v_row, group, owns,
+        )
+        x = x + _lin(attn.reshape(b, nh * hd).to(dt), at.o_proj, dt)
+        x = x + _mlp(layer.post_attention_layernorm(x).to(dt), layer.mlp, dt)
+        k_rows.append(k_row)
+        v_rows.append(v_row)
+    return x, k_rows, v_rows

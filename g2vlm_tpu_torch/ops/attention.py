@@ -5,7 +5,7 @@ ops/flash_attention.py; the dispatch by device lives in the kernels' wrappers
 there (CUDA tensors launch the kernel, CPU tensors take these functions).
 Every form computes in float32 and returns the input dtype.
 `segment_attention` chooses among the segment kernels by the caller's
-serving options.
+serving options. `cache_attention` is a decode step's token against its cache.
 
 Layout: batched q (..., S, H, D); packed q (S_q, H, D) against k, v
 (S_kv, KVH, D) with GQA, query head h reading KV head h // (H / KVH).
@@ -16,6 +16,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from .masks import TokenInfo, make_segment_mask
 
@@ -137,3 +138,61 @@ def self_attender(info: TokenInfo, impl: str = "auto", pipelined: bool = False):
         return segment_attention(q, k, v, info, info, impl=impl, pipelined=pipelined, plan=plan)
 
     return attend
+
+
+def cache_attention(q, k_all, v_all, k_scale, v_scale, visible, hd, k_self, v_self, group=None, self_here=None):
+    """Softmax attention of one query token per sequence over its cache plus
+    the token's own fresh K/V row, which is not in the cache yet.
+
+    q (B, KVH, G, HD) fp32; k_all / v_all (B, KVH, C, HD); scales (B, KVH, C)
+    or None; visible (B, C) bool; k_self / v_self (B, KVH, HD) fp32. The
+    dequantisation is folded after the products: the K scale multiplies the
+    logits and the V scale the probabilities, head_dim times less work than
+    scaling the cache itself. Returns (B, KVH, G, HD) fp32.
+
+    With `group` the cache is this rank's context shard: the row max is
+    merged with an all-reduce MAX, the sums l and acc with an all-reduce SUM
+    (softmax is shift-invariant, so the merge is exact), and the self term
+    counts only on the rank whose shard holds the position (`self_here`, (B,)
+    bool), so that the sums take it once."""
+    logits = torch.einsum("bngd,bncd->bngc", q, k_all.float()) * (hd ** -0.5)
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, :]
+    vis = visible[:, None, None, :]
+    logits = logits.masked_fill(~vis, float("-inf"))
+    s_self = torch.einsum("bngd,bnd->bng", q, k_self) * (hd ** -0.5)
+    if group is not None:
+        s_self = s_self.masked_fill(~self_here[:, None, None], float("-inf"))
+    m = torch.maximum(logits.amax(-1), s_self)  # the self term is always visible, so m is finite
+    if group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(logits - m[..., None])
+    p_self = torch.exp(s_self - m)
+    l = p.sum(-1) + p_self
+    pv = p if v_scale is None else p * v_scale[:, :, None, :]
+    acc = probs_times_values(pv, v_all.float()) + p_self[..., None] * v_self[:, :, None, :]
+    if group is not None:
+        dist.all_reduce(l, group=group)
+        dist.all_reduce(acc, group=group)
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+PV_SPLIT = 256  # cache rows per partial product of P.V
+
+
+def probs_times_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p (B, KVH, G, C) @ v (B, KVH, C, HD) -> (B, KVH, G, HD). A product of G
+    = 6 rows with a reduction over ~50k cache rows: as one matrix product the
+    library walks the whole reduction in one block per head (1.4 ms per layer
+    on an H100, most of a decode step), so the cache axis is cut into slices
+    of PV_SPLIT rows (and a shorter last one), each a small product of its
+    own, and the partial results are summed."""
+    c = p.shape[-1]
+    n = c // PV_SPLIT
+    if n < 2:
+        return torch.matmul(p, v)
+    whole = n * PV_SPLIT
+    parts = torch.matmul(p[..., :whole].unflatten(-1, (n, PV_SPLIT)).transpose(2, 3),
+                         v[:, :, :whole].unflatten(2, (n, PV_SPLIT)))
+    out = parts.sum(2)
+    return out if whole == c else out + torch.matmul(p[..., whole:], v[:, :, whole:])

@@ -15,7 +15,7 @@ whose K/V stages, tile codes and masks the query heads of a GQA group share
 warp-specialised schedule instead: a producer warpgroup fills the ring by TMA
 and builds the masks, and two consumer warpgroups take turns on the tensor
 cores (`segment_warpgroups`; counted apart in
-launch_counts["flash_segment_attention_ws"] and the tracing counter `k2.ws`).
+launch_counts["flash_segment_attention_ws"]).
 K6 and K3 are the same kernels with a per-row
 log-sum-exp output, replacing `_batched_flash_kernel_lse` and
 `_flash_kernel_lse`: the training forwards.
@@ -86,7 +86,6 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..utils import tracing
 from .attention import dense_attention, segment_attention_chunked
 from .masks import TokenInfo, make_segment_mask
 
@@ -689,7 +688,6 @@ def _segment_forward_cuda(q, k, v, q_meta, kv_meta, codes, scale, with_lse: bool
     launch_counts[name] += 1
     if d == WS_HEAD_DIM and not pipelined:  # K2 / K3's warp-specialised schedule
         launch_counts["flash_segment_attention_ws"] += 1
-        tracing.count("k2.ws", 1)
     return out, lse
 
 

@@ -105,10 +105,7 @@ def shard_model(model: nn.Module, mesh) -> nn.Module:
     from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
     from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
-    if model.cfg.llm.layer_module == "mla_moe":
-        from ..models.mla_moe_decoder import unsupported
-
-        raise unsupported("sharding (FSDP2 / tensor or sequence parallelism)")
+    model.language_model.check_serving(sharded=True)
     tp_mesh = mesh[TP]
     for name, dim in tensor_parallel_placements(model, tp_mesh.size()).items():
         mod_name, leaf = name.rsplit(".", 1)

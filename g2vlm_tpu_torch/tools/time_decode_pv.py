@@ -1,6 +1,6 @@
 """Times the decode step's probabilities-times-values product on one NVIDIA
 GPU, as one matrix product and in the sliced form the port runs
-(`inference.decoding._probs_times_values`), at the chat slice's cache:
+(`ops.attention.probs_times_values`), at the chat slice's cache:
 
     python -m g2vlm_tpu_torch.tools.time_decode_pv [CACHE_ROWS]
 
@@ -17,7 +17,7 @@ import sys
 
 import torch
 
-from g2vlm_tpu_torch.inference import decoding
+from g2vlm_tpu_torch.ops import attention
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -37,7 +37,7 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     p = torch.rand(1, 2, 6, rows, generator=gen, device="cuda")
     v = torch.randn(1, 2, rows, 128, generator=gen, device="cuda")
-    forms = {"whole": lambda: torch.matmul(p, v), "sliced": lambda: decoding._probs_times_values(p, v)}
+    forms = {"whole": lambda: torch.matmul(p, v), "sliced": lambda: attention.probs_times_values(p, v)}
     whole, sliced = forms["whole"](), forms["sliced"]()
     rel = ((sliced - whole).abs().max() / whole.abs().max()).item()
     if rel > 1e-4:

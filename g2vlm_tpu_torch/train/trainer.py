@@ -111,7 +111,7 @@ def train_forward(
     dev = batch.doc_id.device
 
     seq = torch.zeros((s, cfg.llm.hidden_size), dtype=compute_dtype, device=dev)
-    text_emb = mot_decoder.embed_tokens(lm.model, batch.text_ids.long())
+    text_emb = lm.model.embed_tokens(batch.text_ids.long())
     seq = seq.index_put((batch.text_indexes.long(),), text_emb.to(compute_dtype))
 
     n, _, h, w = batch.dino_images.shape
@@ -134,8 +134,8 @@ def train_forward(
         seq = seq.index_put((batch.vit_indexes.long(),), vit_emb.to(compute_dtype))[:s]
 
     info = TokenInfo(batch.doc_id, batch.fn_id, batch.noise_id, batch.pos)
-    hidden = mot_decoder.decoder_forward_train(
-        lm.model, seq, batch.is_geo, batch.position_ids, info,
+    hidden = lm.forward_train(
+        seq, batch.is_geo, batch.position_ids, info,
         geo_start=geo_start, compute_dtype=compute_dtype,
         remat=remat, remat_group=remat_group, remat_inner=remat_inner, sp=sp,
     )

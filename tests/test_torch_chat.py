@@ -226,12 +226,9 @@ def test_token_ids_outside_the_vocabulary_raise(models):
         tg.prefill_hidden(model, b.build(pad_to=8), None, CFG)
 
 
-def test_serving_options_are_constructor_arguments(models, monkeypatch):
+def test_serving_options_are_constructor_arguments(models):
     _, model = models
     assert G2VLMPipeline(model, CFG).attn_impl == "auto" and not G2VLMPipeline(model, CFG).attn_pipe
-    monkeypatch.setenv("G2VLM_ATTN_INT8", "1")
-    assert G2VLMPipeline(model, CFG).attn_impl == "int8"  # read once, here
-    monkeypatch.delenv("G2VLM_ATTN_INT8")
     pipe = G2VLMPipeline(model, CFG, attn_impl="int8", attn_pipe=True)
     assert pipe._attn == dict(attn_impl="int8", attn_pipe=True)
     with pytest.raises(ValueError):

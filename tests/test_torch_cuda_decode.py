@@ -16,6 +16,7 @@ from g2vlm_tpu_torch.config import G2VLMConfig, cut_depth_config
 from g2vlm_tpu_torch.inference import decoding
 from g2vlm_tpu_torch.ops import decode_fused as df
 from g2vlm_tpu_torch.ops import flash_attention as fa
+from g2vlm_tpu_torch.ops.attention import cache_attention
 from g2vlm_tpu_torch.ops.norms import rms_norm
 from g2vlm_tpu_torch.ops.rope import apply_mrope
 from g2vlm_tpu_torch.weights import build_model
@@ -68,14 +69,14 @@ def _call(fn, x, length, **kw):
 
 
 def _chain(q, k, v, cos, sin, kc, vc, length, q_norm, k_norm, eps):
-    """decoding.py's chain for one layer on the card: q/k norm, apply_mrope, _attend, the store."""
+    """The decode step's chain for one layer on the card: q/k norm, apply_mrope, cache_attention, the store."""
     b, nh, d = q.shape
     cap = kc.shape[2]
     if q_norm is not None:
         q, k = rms_norm(q.float(), q_norm, eps), rms_norm(k.float(), k_norm, eps)
     q, k = apply_mrope(q, k, cos, sin)
     visible = torch.arange(cap, device=q.device)[None, :] < length[:, None]
-    out = decoding._attend(q.float().view(b, KVH, nh // KVH, d), kc, vc, None, None, visible, d, k.float(), v.float())
+    out = cache_attention(q.float().view(b, KVH, nh // KVH, d), kc, vc, None, None, visible, d, k.float(), v.float())
     bi = torch.arange(b, device=q.device)
     pos = length.clamp(0, cap - 1)
     kc[bi, :, pos] = k.float().to(kc.dtype)
@@ -203,7 +204,7 @@ def _graph_logits(lm, cache, cfg, tokens, pos0):
     batched = decoding._batched(cache)
     tok = torch.tensor([tokens[0]], dtype=torch.int64, device="cuda")
     pos = torch.tensor([pos0], dtype=torch.int64, device="cuda")
-    inv = decoding._rope_inv_freq(cfg, "cuda")
+    inv = lm.rope_inv_freq("cuda")
 
     def step():
         return decoding._decode_step(lm, batched, tok, pos, cfg, torch.bfloat16, inv)

@@ -17,6 +17,7 @@ from g2vlm_tpu.inference import decoding as jdec
 from g2vlm_tpu.models import g2vlm as jg
 from g2vlm_tpu_torch.inference import decoding as tdec
 from g2vlm_tpu_torch.models import g2vlm as tg
+from g2vlm_tpu_torch.ops import attention as tatt
 from g2vlm_tpu_torch.weights import build_model, state_dict_from_jax
 
 CFG = tiny_test_config(visual_und=False)
@@ -157,11 +158,11 @@ def test_decode_step_on_a_long_cache_splits_the_value_product(models, rng):
     and against JAX."""
     p = torch.from_numpy(rng.random((2, 2, 4, 1024)).astype(np.float32))
     v = torch.from_numpy(rng.standard_normal((2, 2, 1024, 16)).astype(np.float32))
-    np.testing.assert_allclose(tdec._probs_times_values(p, v).numpy(), torch.matmul(p, v).numpy(), atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(tatt.probs_times_values(p, v).numpy(), torch.matmul(p, v).numpy(), atol=1e-4, rtol=1e-5)
     for c in (1000, 300):  # a shorter last slice
-        np.testing.assert_allclose(tdec._probs_times_values(p[..., :c], v[:, :, :c]).numpy(),
+        np.testing.assert_allclose(tatt.probs_times_values(p[..., :c], v[:, :, :c]).numpy(),
                                    torch.matmul(p[..., :c], v[:, :, :c]).numpy(), atol=1e-4, rtol=1e-5)
-    assert torch.equal(tdec._probs_times_values(p[..., :200], v[:, :, :200]), torch.matmul(p[..., :200], v[:, :, :200]))
+    assert torch.equal(tatt.probs_times_values(p[..., :200], v[:, :, :200]), torch.matmul(p[..., :200], v[:, :, :200]))
     params, model = models
     jpre, jc, tc = _caches(models, False, capacity=600)
     pos = int(jpre.next_rope_pos)
@@ -311,7 +312,7 @@ def _fresh_rows(rng, b, kvh, g, d, cap, dtype, qk_norm):
 
 
 def _chain_attention(q, k, v, cos, sin, kc, vc, length, q_norm, k_norm, eps):
-    """One layer of decoding.py's chain: q/k norm, apply_mrope, _attend, then the store of the rows."""
+    """One layer of the decode step's chain: q/k norm, apply_mrope, cache_attention, then the store of the rows."""
     from g2vlm_tpu_torch.ops.norms import rms_norm
     from g2vlm_tpu_torch.ops.rope import apply_mrope
 
@@ -321,7 +322,7 @@ def _chain_attention(q, k, v, cos, sin, kc, vc, length, q_norm, k_norm, eps):
         q, k = rms_norm(q.float(), q_norm, eps), rms_norm(k.float(), k_norm, eps)
     q, k = apply_mrope(q, k, cos, sin)
     visible = torch.arange(cap)[None, :] < length[:, None]
-    out = tdec._attend(q.float().view(b, kvh, nh // kvh, d), kc, vc, None, None, visible, d, k.float(), v.float())
+    out = tatt.cache_attention(q.float().view(b, kvh, nh // kvh, d), kc, vc, None, None, visible, d, k.float(), v.float())
     pos = length.clamp(0, cap - 1)
     bi = torch.arange(b)
     kc[bi, :, pos] = k.float().to(kc.dtype)
@@ -345,7 +346,7 @@ def _chain_attention(q, k, v, cos, sin, kc, vc, length, q_norm, k_norm, eps):
 ], ids=["len0", "len1", "split-1", "split", "split+1", "2chunks-1", "2chunks+1", "ragged", "full", "b2", "b2_g1"])
 def test_decode_attention_plain_matches_the_chain(rng, dtype, b, g, qk_norm, lengths, cap, chunks_per_split):
     """decode_attention_plain (splits, online softmax over 128-row chunks, the last split's merge,
-    the row stored after the reads) against the chain's q/k norm + apply_mrope + _attend + store:
+    the row stored after the reads) against the chain's q/k norm + apply_mrope + cache_attention + store:
     the stored rows equal up to one step of the dtype, the outputs within fp32 rounding."""
     from g2vlm_tpu_torch.ops import decode_fused as df
 

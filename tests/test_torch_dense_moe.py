@@ -98,7 +98,7 @@ def test_split_and_geo_main_need_the_mot_layer(variant):
     with pytest.raises(ValueError, match="GEO_MAIN"):
         tmot.decoder_forward(lm.model, x, torch.from_numpy(pre.position_ids), pre.token_info(),
                              und_idx=torch.from_numpy(pre.text_indexes).long())
-    assert not tg._geo_dominant(cfg, pre)  # so the recon prefill runs MIXED
+    assert not tmot._geo_dominant(cfg.llm, pre)  # so the recon prefill runs MIXED
 
 
 @pytest.mark.parametrize("variant", ["mot", "moe", "dense"])

@@ -101,3 +101,36 @@ def test_port_image_constants_equal_the_jax_package(rng):
     np.testing.assert_array_equal(timages.resnet_normalize(x), jimages.resnet_normalize(x))
     frames = [(rng.random((20, 30, 3)) * 255).astype(np.uint8) for _ in range(2)]
     np.testing.assert_array_equal(timages.load_views(frames, new_width=28), jimages.load_views(frames, new_width=28))
+
+
+def test_the_decoder_family_is_decided_behind_the_language_model():
+    """Which decoder family a model has is asked of its language model: only config.py, the one
+    construction in models/g2vlm.py and models/mla_moe_decoder.py compare `layer_module` to
+    "mla_moe"; nothing under inference/ or parallel/ but decoding.py's latent step, and not
+    models/mot_decoder.py, imports mla_moe_decoder; and decoding.py names no layer attribute (the
+    per-token layers live beside their layers)."""
+    import ast
+    import re
+
+    port = REPO / "g2vlm_tpu_torch"
+    compare = re.compile(r"""layer_module\s*(==|!=|in\b)[^\n]*["']mla_moe["']|["']mla_moe["']\s*(==|!=)""")
+    found = {path.relative_to(port).as_posix(): len(compare.findall(path.read_text()))
+             for path in port.rglob("*.py")}
+    assert found.pop("models/g2vlm.py") == 1
+    assert not {name: n for name, n in found.items()
+                if n and name not in ("config.py", "models/mla_moe_decoder.py")}
+
+    def imports_mla(path):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = [a.name for a in node.names] + [getattr(node, "module", None) or ""]
+                if any("mla_moe_decoder" in n for n in names):
+                    return True
+        return False
+
+    importing = [path.relative_to(port).as_posix() for path in
+                 [*port.glob("inference/*.py"), *port.glob("parallel/*.py"), port / "models" / "mot_decoder.py"]
+                 if imports_mla(path)]
+    assert importing == ["inference/decoding.py"]
+    decoding = (port / "inference" / "decoding.py").read_text()
+    assert not re.findall(r"\b(self_attn|mlp|q_proj|kv_b_proj|input_layernorm)\b", decoding)

@@ -193,7 +193,7 @@ def test_chat_prefill_and_latent_decode_match_the_full_forward(system):
     prefill, _, lats, _, _ = pipe.chat_prefill(frames, question)
     served = [311, 4017, 99, 151645]
     cap = max(prefill.seq_len + 16, len(prefill.doc_id))
-    cache = decoding.build_latent_cache(lats, prefill.seq_len, pipe.cfg.llm, cap, dtype=torch.float32)
+    cache = decoding.build_cache(lats, prefill.seq_len, pipe.cfg.llm, cap, dtype=torch.float32)
     assert cache.kv.shape == (cfg["num_hidden_layers"], cap, cfg["kv_lora_rank"] + cfg["qk_rope_head_dim"])
     rows = []
     for j, tok in enumerate([layout.EOS] + served[:-1]):
@@ -208,7 +208,7 @@ def test_chat_prefill_and_latent_decode_match_the_full_forward(system):
 
 def test_paths_it_does_not_serve_raise_with_its_name(system):
     from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
-    from g2vlm_tpu_torch.models import mot_decoder
+    from g2vlm_tpu_torch.parallel.mesh import shard_model
 
     cfg, pipe, _ = system
     for kw in (dict(attn_impl="int8"), dict(attn_pipe=True)):
@@ -217,12 +217,15 @@ def test_paths_it_does_not_serve_raise_with_its_name(system):
     frames = list(np.random.default_rng(2).integers(0, 256, (1, 28, 28, 3), dtype=np.uint8))
     with pytest.raises(NotImplementedError, match="mla_moe"):
         pipe.chat(frames, "what", max_new_tokens=2, quantized_kv=True)
-    lm = pipe.model.language_model.model
     with pytest.raises(NotImplementedError, match="mla_moe"):
-        mot_decoder.decoder_forward_train(lm, None, None, None, None)
+        pipe.model.language_model.forward_train(None, None, None, None)
+    with pytest.raises(NotImplementedError, match="mla_moe"):
+        shard_model(pipe.model, None)
     cache = decoding.LatentCache(torch.zeros(1, 3, 8, 40), torch.zeros(1, dtype=torch.int64))
     with pytest.raises(NotImplementedError, match="mla_moe"):
         decoding.generate_batched(pipe.model.language_model, cache, [1], [0], 2, pipe.cfg.llm)
+    with pytest.raises(NotImplementedError, match="mla_moe"):
+        decoding.generate_tp(pipe.model.language_model, cache, 1, 0, 2, pipe.cfg.llm, None)
 
 
 def test_the_kernel_names_of_k2_and_the_mla_forward_are_apart():

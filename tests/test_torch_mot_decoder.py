@@ -72,7 +72,7 @@ def test_geo_main_decoder_matches_jax(models, rng, jax_mode):
 def test_embed_tokens_matches_jax(models):
     jp, lm = models
     ids = np.asarray([0, 5, 17, 511, 5], np.int32)
-    got = tmot.embed_tokens(lm.model, torch.from_numpy(ids).long())
+    got = lm.model.embed_tokens(torch.from_numpy(ids).long())
     np.testing.assert_array_equal(got.detach().numpy(), np.asarray(jmot.embed_tokens(jp, jnp.asarray(ids))))
 
 

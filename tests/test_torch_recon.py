@@ -15,6 +15,7 @@ from g2vlm_tpu.inference.pipeline import G2VLMPipeline as JaxPipeline
 from g2vlm_tpu.models import g2vlm as jg
 from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
 from g2vlm_tpu_torch.models import g2vlm as tg
+from g2vlm_tpu_torch.models import mot_decoder as tmot
 from g2vlm_tpu_torch.ops import flash_attention as tfa
 from g2vlm_tpu_torch.weights import build_model, state_dict_from_jax
 
@@ -140,7 +141,7 @@ def test_non_geo_dominant_prefill_matches_jax(models, rng):
         b.add_text(list(range(20, 40)))
         b.add_dino_images(1, 4, 4)  # 16 dino rows against 22 text rows: not geo-dominant
         builders.append(b.build(pad_to=64))
-    assert not tg._geo_dominant(CFG, builders[1])
+    assert not tmot._geo_dominant(CFG.llm, builders[1])
     want = jg.recon_forward(jax.tree.map(jnp.asarray, params), builders[0], jnp.asarray(imgs), CFG)
     with torch.inference_mode():
         got = tg.recon_forward(model, builders[1], torch.from_numpy(imgs), CFG)
