@@ -5,6 +5,7 @@
     python3 chip_smoke.py --tracing   # phases 1, 2 and 24 alone (~3 min)
     python3 chip_smoke.py --kimivl    # phases 1, 2 and 25 alone
     python3 chip_smoke.py --decode    # phases 1, 2 and 13(b) alone (~4 min)
+    python3 chip_smoke.py --images    # phases 1, 2 and 26 alone
 
 Phases (each prints its result; any failure raises and the exit code is 1):
   1. device: the card's name and power limit;
@@ -157,7 +158,7 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      (c) with two cards or more, the cut-depth step on 2 NCCL ranks (fsdp=2, sequence parallel) against
      one rank;
  24. the program's spans (g2vlm_tpu_torch/utils/tracing.py) at full width: one 32-view recon call
-     (294x518) and one 4-view chat request (480x640, the host preprocess) under torch.profiler, each
+     (294x518) and one 4-view chat request (480x640, the default preprocess) under torch.profiler, each
      span tree with host and device ms; recon's four stage spans (input, dino, decoder, heads) against
      the profiler's busy time for the call plus the idle inside them (90-110%); every idle gap of 10 us
      or more attributed by time overlap to the innermost span open over it; the `upload.bytes` counter
@@ -175,6 +176,12 @@ Phases (each prints its result; any failure raises and the exit code is 1):
      three times: prefill, latent cache and the graph-captured decode of 27 layers, timed; then one
      32-view recon call of 294x518, its launches gated (K1 44, the MLA forward 27).
      `--kimivl` runs phases 1, 2 and 25 alone.
+ 26. the chat images' resample (ops/resample.py): each of its three kernels at chat-short's shapes (4
+     frames of 480x640; LANCZOS to 392x518, bicubic to 768x768 then 756x756) bitwise its plain version
+     and Pillow, timed beside its bytes bound, its plain version on the card and F.interpolate; a
+     4-frame request's views and ViT rows on the kernels against the host PIL path, both timed; then
+     G2VLMConfig() in bf16: 6 launches a chat request of 1-4 frames, its served ids those of the PIL
+     path. `--images` runs phases 1, 2 and 26 alone.
 Every kernel is also timed beside the one PyTorch library call that computes
 the same function (a yardstick only; the port never calls it). The last line is
 {"ok": true, "device": {...}}; before it, the card's line and one JSON line
@@ -381,6 +388,7 @@ def main() -> None:
     ap.add_argument("--tracing", action="store_true", help="run phases 1, 2 and 24 (the program's spans) alone")
     ap.add_argument("--kimivl", action="store_true", help="run phases 1, 2 and 25 (the mla_moe decoder) alone")
     ap.add_argument("--decode", action="store_true", help="run phases 1, 2 and 13(b) (the fused decode step) alone")
+    ap.add_argument("--images", action="store_true", help="run phases 1, 2 and 26 (the chat images' resample) alone")
     args = ap.parse_args()
 
     import torch
@@ -454,12 +462,14 @@ def main() -> None:
 
     # launches of each main path's run: counts set to 0 just before it, read just after
     paths_run = {}
-    alone = args.tracing or args.kimivl or args.decode
+    alone = args.tracing or args.kimivl or args.decode or args.images
     if not alone:
         paths_run["recon_call"], paths_run["train_step"], recon_ms = _recon_and_train_phases(env)
         paths_run.update(_chat_phases(env, recon_ms))
-    if not (args.tracing or args.kimivl):
+    if not (args.tracing or args.kimivl or args.images):
         paths_run.update(_decode_phase(env))
+    if not (args.tracing or args.kimivl or args.decode):
+        paths_run.update(_images_phase(env))
     if not alone:
         paths_run["recon_entry"] = _recon_entry_phase(env)
         paths_run["joint_step"], joint = _joint_step_phase(env)
@@ -470,9 +480,9 @@ def main() -> None:
         paths_run.update(_dense_moe_phase(env, recon_ms))
         paths_run["recon_dinov3"] = _dinov3_phase(env, recon_ms)
         paths_run.update(_parallel_phase(env))
-    if not (args.kimivl or args.decode):
+    if not (args.kimivl or args.decode or args.images):
         _tracing_phase(env)
-    if not (args.tracing or args.decode):
+    if not (args.tracing or args.decode or args.images):
         paths_run["kimivl_chat"] = _kimivl_phase(env)
 
     for kname, e in kernels.items():
@@ -1904,6 +1914,168 @@ def _decode_phase(env):
 
 
 REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _images_phase(env):
+    """Phase 26: the chat path's image resample on the card (ops/resample.py, csrc/image_resample.cu)
+    at chat-short's shapes: each kernel bitwise its plain version and Pillow, timed beside its bytes
+    bound, its plain version on the card and F.interpolate(antialias=True); a request's images on the
+    kernels against the host PIL path they replaced; then G2VLMConfig() in bf16: 6 launches a chat
+    request of 1-4 uniform frames and the served ids of the PIL path. Returns the launches of one
+    4-frame chat request ("images_chat")."""
+    import gc
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from PIL import Image
+
+    from g2vlm_tpu_torch.config import G2VLMConfig
+    from g2vlm_tpu_torch.data.images import RESNET_MEAN, RESNET_STD, load_views, resnet_normalize
+    from g2vlm_tpu_torch.data.vit_preprocess import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD, preprocess_vit_image
+    from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
+    from g2vlm_tpu_torch.models import qwen_vit
+    from g2vlm_tpu_torch.ops import resample as rs
+    from g2vlm_tpu_torch.weights import build_model
+
+    dev, card, bf16 = env.dev, env.card, torch.bfloat16
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(26)
+    low = rng.integers(0, 256, (4, 60, 80, 3), dtype=np.uint8)  # chat-short's pool: one value an 8x8 block
+    frames = np.repeat(np.repeat(low, 8, axis=1), 8, axis=2)
+    x = torch.from_numpy(frames).to(dev)
+    pil = {rs.LANCZOS: Image.Resampling.LANCZOS, rs.BICUBIC: Image.Resampling.BICUBIC}
+
+    def pil_resize(arr, hw, filt):
+        return np.stack([np.asarray(Image.fromarray(f).resize(hw[::-1], pil[filt])) for f in arr])
+
+    def interp(t, hw, mode):  # the library's antialiased resize of the same frames, fp32 NCHW
+        return lambda: F.interpolate(t, size=hw, mode=mode, antialias=True, align_corners=False)
+
+    stage = rs.resize(x, (768, 768), rs.BICUBIC)
+    h_lanczos = rs.resample_pass(x, 518, rs.LANCZOS, axis=2)
+    h_768 = rs.resample_pass(x, 768, rs.BICUBIC, axis=2)
+    h_756 = rs.resample_pass(stage, 756, rs.BICUBIC, axis=2)
+    views_out = torch.empty((4, 3, 392, 518), dtype=bf16, device=dev)
+    rows_out = torch.empty((4 * 2916, 1176), dtype=bf16, device=dev)
+    tabs = {k: rs.table(*k, dev) for k in ((640, 518, rs.LANCZOS), (480, 392, rs.LANCZOS), (640, 768, rs.BICUBIC),
+                                           (480, 768, rs.BICUBIC), (768, 756, rs.BICUBIC))}
+    xf, stage_f = x.permute(0, 3, 1, 2).float(), stage.permute(0, 3, 1, 2).float()
+    # (tag, kernel, plain version on the card, the host's Pillow or None, library call, bytes moved)
+    cases = [
+        ("resample_pass", "LANCZOS H 640->518 (4x480)", lambda: rs.resample_pass(x, 518, rs.LANCZOS, axis=2),
+         lambda: rs.resample_pass_plain(x, tabs[640, 518, rs.LANCZOS], 2), None,
+         interp(xf, (480, 518), "bicubic"), x.numel() + 4 * 480 * 518 * 3),
+        ("resample_pass", "bicubic H 640->768 (4x480)", lambda: rs.resample_pass(x, 768, rs.BICUBIC, axis=2),
+         lambda: rs.resample_pass_plain(x, tabs[640, 768, rs.BICUBIC], 2), None,
+         interp(xf, (480, 768), "bicubic"), x.numel() + 4 * 480 * 768 * 3),
+        ("resample_pass", "bicubic V 480->768 (4x768)", lambda: rs.resample_pass(h_768, 768, rs.BICUBIC, axis=1),
+         lambda: rs.resample_pass_plain(h_768, tabs[480, 768, rs.BICUBIC], 1),
+         pil_resize(frames, (768, 768), rs.BICUBIC), interp(xf, (768, 768), "bicubic"), h_768.numel() + stage.numel()),
+        ("resample_pass", "bicubic H 768->756 (4x768)", lambda: rs.resample_pass(stage, 756, rs.BICUBIC, axis=2),
+         lambda: rs.resample_pass_plain(stage, tabs[768, 756, rs.BICUBIC], 2), None,
+         interp(stage_f, (768, 756), "bicubic"), stage.numel() + 4 * 768 * 756 * 3),
+        ("resample_views", "LANCZOS V 480->392 + RESNET norm -> (4,3,392,518) bf16",
+         lambda: rs.resample_views(h_lanczos, (392, 518), rs.LANCZOS, RESNET_MEAN, RESNET_STD, views_out),
+         lambda: rs._normalize_plain(rs.resample_pass_plain(h_lanczos, tabs[480, 392, rs.LANCZOS], 1), RESNET_MEAN,
+                                     RESNET_STD, bf16).permute(0, 3, 1, 2),
+         torch.as_tensor(resnet_normalize(load_views(list(frames)))).to(bf16),
+         interp(xf, (392, 518), "bicubic"), h_lanczos.numel() + views_out.numel() * 2),
+        ("resample_patch_rows", "bicubic V 768->756 + CLIP norm -> (11664,1176) bf16 rows",
+         lambda: rs.resample_patch_rows(h_756, (756, 756), rs.BICUBIC, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD, rows_out),
+         lambda: rs.tile_rows_plain(rs._normalize_plain(rs.resample_pass_plain(h_756, tabs[768, 756, rs.BICUBIC], 1),
+                                                        OPENAI_CLIP_MEAN, OPENAI_CLIP_STD, bf16)),
+         torch.as_tensor(qwen_vit.pack_views([dict(zip(("patches", "grid_thw"), preprocess_vit_image(f)))
+                                              for f in frames])[0]).to(bf16),
+         interp(stage_f, (756, 756), "bicubic"), h_756.numel() + rows_out.numel() * 2),
+    ]
+    totals = {}
+    for kname, tag, kernel, plain, host, library, n_bytes in cases:
+        got = kernel()
+        torch.cuda.synchronize()
+        equal_plain = torch.equal(got, plain())
+        equal_host = host is None or torch.equal(got.cpu(), host if isinstance(host, torch.Tensor)
+                                                 else torch.from_numpy(host))
+        if not (equal_plain and equal_host):
+            _fail(f"phase 26: {kname} ({tag}) bitwise its plain version {equal_plain}, the host path {equal_host}")
+        ms = _time_ms(kernel, 200)
+        plain_ms = _time_ms(plain, 20)
+        lib_ms, lib_why = _library_ms(library, 200)
+        bound_ms, bound_by = _bound(float(n_bytes), 0.0)
+        e = env.entry_for(kname, "none: the port's own (the JAX package resizes on the host with PIL)",
+                          "g2vlm_tpu_torch/csrc/image_resample.cu")
+        e.setdefault("shapes", []).append({"case": tag, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                           "bound_ms": bound_ms})
+        e.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+        totals[kname] = totals.get(kname, 0.0) + ms
+        print(f"[images] {kname} {tag}: {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us by {bound_by} "
+              f"({bound_ms / ms:.1%}); plain on the card {plain_ms:.3f} ms; library "
+              + (f"{lib_ms * 1e3:.2f} us (F.interpolate bicubic, antialias, fp32 NCHW){_ratio(ms, lib_ms)}"
+                 if lib_ms else f"not run: {lib_why}")
+              + "; bitwise its plain version" + (" and the host path" if host is not None else "") + f" ({card})")
+
+    # a 4-frame request's images: the kernels (device and host ms) against the host PIL path
+    cfg = G2VLMConfig()
+    model = build_model(cfg, device=dev, dtype=bf16, seed=0)
+    pipe = G2VLMPipeline(model, cfg)
+    flat_host = np.ascontiguousarray(frames).reshape(-1)
+    shapes, grid = [f.shape for f in frames], (1, 54, 54)
+
+    def on_card():
+        return pipe._chat_images(pipe._upload(flat_host), shapes, (392, 518), grid, 4 * 2916)
+
+    def host_path():
+        views = resnet_normalize(load_views(list(frames)))
+        pats = qwen_vit.pack_views([dict(zip(("patches", "grid_thw"), preprocess_vit_image(f))) for f in frames],
+                                   pad_to=4 * 2916)[0]
+        return torch.as_tensor(views).to(dev, bf16), torch.as_tensor(pats).to(dev, bf16)
+
+    got, want = on_card(), host_path()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        _fail("phase 26: a request's views / ViT rows on the kernels differ from the host PIL path's")
+    host_ms = {"kernels": [], "pil": []}
+    for i in range(6):
+        for k in (("kernels", "pil") if i % 2 == 0 else ("pil", "kernels")):
+            t0 = time.perf_counter()
+            (on_card if k == "kernels" else host_path)()
+            torch.cuda.synchronize()
+            host_ms[k].append((time.perf_counter() - t0) * 1e3)
+    dev_ms = _time_ms(on_card, 50)
+    print(f"[images] a request of 4 frames of 480x640: upload + 6 kernels {statistics.median(host_ms['kernels']):.3f} "
+          f"ms host-clock median (device {dev_ms:.3f} ms a request in a stream of 50), host PIL path + casts + "
+          f"upload {statistics.median(host_ms['pil']):.3f} ms; kernels alone {sum(totals.values()):.3f} ms "
+          f"({', '.join(f'{k} {v * 1e3:.1f} us' for k, v in totals.items())}); bitwise equal ({card})")
+
+    # G2VLMConfig(): 6 launches a request, and the PIL path's served ids
+    def pil_images(flat, shapes_, hw, grid_, rows):
+        host = flat.cpu().numpy()
+        imgs, off = [], 0
+        for s_ in shapes_:
+            imgs.append(host[off:off + int(np.prod(s_))].reshape(s_))
+            off += int(np.prod(s_))
+        views = resnet_normalize(load_views(imgs, new_width=hw[1]))
+        pats = qwen_vit.pack_views([dict(zip(("patches", "grid_thw"), preprocess_vit_image(im))) for im in imgs],
+                                   pad_to=rows)[0]
+        return torch.as_tensor(views).to(dev, bf16), torch.as_tensor(pats).to(dev, bf16)
+
+    pool = np.repeat(np.repeat(rng.integers(0, 256, (8, 60, 80, 3), dtype=np.uint8), 8, axis=1), 8, axis=2)
+    served, launches = {}, {}
+    for n in (1, 2, 3, 4):
+        rs.reset_launch_counts()
+        served[n] = pipe.chat(list(pool[n:2 * n]), QUESTION, max_new_tokens=24)
+        launches[n] = {k: v for k, v in rs.launch_counts.items() if v}
+    pipe._chat_images = pil_images
+    same = {n: pipe.chat(list(pool[n:2 * n]), QUESTION, max_new_tokens=24) == served[n] for n in served}
+    want_launches = {"resample_pass": 4, "resample_views": 1, "resample_patch_rows": 1}
+    print(f"[images] G2VLMConfig() chat, 1-4 views: launches {launches}; served ids equal the PIL path's {same}; "
+          f"phase 26 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    if any(v != want_launches for v in launches.values()) or not all(same.values()):
+        _fail(f"phase 26: launches {launches} (expected {want_launches} a request), ids equal {same}")
+    del model, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"images_chat": launches[4]}
 
 
 def _write_views(folder: str, n: int, seed: int):

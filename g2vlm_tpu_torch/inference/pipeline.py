@@ -9,10 +9,12 @@ the heads, returning the outputs on the device.
 Chat with the reconstruction in context: system prompt -> dino (geometry)
 views -> per-image ViT tokens -> question, all in ONE packed prefill whose
 per-layer K/V fill a preallocated cache, then the decode loop of
-inference/decoding.py. `chat` takes images (host preprocess, any shapes) or,
-with `device_preprocess`, uniform uint8 frames that are uploaded once and
-preprocessed for both towers on the device, the towers encoding view chunks
-one after another. `chat_continue` runs a follow-up turn on the live cache.
+inference/decoding.py. `chat` takes images of any shapes, decoded to uint8
+on the host and resized on the model's device bit for bit as PIL resizes them
+(ops/resample.py), or, with `device_preprocess`, uniform uint8 frames that are
+uploaded once and preprocessed for both towers on the device by float
+resamplers, the towers encoding view chunks one after another.
+`chat_continue` runs a follow-up turn on the live cache.
 
 Serving options, fixed at construction: `attn_impl` "auto" or "int8" (the
 quantized serving mode: every large prefill attention of the ViT tower and of
@@ -34,23 +36,55 @@ from ..config import G2VLMConfig
 from ..data.device_preprocess import (
     preprocess_views_device, preprocess_vit_frames_device, target_hw, vit_device_grid,
 )
-from ..data.images import load_views, resnet_normalize
+from ..data.images import RESNET_MEAN, RESNET_STD, load_views, resnet_normalize
 from ..data.tokenizer import derive_start_token
-from ..data.vit_preprocess import preprocess_vit_image
+from ..data.vit_preprocess import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD
 from ..models import qwen_vit
 from ..models.g2vlm import (
     G2VLM, PackedPrefill, SequenceBuilder, encode_dino_to_llm, encode_vit_to_llm, prefill_hidden, recon_forward,
 )
+from ..ops import resample
 from ..parallel.mesh import model_mesh
 from ..utils import tracing
 from . import decoding
 
 RECON_PROMPT = "Reconstruct the 3D scene."
 UPLOAD_CHUNKS = 4  # view chunks of the device-preprocess chat path
+VIT_STAGE_HW = (768, 768)  # preprocess_vit_image's first bicubic size
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _is_rgb_u8(a: np.ndarray) -> bool:
+    return a.dtype == np.uint8 and a.ndim == 3 and a.shape[-1] == 3
+
+
+def _rgb_u8(im, strict: bool = False) -> np.ndarray:
+    """A path, PIL image or HWC array -> an array; paths and PIL images decoded
+    to uint8 RGB by PIL. `strict` raises unless it is (H, W, 3) uint8."""
+    if isinstance(im, (np.ndarray, torch.Tensor)):
+        a = np.asarray(im)
+    else:
+        from PIL import Image  # only paths and PIL images need it
+
+        a = np.asarray((Image.open(im) if isinstance(im, str) else im).convert("RGB"))
+    if strict and not _is_rgb_u8(a):
+        raise ValueError(f"chat: an image must be a path, a PIL image or an (H, W, 3) uint8 array, got an array of "
+                         f"shape {a.shape} and dtype {a.dtype}")
+    return a
+
+
+def _view_hw(h0: int, w0: int, new_width: Optional[int], multiple: int):
+    """`load_views`' shape rule: width `new_width`, height scaled and rounded to
+    a multiple of `multiple`; without a width, both rounded."""
+    if new_width is None:
+        return max(1, round(h0 / multiple)) * multiple, max(1, round(w0 / multiple)) * multiple
+    hw = target_hw(h0, w0, new_width, multiple)
+    if min(hw) < 1:
+        raise ValueError(f"chat: a view of {h0}x{w0} at width {new_width} has no rows")
+    return hw
 
 
 class ChatSession(NamedTuple):
@@ -211,20 +245,44 @@ class G2VLMPipeline:
     @staticmethod
     def _uniform_frames(images) -> Optional[np.ndarray]:
         """The images as one (N, H, W, 3) uint8 array when they are uniform
-        uint8 RGB frames, else None (the caller takes the host path)."""
-        def to_rgb_u8(im):
-            if isinstance(im, (np.ndarray, torch.Tensor)):
-                return np.asarray(im)
-            from PIL import Image  # only paths and PIL images need it
-
-            if isinstance(im, str):
-                im = Image.open(im)
-            return np.asarray(im.convert("RGB"))
-
-        arrs = [to_rgb_u8(im) for im in images]
-        ok = len({a.shape for a in arrs}) == 1 and all(
-            a.dtype == np.uint8 and a.ndim == 3 and a.shape[-1] == 3 for a in arrs)
+        uint8 RGB frames, else None (the caller takes the default path)."""
+        arrs = [_rgb_u8(im) for im in images]
+        ok = len({a.shape for a in arrs}) == 1 and all(map(_is_rgb_u8, arrs))
         return np.stack(arrs) if ok else None
+
+    def _chat_images(self, flat: torch.Tensor, shapes, hw, grid, rows: int):
+        """The chat towers' inputs from the request's uint8 frames, `flat` on
+        the model's device (the frames' bytes one after another, of `shapes`):
+        (the (N, 3, h, w) RESNET-normalised views, the ViT's (rows, 1176)
+        merge-grouped patch rows, zero past the images' own), both in the
+        model's dtype and bitwise `load_views` + `resnet_normalize` and
+        `preprocess_vit_image` + `pack_views` cast to it. Each run of
+        consecutive frames of one shape is one batch of the resample kernels:
+        the views by LANCZOS to `hw`; the ViT images by bicubic to 768 x 768,
+        then to `grid`'s size."""
+        dt = self.model.dtype
+        n = len(shapes)
+        views = torch.empty((n, 3, *hw), dtype=dt, device=flat.device)
+        patches = torch.empty((rows, resample.ROW), dtype=dt, device=flat.device)
+        per_image = int(np.prod(grid))
+        vit_hw = (grid[1] * resample.PATCH, grid[2] * resample.PATCH)
+        i = off = 0
+        while i < n:
+            j = i + 1
+            while j < n and shapes[j] == shapes[i]:
+                j += 1
+            size = (j - i) * int(np.prod(shapes[i]))
+            part = flat[off:off + size].view(j - i, *shapes[i])
+            off += size
+            resample.resample_views(part, hw, resample.LANCZOS, RESNET_MEAN, RESNET_STD, views[i:j])
+            stage = resample.resize(part, VIT_STAGE_HW, resample.BICUBIC)
+            resample.resample_patch_rows(stage, vit_hw, resample.BICUBIC, OPENAI_CLIP_MEAN, OPENAI_CLIP_STD,
+                                         patches[i * per_image:j * per_image if j < n else rows])
+            i = j
+        tracing.count("images.frames", n)
+        if flat.device.type == "cuda":
+            tracing.count("images.card_frames", n)
+        return views, patches
 
     def _encode_frames(self, frames: np.ndarray, hw):
         """Upload uniform uint8 frames and encode both towers, in UPLOAD_CHUNKS
@@ -260,7 +318,11 @@ class G2VLMPipeline:
         (t_upload_s, t_forward_s)); the two times are None unless `timed`,
         which records the call's spans (`tracing.record()`), synchronises the
         device at the end of the `upload` and `prefill` stages and returns
-        their host durations."""
+        their host durations.
+
+        By default the host only decodes the images to uint8 RGB arrays; they
+        go to the model's device as they are, where `_chat_images` resizes
+        them as PIL does, bit for bit (ops/resample.py)."""
         model, dt = self.model, self.model.dtype
         p = self.cfg.dino_patch_size
         frames = self._uniform_frames(images) if device_preprocess else None
@@ -276,16 +338,20 @@ class G2VLMPipeline:
                         self._sync()
             else:
                 with tracing.span("host_images"):
-                    views = load_views(images, new_width=new_width)
-                    vit_inputs = [preprocess_vit_image(im) for im in images]
-                    n_pat = sum(int(np.prod(g)) for _, g in vit_inputs)
-                    vit_patches, vit_coords, vit_seg, _ = qwen_vit.pack_views(
-                        [{"patches": pats, "grid_thw": grid} for pats, grid in vit_inputs], pad_to=_round_up(n_pat, 8))
-                n, _, h, w = views.shape
-                prefill = self.build_chat_prefill(n, h // p, w // p, [g for _, g in vit_inputs], prompt)
+                    arrs = [_rgb_u8(im, strict=True) for im in images]
+                    n = len(arrs)
+                    h, w = _view_hw(*arrs[0].shape[:2], new_width, p)
+                    grid = vit_device_grid()
+                    rows = _round_up(n * int(np.prod(grid)), 8)
+                    # pack_views' coords and seg ids; the patch rows themselves are made on the device
+                    _, vit_coords, vit_seg, _ = qwen_vit.pack_views(
+                        [{"patches": np.zeros((int(np.prod(grid)), 0), np.float32), "grid_thw": grid}] * n, pad_to=rows)
+                    flat = np.concatenate([a.reshape(-1) for a in arrs])
+                prefill = self.build_chat_prefill(n, h // p, w // p, [grid] * n, prompt)
                 with tracing.span("upload") as upload:
-                    normed = self._upload(resnet_normalize(views), dt)
-                    towers = dict(vit_patches=self._upload(vit_patches, dt), vit_coords=vit_coords, vit_seg=vit_seg)
+                    normed, vit_patches = self._chat_images(self._upload(flat), [a.shape for a in arrs], (h, w),
+                                                            grid, rows)
+                    towers = dict(vit_patches=vit_patches, vit_coords=vit_coords, vit_seg=vit_seg)
                     if timed:
                         self._sync()
             with tracing.span("prefill") as forward:

@@ -53,6 +53,7 @@ cp.async stages on mbarriers (csrc/hopper_common.cuh); `bwd_blocks` and
 All are CUDA C++ for sm_90a, built with nvcc into plain-C shared libraries at
 first use (one per source, in parallel) and called through ctypes; the MoT
 decode step's kernels (csrc/decode_fused.cu, wrapped by ops/decode_fused.py)
+and the chat images' resampler (csrc/image_resample.cu, ops/resample.py)
 build with them.
 
 What bounds them on the H100: tensor-core FLOPs (K8: int8 operations for
@@ -93,7 +94,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 # one shared library per source, all built at once by parallel nvcc processes
 _SOURCES = (_CSRC / "attention_segment.cu", _CSRC / "attention_bwd.cu", _CSRC / "attention_batched.cu",
-            _CSRC / "decode_fused.cu")
+            _CSRC / "decode_fused.cu", _CSRC / "image_resample.cu")
 _HEADERS = (_CSRC / "attention_common.cuh", _CSRC / "hopper_common.cuh")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -184,12 +185,13 @@ def build_library() -> Tuple[Tuple[Path, ...], str]:
 
 
 def load_library() -> Tuple[ctypes.CDLL, ...]:
-    """(segment forward, backward, batched forward, decode step) libraries,
-    built at first use; ops/decode_fused.py wraps the last."""
+    """(segment forward, backward, batched forward, decode step, image resample)
+    libraries, built at first use; ops/decode_fused.py wraps the fourth,
+    ops/resample.py the last."""
     global _libs
     if _libs is None:
         paths, _ = build_library()
-        seg, bwd, batched, decode = (ctypes.CDLL(str(path)) for path in paths)
+        seg, bwd, batched, decode, resample = (ctypes.CDLL(str(path)) for path in paths)
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         batched.g2_batched_attention.argtypes = [i, p, p, p, p, p, i, i, i, i, i] + [ll] * 9 + [f, p, i]
         batched.g2_batched_attention.restype = i
@@ -221,7 +223,13 @@ def load_library() -> Tuple[ctypes.CDLL, ...]:
         decode.g2_add_rms_norm.restype = i
         decode.g2_decode_constants.argtypes = [i]
         decode.g2_decode_constants.restype = i
-        _libs = (seg, bwd, batched, decode)
+        resample.g2_resample_pass.argtypes = [i] + [p] * 3 + [i] * 5 + [p]
+        resample.g2_resample_pass.restype = i
+        resample.g2_resample_views.argtypes = [i] + [p] * 3 + [i] * 5 + [f] * 6 + [p]
+        resample.g2_resample_views.restype = i
+        resample.g2_resample_patch_rows.argtypes = [i] + [p] * 3 + [i] * 5 + [f] * 6 + [i] * 3 + [ll, p]
+        resample.g2_resample_patch_rows.restype = i
+        _libs = (seg, bwd, batched, decode, resample)
     return _libs
 
 

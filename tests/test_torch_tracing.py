@@ -16,8 +16,6 @@ import pytest
 import torch
 
 from g2vlm_tpu_torch.config import tiny_test_config
-from g2vlm_tpu_torch.data.images import load_views
-from g2vlm_tpu_torch.data.vit_preprocess import preprocess_vit_image
 from g2vlm_tpu_torch.inference.pipeline import G2VLMPipeline
 from g2vlm_tpu_torch.utils import tracing
 from g2vlm_tpu_torch.weights import build_model
@@ -167,16 +165,15 @@ def test_chat_with_return_info_records_its_stages(pipe):
                       ("t_decode_s", "decode")):
         assert info[key] == by_name[name].host_s > 0
     assert info["t_prefill_s"] == info["t_upload_s"] + info["t_forward_s"] + info["t_cache_s"]
-    # the [0, 1] views and the ViT patches (padded to 8 rows), each in the model's dtype (float32 here)
-    views = load_views(frames, new_width=56)
-    patches = [preprocess_vit_image(f)[0] for f in frames]
-    rows = -(-sum(len(x) for x in patches) // 8) * 8
-    assert r.counters["upload.bytes"] == 4 * (views.size + rows * patches[0].shape[1])
+    # the uint8 frames as they are: the resample runs on the model's device (the plain version here)
+    assert r.counters["upload.bytes"] == sum(f.nbytes for f in frames)
+    assert r.counters["images.frames"] == 2 and "images.card_frames" not in r.counters
     assert info["request_id"] == r.rid
     s = tracing.summary()
     # the decode loop counts its 5 steps, none of them on the fused kernels on the CPU
     assert r.counters["decode.steps"] == 5 and "decode.fused_steps" not in r.counters
     assert s["requests"] == {"chat": 1} and s["counters"] == {("chat", "upload.bytes"): r.counters["upload.bytes"],
+                                                              ("chat", "images.frames"): 2.0,
                                                               ("chat", "decode.steps"): 5.0}
     assert tracing.summary([r.rid]) == s and tracing.summary([r.rid + 1])["requests"] == {}
     assert s["spans"][("chat", "decode.first")]["host_ms"] == pytest.approx(by_name["decode.first"].host_s * 1e3)
@@ -247,4 +244,19 @@ def test_the_fused_share_reader_reads_the_decode_loops_counters(pipe):
     r.counters["decode.fused_steps"] = 3  # as the loop counts on a bf16 cache on the card
     assert read(ctx) == 100.0
     del r.counters["decode.steps"], r.counters["decode.fused_steps"]
+    assert read(ctx) is None
+
+
+def test_the_images_card_share_reader_reads_the_frame_counters(pipe):
+    """chat.images_card_share: 100 x images.card_frames / images.frames over the requests of
+    `ctx.samples`; 0 on the CPU, where the plain resample runs; None without the frame counter
+    (a program that resizes the images on the host)."""
+    read = _reader("chat.images_card_share")
+    info = pipe.chat(_frames(2, seed=33), "how wide?", max_new_tokens=2, new_width=56, return_info=True)[1]
+    ctx = SimpleNamespace(samples=[{"info": info}])
+    [r] = tracing.requests()
+    assert r.counters["images.frames"] == 2 and read(ctx) == 0.0
+    r.counters["images.card_frames"] = 2  # as the pipeline counts frames resized by the kernels on the card
+    assert read(ctx) == 100.0
+    del r.counters["images.frames"], r.counters["images.card_frames"]
     assert read(ctx) is None
